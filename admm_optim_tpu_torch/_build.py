@@ -75,14 +75,14 @@ def lib() -> ctypes.CDLL:
     build()
     handle = ctypes.CDLL(str(LIBRARY))
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name, n_ptr in (
-        ("apply_w_sym_f32", 4),
-        ("apply_w_pencil_bf16", 4),
-        ("apply_w_df_sym_f32", 6),
+    for name, n_ptr, n_int in (
+        ("apply_w_sym_f32", 4, 7),
+        ("apply_w_pencil_bf16", 4, 7),
+        ("apply_w_df_sym_f32", 6, 6),
     ):
         fn = getattr(handle, name)
-        # pointers..., n_slots, n0, n1, n2, P, device, stream
-        fn.argtypes = [p] * n_ptr + [i] * 6 + [p]
+        # pointers..., n_slots, n0, n1, n2, P, [lanes,] device, stream
+        fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
         fn.restype = i
     handle.stencil_error_string.argtypes = [i]
     handle.stencil_error_string.restype = ctypes.c_char_p

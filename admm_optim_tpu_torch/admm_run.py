@@ -1,0 +1,72 @@
+"""The patch-backend ADMM inner loop end to end: the port's counterpart of
+bench.py's ``admm_throughput``.
+
+    ctx = xupdate_solve.build(4, "cuda", torch.float32)  # shared with the solve
+    out = admm_run.run(ctx)   # BENCH_CFG: 5 ADMM iterations, CG x-solves
+    out.state.admm_it, out.state.total_newton, out.seconds
+
+Each ADMM iteration runs the z-prox, the constrained Newton x-update (at
+most ns_max_its = 2 iterations, each one batched CG solve over the 1+m = 5
+lanes, preconditioned by the V-cycle on the stencils ``ctx`` keeps
+resident) and the dual ascent.  The shape gradient is random from a seed,
+as bench.py makes it.
+"""
+from __future__ import annotations
+
+import math
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .ops import patchstencil as st
+from .optim import admm
+from .optim.spaces import PatchOps
+from .xupdate_solve import DIRICHLET, SolveContext
+
+# bench.py admm_throughput's settings: admm_tolerance 0 runs every iteration
+BENCH_CFG = admm.ADMMConfig(
+    admm_steps=5, admm_tolerance=0.0, tau=1.0, ns_max_its=2, ns_tol=1e-4,
+    lin_max_iters=40, lin_abs_tol=1e-7, lin_rel_tol=1e-5, x_solver="cg",
+)
+SIGMA = 0.3
+SCALING = 1.0
+
+
+class ADMMRun(NamedTuple):
+    state: admm.ADMMState  # counters, flags and norms as the loop left them
+    seconds: float  # wall time of admm_inner, synchronized
+
+
+def reference_targets(hier):
+    """Volume and unnormalized barycenter of the undeformed fine mesh, in
+    float64 numpy (bench.py keeps them off the device)."""
+    fine = hier.fine
+    X = np.asarray(fine.coords, np.float64)
+    E = np.asarray(fine.elems)
+    vol = np.abs(np.linalg.det(X[E[:, 1:]] - X[E[:, :1]])) / math.factorial(hier.dim)
+    return vol.sum(), (vol[:, None] * X[E].mean(axis=1)).sum(0)
+
+
+def shape_gradient(ctx: SolveContext, seed: int = 1) -> torch.Tensor:
+    """Normal field from default_rng(seed), zero on Dirichlet vertices,
+    times 0.01, in patch layout (bench.py's Jp_p)."""
+    fine = ctx.hier.fine
+    Jp = np.random.default_rng(seed).normal(size=(ctx.hier.dim, fine.num_vertices))
+    Jp = torch.as_tensor(Jp, dtype=ctx.coords.dtype, device=ctx.coords.device)
+    free = torch.as_tensor(~fine.vertex_mask(DIRICHLET), dtype=Jp.dtype, device=Jp.device)
+    return st.to_patch(ctx.ps.fine, Jp * free) * 0.01
+
+
+def run(ctx: SolveContext, cfg: admm.ADMMConfig = BENCH_CFG, seed: int = 1) -> ADMMRun:
+    """admm_inner on PatchOps over ctx's multigrid data, sigma 0.3, scaling 1."""
+    dev, dtype = ctx.coords.device, ctx.coords.dtype
+    ops_ = PatchOps(ctx.struct, ctx.data, st.to_patch(ctx.ps.fine, ctx.coords.T))
+    Jp = shape_gradient(ctx, seed)
+    ref_vol, ref_bary = reference_targets(ctx.hier)
+    ref_vol = torch.as_tensor(ref_vol, dtype=dtype, device=dev)
+    ref_bary = torch.as_tensor(ref_bary, dtype=dtype, device=dev)
+    t0 = admm._clock(Jp)
+    state = admm.admm_inner(cfg, ops_, Jp, SIGMA, SCALING, ref_vol, ref_bary)
+    return ADMMRun(state, admm._clock(Jp) - t0)

@@ -1,12 +1,14 @@
 """State carried across from the JAX package.
 
-Turns the JAX package's assembled multigrid state, given as numpy arrays
-(e.g. ``jax.tree_util.tree_map(np.asarray, data)`` of an
-``admm_optim_tpu.solvers.patch_mg.PatchMGData``), into the port's
-PatchMGData and LevelTables on a torch device.  Only attributes are read,
-so this module imports nothing of JAX.
+Turns the JAX package's state, given as numpy arrays (e.g.
+``jax.tree_util.tree_map(np.asarray, data)``), into the port's on a torch
+device: the assembled multigrid state (``PatchMGData`` and its
+``LevelTables``), the ADMM configuration and the ADMM state.  Only
+attributes are read, so this module imports nothing of JAX.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -62,4 +64,31 @@ def patch_mg_data(data, ps: PatchSet, device) -> patch_mg.PatchMGData:
         base_inv=tensor(data.base_inv, device),
         tabs=[level_tables(t, lvl, device) for t, lvl in zip(data.tabs, ps.levels)],
         W_sm=W_sm,
+    )
+
+
+def admm_config(cfg):
+    """JAX ADMMConfig -> port ADMMConfig (xsolve_sequential is not ported)."""
+    from .optim.admm import ADMMConfig
+
+    return ADMMConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(ADMMConfig)})
+
+
+def admm_state(state, device):
+    """JAX ADMMState with numpy leaves -> port ADMMState: fields on the
+    device, counters, flags and norms as Python scalars, stats as float64
+    on the host."""
+    from .optim.admm import ADMMState
+
+    return ADMMState(
+        u=tensor(state.u, device), u_old=tensor(state.u_old, device),
+        lam=tensor(state.lam, device), q_proj=tensor(state.q_proj, device),
+        Lambda=tensor(state.Lambda, device),
+        scaling=float(state.scaling), admm_it=int(state.admm_it),
+        total_newton=int(state.total_newton), total_lin_iters=int(state.total_lin_iters),
+        solver_iters=[int(v) for v in np.asarray(state.solver_iters)],
+        converged=bool(state.converged), failed=bool(state.failed),
+        u_diff_norm=float(state.u_diff_norm), lam_inc_norm=float(state.lam_inc_norm),
+        max_grad_norm=float(state.max_grad_norm),
+        stats=tensor(state.stats, "cpu", torch.float64),
     )

@@ -2,9 +2,10 @@
 // of the Pallas TPU kernels in admm_optim_tpu/ops/pallas_stencil.py.
 //
 // Layouts (ops/stencil_kernels.py): fields x, y are (C, n0, n1, n2, P) f32
-// with C = 3; W is symmetric half storage (H, C, C, n0, n1, n2, P) f32 or
-// pencil-major (n0, n1, O, C, C, n2, P) bf16.  y is additive: per-patch
-// partial sums, made consistent by the exchange that follows.
+// with C = 3, or (lanes, C, n0, n1, n2, P) for the lane forms; W is
+// symmetric half storage (H, C, C, n0, n1, n2, P) f32 or pencil-major
+// (n0, n1, O, C, C, n2, P) bf16, shared by all lanes.  y is additive:
+// per-patch partial sums, made consistent by the exchange that follows.
 //
 // Every kernel runs one thread per lattice site (i, j, k, p) with p the
 // fastest thread index, so each W and x load of a warp is one contiguous
@@ -58,15 +59,22 @@ __device__ __forceinline__ long long neighbour(const Site& s, const int* e,
 // K1, replaces pallas_stencil.py _kernel_sym / _apply_w_pallas_3d_sym
 // (:140-277).  Streams the 8 stored slots once at the site and reads the
 // 7 missing ones as transposes at the neighbour (same 15 block reads per
-// site as the Pallas kernel, from half the stored bytes).
+// site as the Pallas kernel, from half the stored bytes).  With lanes > 1
+// (what jax.vmap makes of the Pallas call) the lane is the fastest part of
+// the block index, so the blocks of one site range run back to back and
+// all but the first read W from L2 rather than device memory.
 __global__ void apply_w_sym_kernel(const float* __restrict__ W,
                                    const float* __restrict__ x,
                                    float* __restrict__ y,
                                    const int* __restrict__ stab, int n_slots,
-                                   int n0, int n1, int n2, int P) {
+                                   int n0, int n1, int n2, int P, int lanes) {
   const long long sp = static_cast<long long>(n0) * n1 * n2 * P;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long t =
+      static_cast<long long>(blockIdx.x / lanes) * blockDim.x + threadIdx.x;
   if (t >= sp) return;
+  const long long lane_off = static_cast<long long>(blockIdx.x % lanes) * C * sp;
+  x += lane_off;
+  y += lane_off;
   const Site s = site_of(t, n1, n2, P);
   float acc[C] = {0.f, 0.f, 0.f};
   for (int q = 0; q < n_slots; ++q) {
@@ -94,10 +102,24 @@ __global__ void apply_w_sym_kernel(const float* __restrict__ W,
   for (int c = 0; c < C; ++c) y[c * sp + t] = acc[c];
 }
 
-// K2, replaces pallas_stencil.py _kernel_pc / _apply_w_pallas_3d_pc
-// (:280-304, :369-396).  Full 15-slot apply from pencil-major bf16 W:
-// weights are upcast in registers, x and the sums stay f32, so the
-// dominant W stream is half the bytes of f32.
+// K2 and K3: full 15-slot apply from pencil-major bf16 W for B lanes that
+// share W.  B = 1 is K2, replacing pallas_stencil.py _kernel_pc /
+// _apply_w_pallas_3d_pc (:280-304, :369-396); B = 2..8 is K3, replacing
+// _kernel_pc_b / _apply_w_pallas_3d_pc_batched (:307-366), the V-cycle
+// smoother of the ADMM x-update's 1+m simultaneous solves.  Weights are
+// widened in registers, x and the sums stay f32.
+//
+// Bound: device-memory bandwidth at ~1 flop per byte.  W is the dominant
+// stream (297 MB of bf16 at the refs=4 fine shape 17^3 x 224, against
+// 2 x 13 MB of f32 x and y per lane), so B launches of K2 would move
+// ~B x 323 MB.  The TPU kernel keeps a pencil's W block resident in VMEM
+// while its grid walks the lanes; here one thread per site loads each
+// W[q, c, d] once and applies it to every lane's x at the neighbour, with
+// B x 3 f32 accumulators in registers (the kernel is templated on B so
+// they stay registers).  One launch moves W once plus B x (x + y): ~427 MB
+// at B = 5.  The per-lane sum order is K2's, so each lane equals K2 on
+// that lane's field.
+template <int B>
 __global__ void apply_w_pencil_bf16_kernel(const __nv_bfloat16* __restrict__ W,
                                            const float* __restrict__ x,
                                            float* __restrict__ y,
@@ -112,23 +134,37 @@ __global__ void apply_w_pencil_bf16_kernel(const __nv_bfloat16* __restrict__ W,
   const long long pencil =
       (static_cast<long long>(s.i) * n1 + s.j) * n_slots * C * C * cd_stride +
       static_cast<long long>(s.k) * P + s.p;
-  float acc[C] = {0.f, 0.f, 0.f};
+  const long long lane = C * sp;
+  float acc[B][C];
+#pragma unroll
+  for (int b = 0; b < B; ++b)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[b][c] = 0.f;
   for (int q = 0; q < n_slots; ++q) {
     const int* e = stab + 4 * q;
     const long long nb = neighbour(s, e, n0, n1, n2, P);
     if (nb < 0) continue;
-    float xv[C];
-#pragma unroll
-    for (int d = 0; d < C; ++d) xv[d] = x[d * sp + nb];
     const __nv_bfloat16* w = W + pencil + static_cast<long long>(q) * C * C * cd_stride;
+    float wv[C][C];
 #pragma unroll
     for (int c = 0; c < C; ++c)
 #pragma unroll
-      for (int d = 0; d < C; ++d)
-        acc[c] += __bfloat162float(w[(c * C + d) * cd_stride]) * xv[d];
+      for (int d = 0; d < C; ++d) wv[c][d] = __bfloat162float(w[(c * C + d) * cd_stride]);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      float xv[C];
+#pragma unroll
+      for (int d = 0; d < C; ++d) xv[d] = x[b * lane + d * sp + nb];
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int d = 0; d < C; ++d) acc[b][c] += wv[c][d] * xv[d];
+    }
   }
 #pragma unroll
-  for (int c = 0; c < C; ++c) y[c * sp + t] = acc[c];
+  for (int b = 0; b < B; ++b)
+#pragma unroll
+    for (int c = 0; c < C; ++c) y[b * lane + c * sp + t] = acc[b][c];
 }
 
 // K4, replaces pallas_stencil.py _kernel_sym_df / _apply_w_df_pallas_3d_sym
@@ -190,35 +226,61 @@ unsigned int blocks_for(int n0, int n1, int n2, int P) {
   return static_cast<unsigned int>((sp + kThreads - 1) / kThreads);
 }
 
+struct Pencil {
+  const __nv_bfloat16* W;
+  const float* x;
+  float* y;
+  const int* stab;
+  int n_slots, n0, n1, n2, P;
+  unsigned int blocks;
+  cudaStream_t stream;
+};
+
+template <int B>
+void launch_pencil(const Pencil& a) {
+  apply_w_pencil_bf16_kernel<B><<<a.blocks, kThreads, 0, a.stream>>>(
+      a.W, a.x, a.y, a.stab, a.n_slots, a.n0, a.n1, a.n2, a.P);
+}
+
 }  // namespace
 
 extern "C" {
 
 int apply_w_sym_f32(const void* W, const void* x, void* y, const void* stab,
-                    int n_slots, int n0, int n1, int n2, int P, int device,
-                    void* stream) {
+                    int n_slots, int n0, int n1, int n2, int P, int lanes,
+                    int device, void* stream) {
   const unsigned int blocks = blocks_for(n0, n1, n2, P);
   if (blocks == 0) return 0;
   cudaSetDevice(device);
-  apply_w_sym_kernel<<<blocks, kThreads, 0,
+  apply_w_sym_kernel<<<blocks * lanes, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(W), static_cast<const float*>(x),
       static_cast<float*>(y), static_cast<const int*>(stab), n_slots, n0, n1,
-      n2, P);
+      n2, P, lanes);
   return static_cast<int>(cudaGetLastError());
 }
 
+// lanes = 1 is K2, 2..8 K3; any other count is refused
 int apply_w_pencil_bf16(const void* W, const void* x, void* y, const void* stab,
-                        int n_slots, int n0, int n1, int n2, int P, int device,
-                        void* stream) {
+                        int n_slots, int n0, int n1, int n2, int P, int lanes,
+                        int device, void* stream) {
   const unsigned int blocks = blocks_for(n0, n1, n2, P);
   if (blocks == 0) return 0;
   cudaSetDevice(device);
-  apply_w_pencil_bf16_kernel<<<blocks, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(W), static_cast<const float*>(x),
-      static_cast<float*>(y), static_cast<const int*>(stab), n_slots, n0, n1,
-      n2, P);
+  const Pencil args{static_cast<const __nv_bfloat16*>(W), static_cast<const float*>(x),
+                    static_cast<float*>(y), static_cast<const int*>(stab),
+                    n_slots, n0, n1, n2, P, blocks, static_cast<cudaStream_t>(stream)};
+  switch (lanes) {
+    case 1: launch_pencil<1>(args); break;
+    case 2: launch_pencil<2>(args); break;
+    case 3: launch_pencil<3>(args); break;
+    case 4: launch_pencil<4>(args); break;
+    case 5: launch_pencil<5>(args); break;
+    case 6: launch_pencil<6>(args); break;
+    case 7: launch_pencil<7>(args); break;
+    case 8: launch_pencil<8>(args); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

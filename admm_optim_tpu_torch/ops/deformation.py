@@ -1,8 +1,9 @@
 """Deformation (x-update) element operators: the constant SPD part
 a(u,w) + tau*(grad u, grad w) of the extension bilinear form.
 
-Port of admm_optim_tpu/ops/deformation.py:44-125 (element matrices only;
-the constraint functionals and proximal kernels come with the ADMM port).
+Port of admm_optim_tpu/ops/deformation.py:44-125 (element matrices) and
+:281-322 (the z-update projections); the global-representation constraint
+functionals come with the ELL backend.
 Element matrices are ``(C, C, nl, nl, ...)`` with ``A[c, d, i, j]``
 coupling test dof (i, c) with trial dof (j, d).
 """
@@ -87,3 +88,52 @@ def deformation_elem_mats(coords, elems, c_eps, c_grad, c_mass):
         "cd,ij,e->cdije", eyeC, _mass_factors(nl, d, coords), vol
     )
     return A
+
+
+# ---------------------------------------------------------------------------
+# z-update prox (exact elementwise)
+# ---------------------------------------------------------------------------
+
+def project_frobenius(Q, sigma):
+    """Project (d, d, ...) tensors onto the Frobenius ball of radius sigma.
+
+    Parity: Testing(q_projected, q, ..., sigma) (2d_admm.lua:897)."""
+    nrm = torch.sqrt(torch.sum(Q * Q, dim=(0, 1)))
+    scale = torch.clamp_max(sigma / torch.clamp_min(nrm, 1e-30), 1.0)
+    return Q * scale
+
+
+def _svals_2x2(Q):
+    a, b = Q[0, 0], Q[0, 1]
+    c, dd = Q[1, 0], Q[1, 1]
+    e1 = torch.sqrt((a + dd) ** 2 + (c - b) ** 2) * 0.5
+    e2 = torch.sqrt((a - dd) ** 2 + (c + b) ** 2) * 0.5
+    return a, b, c, dd, e1, e2
+
+
+def project_spectral(Q, sigma):
+    """Project (d, d, N) tensors onto the spectral-norm ball: clamp the
+    singular values at sigma.
+
+    Parity: ProjectWithSpectralNorm (2d_admm.lua:902).  2D uses the closed
+    form via the rotation/reflection decomposition of 2x2 matrices; 3D a
+    batched SVD (torch.linalg.svd, a library call outside any kernel, as
+    the JAX package leaves it to XLA)."""
+    d = Q.shape[0]
+    if d == 2:
+        a, b, c, dd, e1, e2 = _svals_2x2(Q)
+        s1, s2 = e1 + e2, torch.abs(e1 - e2)  # singular values s1 >= s2 >= 0
+        E = 0.5 * torch.stack([torch.stack([a + dd, b - c]), torch.stack([c - b, a + dd])])
+        F = 0.5 * torch.stack([torch.stack([a - dd, b + c]), torch.stack([c + b, dd - a])])
+        s1c = torch.clamp_max(s1, sigma)
+        s2c = torch.clamp_max(s2, sigma)
+        sgn = torch.sign(e1 - e2)
+        e1c = 0.5 * (s1c + sgn * s2c)
+        e2c = 0.5 * (s1c - sgn * s2c)
+        one = torch.ones_like(e1)
+        rE = torch.where(e1 > 1e-30, e1c / torch.clamp_min(e1, 1e-30), one)
+        rF = torch.where(e2 > 1e-30, e2c / torch.clamp_min(e2, 1e-30), one)
+        return E * rE + F * rF
+    U, S, Vh = torch.linalg.svd(torch.movedim(Q, -1, 0))  # (N, d, d)
+    out = torch.einsum("eij,ej,ejk->eik", U, torch.clamp_max(S, sigma), Vh)
+    return torch.movedim(out, 0, -1)

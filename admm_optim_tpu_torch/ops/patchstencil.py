@@ -2,7 +2,9 @@
 admm_optim_tpu/ops/patchstencil.py that the deformation MG solve uses).
 
 Fields are dense patch arrays ``(C, *lat, P)`` (lattice dims major, patch
-axis minor).  The operator is a per-site stencil stored SLOT-MAJOR,
+axis minor), or ``(B, C, *lat, P)`` with a leading lane axis: the ADMM
+x-update's 1+m simultaneous solves, which the JAX package runs under
+``jax.vmap``.  The operator is a per-site stencil stored SLOT-MAJOR,
 
     W (O, C, C, *lat, P):   y[c, s] = sum_o sum_d W[o, c, d, s] * x[d, s+o]
 
@@ -178,38 +180,48 @@ class PencilW:
 
 
 def apply_w(ps: PatchSet, W, x):
-    """Additive operator application: x consistent (C, *lat, P) -> y
-    additive (C, *lat, P).  Dispatch by storage:
+    """Additive operator application: x consistent (C, *lat, P) or
+    (B, C, *lat, P) -> y additive of the same shape.  A 2D lattice takes the
+    plain forms on every device: the JAX package has no 2D kernel
+    (pallas_stencil.py:29-34).  In 3D, dispatch by storage and lanes:
 
-    * PencilW (the bf16 smoother stream) -> stencil_kernels.apply_w_pencil;
-    * symmetric half W (H slots) -> stencil_kernels.apply_w_sym;
+    * PencilW (the bf16 smoother stream) -> stencil_kernels.apply_w_pencil,
+      or apply_w_pencil_batched for a lane axis (W read once for all lanes);
+    * symmetric half W (H slots) -> stencil_kernels.apply_w_sym, one launch
+      for all lanes;
     * full slot-major W -> the plain full-stencil form on the CPU.  On the
       GPU that is the TPU kernel K5's job, which is not ported yet
       (ROADMAP), so a CUDA tensor raises."""
     from . import stencil_kernels as sk
 
-    if isinstance(W, PencilW):
+    batched = x.dim() == ps.dim + 3
+    if isinstance(W, PencilW):  # built for 3D levels only (smoother_w_plan)
+        if batched:
+            return sk.apply_w_pencil_batched(ps, W.a, x)
         return sk.apply_w_pencil(ps, W.a, x)
     if W.shape[0] != len(ps.stencil):
+        if ps.dim == 2:
+            return sk._lanes(sk._apply_w_sym, ps, W, x)
         return sk.apply_w_sym(ps, W, x)
-    if x.device.type != "cpu":
+    if ps.dim == 3 and x.device.type != "cpu":
         raise NotImplementedError(
             "full slot-major W on the GPU needs the full-stencil kernel "
             "(pallas_stencil._apply_w_pallas_3d), which is not ported yet"
         )
-    return sk._apply_w_full(ps, W, x)
+    return sk._lanes(sk._apply_w_full, ps, W, x)
 
 
 def apply_w_df(ps: PatchSet, W, xh, xl):
     """Double-float operator application: y = A (xh + xl) as an additive
     (hi, lo) pair accurate to O(eps^2) - the once-per-refinement residual
-    of solvers.patch_mg.cg_ir_p.  Symmetric half W goes to
-    stencil_kernels.apply_w_df_sym; full W takes the plain EFT form."""
+    of solvers.patch_mg.cg_ir_p.  Symmetric half W in 3D goes to
+    stencil_kernels.apply_w_df_sym; full W and 2D lattices take the plain
+    EFT form."""
     from . import stencil_kernels as sk
 
-    if W.shape[0] != len(ps.stencil):
+    if ps.dim == 3 and W.shape[0] != len(ps.stencil):
         return sk.apply_w_df_sym(ps, W, xh, xl)
-    return sk._apply_w_df_full(ps, W, xh, xl)
+    return sk._apply_w_df_full(ps, expand_sym_w(ps, W), xh, xl)
 
 
 # ---------------------------------------------------------------------------
@@ -277,13 +289,13 @@ def make_tables(lvl: PatchLevel, dtype=torch.float32, device="cpu") -> LevelTabl
 def exchange_sum(lvl: PatchLevel, x, tab: LevelTables | None = None):
     """additive -> consistent: sum duplicated boundary sites (segment sum
     over the boundary slots; UG4's change_storage_type_to_consistent).
+    Every leading axis (components, lanes) is exchanged alike.
     On the GPU index_add_ adds group members in atomic order, so the last
     bit of a 3+-member group may vary from run to run."""
     if tab is None:
         tab = make_tables(lvl, x.dtype, x.device)
-    C = x.shape[0]
-    xf = x.reshape(C, -1)
-    s = xf.new_zeros((C, tab.nseg)).index_add_(1, tab.bseg, xf[:, tab.bslots])
+    xf = x.reshape(-1, tab.owner.numel())
+    s = xf.new_zeros((xf.shape[0], tab.nseg)).index_add_(1, tab.bseg, xf[:, tab.bslots])
     out = xf.clone()
     out[:, tab.bslots] = s[:, tab.bseg]
     return out.reshape(x.shape)
@@ -317,12 +329,13 @@ def exchange_sum_df(tab: LevelTables, xh, xl):
 
 
 def owner_dot(lvl: PatchLevel, x, y, tab: LevelTables | None = None):
-    """Global inner product of two consistent patch vectors (0-d tensor)."""
+    """Global inner product of two consistent patch vectors: a 0-d tensor
+    for fields (C, *lat, P), one value per lane (B,) for (B, C, *lat, P)."""
     if tab is not None:
         w = tab.owner.to(x.dtype)
     else:
         w = torch.as_tensor(lvl.owner, dtype=x.dtype, device=x.device)
-    return torch.sum(x * y * w[None])
+    return torch.sum(x * y * w, dim=tuple(range(-w.dim() - 1, 0)))
 
 
 def to_patch(lvl: PatchLevel, v_global):
@@ -348,19 +361,19 @@ def from_patch(lvl: PatchLevel, x, n_vertices: int, mode: str = "owner"):
 
 
 def to_patch_tab(tab: LevelTables, v_global):
-    """global (C, V) consistent -> patch (C, *lat, P)."""
-    return v_global[:, tab.gid].contiguous()
+    """global (..., C, V) consistent -> patch (..., C, *lat, P)."""
+    return v_global[..., tab.gid].contiguous()
 
 
 def from_patch_tab(tab: LevelTables, x, n_vertices: int, mode: str = "owner"):
-    """patch (C, *lat, P) -> global (C, V) (the base-solve glue).  In
-    "owner" mode every vertex receives one nonzero copy, so the add order
+    """patch (..., C, *lat, P) -> global (..., C, V) (the base-solve glue).
+    In "owner" mode every vertex receives one nonzero copy, so the add order
     cannot change the result."""
-    C = x.shape[0]
-    xf = x.reshape(C, -1)
+    lead = x.shape[: x.dim() - tab.gid.dim()]
+    xf = x.reshape(lead + (-1,))
     if mode == "owner":
-        xf = xf * tab.owner.to(x.dtype).reshape(1, -1)
-    return xf.new_zeros((C, n_vertices)).index_add_(1, tab.gid.reshape(-1), xf)
+        xf = xf * tab.owner.to(x.dtype).reshape(-1)
+    return xf.new_zeros(lead + (n_vertices,)).index_add_(-1, tab.gid.reshape(-1), xf)
 
 
 # ---------------------------------------------------------------------------
@@ -378,30 +391,31 @@ def _parity_slices(dim, pc, m):
 
 
 def prolong_p(ps: PatchSet, level_coarse: int, xc):
-    """consistent coarse (C, *latc, P) -> consistent fine (C, *latf, P):
-    copy even sites, average the two edge parents at odd sites."""
+    """consistent coarse (..., C, *latc, P) -> consistent fine
+    (..., C, *latf, P): copy even sites, average the two edge parents at
+    odd sites."""
     dim = ps.dim
     m = ps.levels[level_coarse].m
     latf = tuple(2 * m + 1 for _ in range(dim))
-    xf = xc.new_zeros(xc.shape[:1] + latf + xc.shape[-1:])
-    pre = (slice(None),)
-    xf[pre + tuple(slice(0, None, 2) for _ in range(dim))] = xc
+    xf = xc.new_zeros(xc.shape[: -dim - 1] + latf + xc.shape[-1:])
+    pre, post = (Ellipsis,), (slice(None),)
+    xf[pre + tuple(slice(0, None, 2) for _ in range(dim)) + post] = xc
     for pc in range(1, 2**dim):
         sl_new, sl_p1, sl_p2 = _parity_slices(dim, pc, m)
-        xf[pre + sl_new] = 0.5 * (xc[pre + sl_p1] + xc[pre + sl_p2])
+        xf[pre + sl_new + post] = 0.5 * (xc[pre + sl_p1 + post] + xc[pre + sl_p2 + post])
     return xf
 
 
 def restrict_p(ps: PatchSet, level_coarse: int, rf):
-    """additive fine (C, *latf, P) -> additive coarse (transpose of
+    """additive fine (..., C, *latf, P) -> additive coarse (transpose of
     prolong_p)."""
     dim = ps.dim
     m = ps.levels[level_coarse].m
-    pre = (slice(None),)
-    rc = rf[pre + tuple(slice(0, None, 2) for _ in range(dim))].clone()
+    pre, post = (Ellipsis,), (slice(None),)
+    rc = rf[pre + tuple(slice(0, None, 2) for _ in range(dim)) + post].clone()
     for pc in range(1, 2**dim):
         sl_new, sl_p1, sl_p2 = _parity_slices(dim, pc, m)
-        odd = 0.5 * rf[pre + sl_new]
-        rc[pre + sl_p1] += odd
-        rc[pre + sl_p2] += odd
+        odd = 0.5 * rf[pre + sl_new + post]
+        rc[pre + sl_p1 + post] += odd
+        rc[pre + sl_p2 + post] += odd
     return rc

@@ -3,18 +3,24 @@ beside its plain PyTorch twin (the counterpart of
 admm_optim_tpu/ops/pallas_stencil.py).
 
 Layout contract, as in the JAX package:
-  x, y: (C, n0, n1, n2, P) with C = 3; y is additive (per-patch partial
-        sums, made consistent afterwards by patchstencil.exchange_sum);
+  x, y: (C, n0, n1, n2, P) with C = 3, or (B, C, n0, n1, n2, P) with a
+        leading lane axis (the ADMM x-update's 1+m simultaneous solves);
+        y is additive (per-patch partial sums, made consistent afterwards
+        by patchstencil.exchange_sum);
   W:    (H, C, C, n0, n1, n2, P) symmetric half storage (H = 8 of O = 15
         slots, patchstencil.half_slots), or pencil-major
-        (n0, n1, O, C, C, n2, P) (to_pencil_major).
+        (n0, n1, O, C, C, n2, P) (to_pencil_major).  W is shared by all
+        lanes.
 
 Kernels (sources in ../csrc/stencil.cu, built on first use by _build):
-  apply_w_sym     K1, replaces pallas_stencil._apply_w_pallas_3d_sym
-  apply_w_pencil  K2, replaces pallas_stencil._apply_w_pallas_3d_pc (bf16 W)
-  apply_w_df_sym  K4, replaces pallas_stencil._apply_w_df_pallas_3d_sym
+  apply_w_sym             K1, replaces pallas_stencil._apply_w_pallas_3d_sym
+                          (one launch for all lanes, as jax.vmap of it)
+  apply_w_pencil          K2, replaces pallas_stencil._apply_w_pallas_3d_pc (bf16 W)
+  apply_w_pencil_batched  K3, replaces pallas_stencil._apply_w_pallas_3d_pc_batched
+                          (bf16 W read once for 1 <= B <= 8 lanes)
+  apply_w_df_sym          K4, replaces pallas_stencil._apply_w_df_pallas_3d_sym
 
-Dispatch is the same for all three: a tensor on the CPU takes the plain
+Dispatch is the same for all four: a tensor on the CPU takes the plain
 twin; a CUDA tensor launches the kernel or raises.  There is no fallback
 and no lattice-size gate.  ``launches`` counts kernel launches per wrapper
 (the twin never counts).
@@ -28,7 +34,8 @@ import torch
 from . import df
 from .patchstencil import expand_sym_w, half_slots, shift_read
 
-launches = {"apply_w_sym": 0, "apply_w_pencil": 0, "apply_w_df_sym": 0}
+launches = {"apply_w_sym": 0, "apply_w_pencil": 0, "apply_w_pencil_batched": 0, "apply_w_df_sym": 0}
+MAX_LANES = 8  # K3 is templated on the lane count up to this
 
 
 def reset_launches():
@@ -95,6 +102,21 @@ def _apply_w_pencil(ps, W_pc, x):
     full-stencil contraction."""
     W = W_pc.permute(2, 3, 4, 0, 1, 5, 6).to(x.dtype)  # (O, C, C, n0, n1, n2, P)
     return _apply_w_full(ps, W, x)
+
+
+def _lanes(fn, ps, W, x):
+    """Plain apply fn(ps, W, field) on a field or on each lane of a lane
+    axis (B, C, *lat, P), W shared."""
+    if x.dim() == ps.dim + 3:
+        return torch.stack([fn(ps, W, xb) for xb in x])
+    return fn(ps, W, x)
+
+
+def _apply_w_pencil_batched(ps, W_pc, xb):
+    """Twin of K3: the pencil-major weights upcast once, then each lane's
+    full-stencil contraction."""
+    W = W_pc.permute(2, 3, 4, 0, 1, 5, 6).to(xb.dtype)
+    return torch.stack([_apply_w_full(ps, W, x) for x in xb])
 
 
 def _apply_w_df_full(ps, W, xh, xl):
@@ -177,13 +199,15 @@ def _stencil_key(ps):
     return tuple(tuple(int(v) for v in o) for o in ps.stencil)
 
 
-def _check(name, ps, x, arrays, w_dtype):
-    """Validate what the kernels take: 3D, C = 3, f32 fields, contiguous,
-    all on x's CUDA device."""
+def _check(name, ps, x, arrays, w_dtype, lane_axis=False):
+    """Validate what the kernels take: 3D, C = 3, f32 fields (with a leading
+    lane axis iff lane_axis), contiguous, all on x's CUDA device.  Returns
+    the lane count and the lattice (B, n0, n1, n2, P)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, got {x.device}")
-    if ps.dim != 3 or x.dim() != 5 or x.shape[0] != 3:
-        raise ValueError(f"{name}: the kernel takes 3D lattices with C = 3, got x {tuple(x.shape)}")
+    if ps.dim != 3 or x.dim() != 5 + lane_axis or x.shape[-5] != 3:
+        lanes = "(B, 3, n0, n1, n2, P)" if lane_axis else "(3, n0, n1, n2, P)"
+        raise ValueError(f"{name}: the kernel takes 3D fields {lanes}, got x {tuple(x.shape)}")
     W = arrays[0]
     if W.dtype != w_dtype:
         raise ValueError(f"{name}: W must be {w_dtype}, got {W.dtype}")
@@ -193,6 +217,7 @@ def _check(name, ps, x, arrays, w_dtype):
     for a in arrays[1:]:
         if a.dtype != torch.float32 or a.shape != x.shape:
             raise ValueError(f"{name}: fields must be float32 of shape {tuple(x.shape)}")
+    return (x.shape[0] if lane_axis else 1,) + tuple(x.shape[-4:])
 
 
 def _launch(name, fn, *args, device):
@@ -207,11 +232,11 @@ def _launch(name, fn, *args, device):
 
 
 def apply_w_sym(ps, W, x):
-    """K1: y = A x from symmetric half storage W (H, C, C, n0, n1, n2, P)."""
+    """K1: y = A x from symmetric half storage W (H, C, C, n0, n1, n2, P),
+    for a field or for every lane of (B, C, n0, n1, n2, P) in one launch."""
     if x.device.type == "cpu":
-        return _apply_w_sym(ps, W, x)
-    _check("apply_w_sym", ps, x, (W, x), torch.float32)
-    n0, n1, n2, P = x.shape[1:]
+        return _lanes(_apply_w_sym, ps, W, x)
+    B, n0, n1, n2, P = _check("apply_w_sym", ps, x, (W, x), torch.float32, x.dim() == 6)
     if W.shape != (len(half_slots(ps)), 3, 3, n0, n1, n2, P):
         raise ValueError(f"apply_w_sym: W shape {tuple(W.shape)} does not match x")
     stencil = _stencil_key(ps)
@@ -220,7 +245,25 @@ def apply_w_sym(ps, W, x):
     _launch(
         "apply_w_sym", "apply_w_sym_f32",
         W.data_ptr(), x.data_ptr(), y.data_ptr(), tab.data_ptr(),
-        len(stencil), n0, n1, n2, P, device=x.device,
+        len(stencil), n0, n1, n2, P, B, device=x.device,
+    )
+    return y
+
+
+def _pencil(name, ps, W_pc, x, lane_axis):
+    """Launch the bf16 pencil kernel (K2 for a field, K3 for a lane axis)."""
+    B, n0, n1, n2, P = _check(name, ps, x, (W_pc, x), torch.bfloat16, lane_axis)
+    if not 1 <= B <= MAX_LANES:
+        raise ValueError(f"{name}: the kernel takes 1 to {MAX_LANES} lanes, got {B}")
+    stencil = _stencil_key(ps)
+    if W_pc.shape != (n0, n1, len(stencil), 3, 3, n2, P):
+        raise ValueError(f"{name}: W_pc shape {tuple(W_pc.shape)} does not match x")
+    tab = _slot_table(stencil, tuple(range(len(stencil))), x.device)
+    y = torch.empty_like(x)
+    _launch(
+        name, "apply_w_pencil_bf16",
+        W_pc.data_ptr(), x.data_ptr(), y.data_ptr(), tab.data_ptr(),
+        len(stencil), n0, n1, n2, P, B, device=x.device,
     )
     return y
 
@@ -230,19 +273,15 @@ def apply_w_pencil(ps, W_pc, x):
     (n0, n1, O, C, C, n2, P), f32 x and f32 accumulation."""
     if x.device.type == "cpu":
         return _apply_w_pencil(ps, W_pc, x)
-    _check("apply_w_pencil", ps, x, (W_pc, x), torch.bfloat16)
-    n0, n1, n2, P = x.shape[1:]
-    stencil = _stencil_key(ps)
-    if W_pc.shape != (n0, n1, len(stencil), 3, 3, n2, P):
-        raise ValueError(f"apply_w_pencil: W_pc shape {tuple(W_pc.shape)} does not match x")
-    tab = _slot_table(stencil, tuple(range(len(stencil))), x.device)
-    y = torch.empty_like(x)
-    _launch(
-        "apply_w_pencil", "apply_w_pencil_bf16",
-        W_pc.data_ptr(), x.data_ptr(), y.data_ptr(), tab.data_ptr(),
-        len(stencil), n0, n1, n2, P, device=x.device,
-    )
-    return y
+    return _pencil("apply_w_pencil", ps, W_pc, x, lane_axis=False)
+
+
+def apply_w_pencil_batched(ps, W_pc, xb):
+    """K3: K2 for the lanes xb (B, C, n0, n1, n2, P) sharing one W_pc, in
+    one launch that reads each weight once for all B <= 8 lanes."""
+    if xb.device.type == "cpu":
+        return _apply_w_pencil_batched(ps, W_pc, xb)
+    return _pencil("apply_w_pencil_batched", ps, W_pc, xb, lane_axis=True)
 
 
 def apply_w_df_sym(ps, W, xh, xl):
@@ -250,8 +289,7 @@ def apply_w_df_sym(ps, W, xh, xl):
     renormalized f32 pair (|yl| <= ulp(yh)/2)."""
     if xh.device.type == "cpu":
         return _apply_w_df_full(ps, expand_sym_w(ps, W), xh, xl)
-    _check("apply_w_df_sym", ps, xh, (W, xh, xl), torch.float32)
-    n0, n1, n2, P = xh.shape[1:]
+    _, n0, n1, n2, P = _check("apply_w_df_sym", ps, xh, (W, xh, xl), torch.float32)
     if W.shape != (len(half_slots(ps)), 3, 3, n0, n1, n2, P):
         raise ValueError(f"apply_w_df_sym: W shape {tuple(W.shape)} does not match x")
     stencil = _stencil_key(ps)

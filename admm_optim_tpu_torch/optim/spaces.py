@@ -1,0 +1,155 @@
+"""Representation adapter for the ADMM solver on the brick-patch backend
+(port of admm_optim_tpu/optim/spaces.py:147-323, ``PatchOps``).
+
+optim.admm's Newton/ADMM logic is representation-agnostic; PatchOps binds
+it to fields (C, *lat, P) on brick-patch lattices and per-cell tensors
+(d, d, T, *cells, P): the stencil apply plus the duplicate-site exchange,
+the solvers.patch_mg V-cycle, owner-weighted inner products.  Every field
+method also takes a lane axis (B, C, *lat, P), which the x-update's
+batched Krylov solves use.  Single device only: the JAX package's SPMD
+wiring (``struct.spmd``) comes with the multi-device layer, and
+``GlobalOps`` with the ELL backend.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..ops import patchdeform as pdfm
+from ..ops import patchstencil as pst
+from ..solvers import patch_mg as pmg
+
+
+@dataclasses.dataclass
+class PatchOps:
+    """Operator bundle on the brick-patch representation."""
+
+    struct: Any  # pmg.PatchMGStructure
+    data: Any  # pmg.PatchMGData (carries per-level tables)
+    coords_p: torch.Tensor  # (d, *lat, P)
+    pvalid: torch.Tensor | None = None  # (P,) 0 at padded dummy patches
+
+    @property
+    def ps(self):
+        return self.struct.ps
+
+    @property
+    def dim(self):
+        return self.ps.dim
+
+    @property
+    def tab(self):
+        return self.data.tabs[self.ps.k]
+
+    @property
+    def free(self):
+        return self.tab.free.to(self.coords_p.dtype)  # (*lat, P); bcasts
+
+    def zeros_field(self, dtype):
+        lvl = self.ps.fine
+        return self.coords_p.new_zeros((self.dim,) + lvl.lat_shape + (lvl.P,), dtype=dtype)
+
+    def zeros_tensor(self, dtype):
+        d = self.dim
+        T = len(self.ps.class_offsets)
+        m = self.ps.fine.m
+        return self.coords_p.new_zeros((d, d, T) + (m,) * d + (self.ps.fine.P,), dtype=dtype)
+
+    def _apply(self, W, x):
+        return pst.exchange_sum(None, pst.apply_w(self.ps, W, x), self.tab) * self.free
+
+    def A(self, x):
+        return self._apply(self.data.W[self.ps.k], x)
+
+    def M(self, r):
+        return pmg.vcycle_p(self.struct, self.data, r)
+
+    def dot(self, x, y):
+        return pst.owner_dot(None, x, y, self.tab)
+
+    def dot_batch(self, Xs, Ys):
+        """Owner-weighted (i, j) Gram block in one pass: the Schur assembly
+        needs m*(1+m) pairings, one matmul instead of 20 separate dots."""
+        w = self.tab.owner.to(Xs.dtype)
+        Xf = (Xs * w).reshape(Xs.shape[0], -1)
+        Yf = Ys.reshape(Ys.shape[0], -1)
+        return Xf @ Yf.T
+
+    def _cons(self, x_add):
+        """additive -> consistent + free mask (any leading axes)."""
+        return pst.exchange_sum(None, x_add, self.tab) * self.free
+
+    def constraints(self, u, ref_volume, ref_barycenter):
+        g = pdfm.constraints_p(
+            self.ps, self.coords_p, u, 0.0, self.coords_p.new_zeros(self.dim), pvalid=self.pvalid,
+        )
+        refs = torch.cat([
+            torch.as_tensor(ref_volume, dtype=g.dtype, device=g.device).reshape(1),
+            torch.as_tensor(ref_barycenter, dtype=g.dtype, device=g.device),
+        ])
+        return g - refs
+
+    def constraint_grads(self, u, ref_volume, ref_barycenter):
+        B = pdfm.constraint_grads_analytic_p(
+            self.ps, self.coords_p, u, ref_volume, ref_barycenter, pvalid=self.pvalid,
+        )
+        return self._cons(B)
+
+    def constraint_hvp(self, u, Lmbda, ref_volume, ref_barycenter, x):
+        h = pdfm.constraint_hvp_analytic_p(
+            self.ps, self.coords_p, u, Lmbda, ref_volume, ref_barycenter,
+            x * self.free, pvalid=self.pvalid,
+        )
+        return self._cons(h)
+
+    def hvp_fn(self, u, Lmbda, ref_volume, ref_barycenter):
+        state = pdfm.hvp_state_p(self.ps, self.coords_p, u, Lmbda, pvalid=self.pvalid)
+
+        def apply(x):
+            return self._cons(pdfm.constraint_hvp_apply_p(self.ps, self.coords_p, state, x * self.free))
+
+        return apply
+
+    def hess_fn(self, u, Lmbda, ref_volume, ref_barycenter):
+        """x -> (A + sum_k Lambda_k g_k'') x with the constraint Hessian
+        assembled into the stencil once per Newton iterate
+        (pdfm.hvp_corner_block_fn): every Krylov matvec is then one stencil
+        apply + exchange, for one field or all lanes."""
+        ps = self.ps
+        W_A = self.data.W[ps.k]
+        sym = W_A.shape[0] == len(pst.half_slots(ps))
+        W_h = pst.assemble_w(
+            ps, ps.k, torch.cat([self.coords_p, u], dim=0), pdfm.hvp_corner_block_fn(Lmbda),
+            sym=sym, free=self.tab.free.to(u.dtype),
+        )
+        if self.pvalid is not None:
+            # padded dummy patches replicate real geometry; their Hessian
+            # contributions must vanish like the pvalid-masked volumes do
+            W_h = W_h * self.pvalid
+        W_H = W_A + W_h
+        return lambda x: self._apply(W_H, x)
+
+    def tensor_rhs(self, M):
+        return self._cons(pdfm.tensor_rhs_p(self.ps, self.coords_p, M))
+
+    def grad_tensor(self, u):
+        return pdfm.cell_grads(self.ps, self.coords_p, u)[0]
+
+    def z_update(self, u, lam, tau, sigma, norm_name):
+        return pdfm.z_update_p(self.ps, self.coords_p, u, lam, tau, sigma, norm_name)
+
+    def dual_update(self, u, lam, q_proj, tau):
+        return pdfm.dual_update_p(self.ps, self.coords_p, u, lam, q_proj, tau)
+
+    def max_grad_norm(self, u, norm_name):
+        if norm_name == "spectral":
+            return pdfm.max_spectral_norm_p(self.ps, self.coords_p, u, self.pvalid)
+        return pdfm.max_frobenius_norm_p(self.ps, self.coords_p, u, self.pvalid)
+
+    def norm_p1(self, f):
+        return pdfm.l2_norm_p1_p(self.ps, self.coords_p, f, self.pvalid)
+
+    def norm_pc(self, T):
+        return pdfm.l2_norm_pc_p(self.ps, self.coords_p, T, self.pvalid)

@@ -252,7 +252,9 @@ def jacobi_smooth_p(ps, tab, W, inv_diag, lmax, x, b, degree, omega=0.7, x_is_ze
 
 
 def vcycle_p(struct: PatchMGStructure, data: PatchMGData, b, x0=None):
-    """One V(pre,post)-cycle; b, x (C, *latf, P) consistent, free-masked."""
+    """One V(pre,post)-cycle; b, x (C, *latf, P) consistent, free-masked,
+    or (B, C, *latf, P): B independent cycles in one pass, each stencil
+    apply one launch for all lanes."""
     ps = struct.ps
 
     def smooth(l, x, b_l, degree, x_zero=False):
@@ -266,10 +268,10 @@ def vcycle_p(struct: PatchMGStructure, data: PatchMGData, b, x0=None):
         if l == 0:
             # dense base solve: consistent residual -> owner-picked global
             # -> dense inverse -> patch
-            C = b_l.shape[0]
-            V0 = data.base_inv.shape[0] // C
-            bg = st.from_patch_tab(tab, b_l, V0, mode="owner")
-            xg = (data.base_inv @ bg.reshape(-1)).reshape(C, V0)
+            n = data.base_inv.shape[0]  # C * V0
+            C = b_l.shape[-ps.dim - 2]
+            bg = st.from_patch_tab(tab, b_l, n // C, mode="owner")
+            xg = (bg.reshape(-1, n) @ data.base_inv.T).reshape(bg.shape)
             return st.to_patch_tab(tab, xg)
         x_l = smooth(l, x_l, b_l, struct.pre_smooth, x_zero)
         # restriction acts on the ADDITIVE residual: owner-weighted b minus
@@ -352,7 +354,7 @@ def cg_ir_p(
         rh, _ = residual_df(struct, data, b, xh, xl)
         rnorm = torch.sqrt(dot(rh, rh))
         rounds += 1
-        inner += res.iters
+        inner += int(res.iters)
     return IRResult(xh, xl, rounds, inner, rnorm, bool(rnorm <= tol))
 
 

@@ -58,11 +58,23 @@ def jax_ref():
     res = jmg.cg_ir_p(struct, data, b, **xupdate_solve.SOLVE_SETTINGS)
     v = jmg.vcycle_p(struct, data, b)
     v_jacobi = jmg.vcycle_p(dataclasses.replace(struct, smoother="jacobi"), data, b)
+    bl = _lanes(hier, ps, seed=3)
+    vl = jax.jit(jax.vmap(lambda bb: jmg.vcycle_p(struct, data, bb)))(jnp.asarray(bl))
     return dict(
         data=jax.tree_util.tree_map(np.asarray, data), b=np.array(b),
         res=jax.tree_util.tree_map(np.asarray, res), v=np.asarray(v),
-        v_jacobi=np.asarray(v_jacobi),
+        v_jacobi=np.asarray(v_jacobi), b_lanes=bl, v_lanes=np.asarray(vl),
     )
+
+
+def _lanes(hier, ps, seed, n=5):
+    """n consistent free-masked right-hand sides (n, 3, *lat, P), one of
+    them zero, from default_rng(seed)."""
+    fine = hier.fine
+    free = ~fine.vertex_mask(DIRICHLET)
+    bg = np.random.default_rng(seed).normal(size=(n, 3, fine.num_vertices)) * free
+    bg[2] = 0.0
+    return bg[..., np.moveaxis(ps.fine.gid, 0, -1)]
 
 
 @pytest.fixture(scope="module")
@@ -165,3 +177,62 @@ def test_smoother_plan_and_cost_table(port):
         patch_mg.vcycle_cost_table(port.struct, port.data)
     table = patch_mg.vcycle_cost_table(port.struct, port.data, 3350.0)
     assert "@ 3350 GB/s" in table and len(table.splitlines()) == len(ps.levels) + 2
+
+
+def test_batched_vcycle_matches_per_lane_and_jax_vmap(jax_ref, port):
+    """vcycle_p on a lane axis (B, C, *lat, P) - one apply launch per
+    stencil apply for all lanes - equals the port's per-lane V-cycles and
+    jax.vmap of the JAX package's, in float64."""
+    bl = torch.from_numpy(jax_ref["b_lanes"])
+    vb = patch_mg.vcycle_p(port.struct, port.data, bl)
+    assert vb.shape == bl.shape
+    per_lane = torch.stack([patch_mg.vcycle_p(port.struct, port.data, b) for b in bl])
+    assert _rel(vb, per_lane) <= 1e-12
+    assert _rel(vb, jax_ref["v_lanes"]) <= 1e-12
+    assert float(vb[2].abs().max()) == 0.0  # the zero lane stays zero
+
+
+def test_batched_vcycle_bf16_pencil_stream_matches_jax(monkeypatch):
+    """The same in float32 with the bf16 pencil smoother stream forced on
+    in both packages on the refs=1 fine level (3^3 lattice): the JAX
+    V-cycle under jax.vmap reaches the batched pencil kernel
+    (_apply_w_pallas_3d_pc_batched, interpret mode) for smoothing and the
+    restriction residual, the port's batched V-cycle K3's twin.  The port
+    runs on the JAX-assembled state (convert.py), so both sides read the
+    same bf16 weights: XLA's jit contracts the f32 assembly into FMAs,
+    and a one-ulp f32 difference can move a weight by one bf16 ulp (2^-8).
+    float32 summation orders differ, hence 1e-5."""
+    monkeypatch.setattr(jmg, "_smoother_stream_on", lambda: True)
+    monkeypatch.setattr(jmg, "SMOOTHER_STREAM_MIN_LAT", 3)
+    monkeypatch.setattr(patch_mg, "smoother_w_plan", lambda struct, ps, dtype, device: [False, True])
+    levels = [jgeomgen.channel_3d()]
+    levels.append(jrefine(levels[0]))
+    hier = JHierarchy(levels)
+    ps = jbuild_patchset(hier)
+    coords = jnp.asarray(hier.fine.coords, jnp.float32)
+    lvl0 = hier.levels[0]
+    pat0 = jsp.build_pattern(lvl0.elems, lvl0.num_vertices, 3)
+    fixed0 = np.repeat(lvl0.vertex_mask(DIRICHLET)[None], 3, axis=0)
+
+    def base_dense_fn(coords0):
+        em0 = deformation_elem_mats(coords0, jnp.asarray(lvl0.elems), 1.0, 1.0, 1.0)
+        v0 = jsp.bake_dirichlet(pat0, jsp.assemble_values(pat0, em0), jnp.asarray(fixed0))
+        return jnp.linalg.inv(jsp.to_dense(pat0, v0))
+
+    struct = jmg.PatchMGStructure(ps, pre_smooth=2, post_smooth=2, cheb_lower=0.2)
+    data = jax.jit(lambda c, tabs: jmg.assemble_patch_mg(
+        ps, struct, c, deformation_corner_block_fn(1.0, 1.0, 1.0), base_dense_fn, tabs=tabs, sym=True,
+    ))(coords, jmg.make_level_tables(ps, jnp.float32))
+    assert data.W_sm[0] is None and data.W_sm[1].a.dtype == jnp.bfloat16
+    bl = _lanes(hier, ps, seed=4).astype(np.float32)
+    vl = np.asarray(jax.jit(jax.vmap(lambda bb: jmg.vcycle_p(struct, data, bb)))(jnp.asarray(bl)))
+
+    # the port builds the stream on the levels of the plan
+    ctx = xupdate_solve.build(1, "cpu", torch.float32)
+    assert ctx.data.W_sm[0] is None and ctx.data.W_sm[1].a.dtype == torch.bfloat16
+    assert ctx.data.W_sm[1].a.shape == data.W_sm[1].a.shape
+    conv = convert.patch_mg_data(jax.tree_util.tree_map(np.asarray, data), ctx.ps, "cpu")
+    sk.reset_launches()
+    vb = patch_mg.vcycle_p(ctx.struct, conv, torch.from_numpy(bl))
+    assert sum(sk.launches.values()) == 0  # CPU tensors: the twins
+    assert vb.dtype == torch.float32 and _rel(vb, vl) <= 1e-5

@@ -1,4 +1,4 @@
-"""Plain twins of the three ported stencil kernels against the JAX
+"""Plain twins of the four ported stencil kernels against the JAX
 package's Pallas kernels, run in interpret mode on the CPU as
 tests/test_patches.py runs them, plus the wrappers' dispatch rules.
 
@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from admm_optim_tpu.core import geomgen as jgeomgen
@@ -84,7 +85,48 @@ def test_k2_twin_matches_interpret_pallas_pencil_bf16(problem):
     sk.reset_launches()
     assert torch.equal(sk.apply_w_pencil(tps, Wpc_t, torch.from_numpy(x)), y_twin)
     assert torch.equal(st.apply_w(tps, st.PencilW(Wpc_t), torch.from_numpy(x)), y_twin)
-    assert sk.launches == {"apply_w_sym": 0, "apply_w_pencil": 0, "apply_w_df_sym": 0}
+    assert sk.launches == {
+        "apply_w_sym": 0, "apply_w_pencil": 0, "apply_w_pencil_batched": 0, "apply_w_df_sym": 0,
+    }
+
+
+@pytest.mark.parametrize("lanes", [5, 1])
+def test_k3_twin_matches_interpret_pallas_pencil_batched(problem, lanes):
+    """K3's twin against jax.vmap of the JAX package's pencil apply, which
+    its custom_vmap turns into _apply_w_pallas_3d_pc_batched (interpret
+    mode here), with the same bf16 weights on both sides."""
+    jps, tps, W = problem
+    xb = np.random.default_rng(5).normal(size=(lanes, 3) + tps.fine.lat_shape + (tps.P,)).astype(np.float32)
+    Wpc_j = pst.to_pencil_major(jps, jnp.asarray(W), jnp.bfloat16)
+    Wpc_t = sk.to_pencil_major(tps, torch.from_numpy(W), torch.bfloat16)
+    y_pal = jax.vmap(lambda x: jst.apply_w(jps, jst.PencilW(Wpc_j), x))(jnp.asarray(xb))
+    y_twin = sk._apply_w_pencil_batched(tps, Wpc_t, torch.from_numpy(xb))
+    assert y_twin.shape == xb.shape and y_twin.dtype == torch.float32
+    # float32 summation order differs: ~1e-7 relative, limit 1e-5
+    assert _rel(y_twin, y_pal) < 1e-5
+    # each lane is K2's twin on that lane
+    for b in range(lanes):
+        assert torch.equal(y_twin[b], sk._apply_w_pencil(tps, Wpc_t, torch.from_numpy(xb[b])))
+    # the wrapper and the dispatching apply_w take the twin on CPU tensors
+    # and count no launch
+    sk.reset_launches()
+    assert torch.equal(sk.apply_w_pencil_batched(tps, Wpc_t, torch.from_numpy(xb)), y_twin)
+    assert torch.equal(st.apply_w(tps, st.PencilW(Wpc_t), torch.from_numpy(xb)), y_twin)
+    assert sum(sk.launches.values()) == 0
+
+
+def test_k1_lane_form_is_the_per_lane_twin(problem):
+    """K1 on a lane axis (B, C, n0, n1, n2, P): on CPU tensors the twin of
+    each lane, as jax.vmap of the JAX package's symmetric apply gives."""
+    jps, tps, W = problem
+    xb = np.random.default_rng(6).normal(size=(5, 3) + tps.fine.lat_shape + (tps.P,)).astype(np.float32)
+    y_j = jax.vmap(lambda x: jst._apply_w_sym(jps, jnp.asarray(W), x))(jnp.asarray(xb))
+    sk.reset_launches()
+    y = st.apply_w(tps, torch.from_numpy(W), torch.from_numpy(xb))
+    assert y.shape == xb.shape and _rel(y, y_j) < 1e-5
+    for b in range(5):
+        assert torch.equal(y[b], sk._apply_w_sym(tps, torch.from_numpy(W), torch.from_numpy(xb[b])))
+    assert sum(sk.launches.values()) == 0
 
 
 def test_k4_twin_matches_interpret_pallas_df_and_f64(problem):
@@ -151,14 +193,46 @@ def test_wrappers_raise_off_cpu_and_cuda(problem):
     _, tps, W = problem
     Wm = torch.from_numpy(W).to("meta")
     xm = torch.empty((3,) + tps.fine.lat_shape + (tps.P,), device="meta")
+    xbm = torch.empty((5,) + tuple(xm.shape), device="meta")
+    Wpc = torch.empty((1,), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
         sk.apply_w_sym(tps, Wm, xm)
     with pytest.raises(ValueError):
+        sk.apply_w_sym(tps, Wm, xbm)
+    with pytest.raises(ValueError):
         sk.apply_w_df_sym(tps, Wm, xm, xm)
     with pytest.raises(ValueError):
-        sk.apply_w_pencil(tps, torch.empty((1,), device="meta"), xm)
+        sk.apply_w_pencil(tps, Wpc, xm)
+    with pytest.raises(ValueError):
+        sk.apply_w_pencil_batched(tps, Wpc, xbm)
+    with pytest.raises(ValueError):
+        st.apply_w(tps, st.PencilW(Wpc), xbm)
     with pytest.raises(NotImplementedError):
         st.apply_w(tps, st.expand_sym_w(tps, Wm), xm)
+
+
+def test_2d_lattices_take_the_plain_forms_on_every_device():
+    """The JAX package has no 2D kernel (pallas_stencil.py:29-34): a 2D
+    apply on a non-CPU tensor returns the plain form's result instead of
+    reaching a 3D-only kernel wrapper; 3D full slot-major W still raises
+    there (K5 is not ported)."""
+    l0 = geomgen.channel_2d(n_side=(3, 1), diag="fixed")
+    ps2 = build_patchset(Hierarchy([l0, refine(l0)]))
+    lat, P = ps2.fine.lat_shape, ps2.P
+    H, O = len(st.half_slots(ps2)), len(ps2.stencil)
+    for lanes in ((), (5,)):
+        xm = torch.empty(lanes + (2,) + lat + (P,), device="meta")
+        for slots in (H, O):
+            y = st.apply_w(ps2, torch.empty((slots, 2, 2) + lat + (P,), device="meta"), xm)
+            assert y.device.type == "meta" and y.shape == xm.shape
+    xm = torch.empty((2,) + lat + (P,), device="meta")
+    yh, yl = st.apply_w_df(ps2, torch.empty((H, 2, 2) + lat + (P,), device="meta"), xm, xm)
+    assert yh.shape == yl.shape == xm.shape
+    # on the CPU the 2D dispatch is the plain twin itself
+    rng = np.random.default_rng(8)
+    W2 = torch.from_numpy(rng.normal(size=(H, 2, 2) + lat + (P,)))
+    x2 = torch.from_numpy(rng.normal(size=(2,) + lat + (P,)))
+    assert torch.equal(st.apply_w(ps2, W2, x2), sk._apply_w_sym(ps2, W2, x2))
 
 
 def test_build_requires_nvcc(monkeypatch, tmp_path):
