@@ -3,7 +3,8 @@
 Turns the JAX package's state, given as numpy arrays (e.g.
 ``jax.tree_util.tree_map(np.asarray, data)``), into the port's on a torch
 device: the assembled multigrid state (``PatchMGData`` and its
-``LevelTables``), the ADMM configuration and the ADMM state.  Only
+``LevelTables``), the ADMM configuration and state, the Newton
+configuration and the packed NS state.  Only
 attributes are read, so this module imports nothing of JAX.
 """
 from __future__ import annotations
@@ -72,6 +73,20 @@ def admm_config(cfg):
     from .optim.admm import ADMMConfig
 
     return ADMMConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(ADMMConfig)})
+
+
+def newton_config(cfg):
+    """JAX NewtonConfig -> port NewtonConfig (every field by name)."""
+    from .solvers.ns_solver import NewtonConfig
+
+    return NewtonConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(NewtonConfig)})
+
+
+def ns_state(s, device, dtype=None) -> torch.Tensor:
+    """A packed NS state [v (dim, n_vel) component-major, p (V)] from the
+    JAX package (or numpy) -> a flat tensor on the device; the packing is
+    the same in both packages."""
+    return tensor(np.asarray(s).reshape(-1), device, dtype)
 
 
 def admm_state(state, device):

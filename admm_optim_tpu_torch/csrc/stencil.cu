@@ -3,13 +3,14 @@
 //
 // Layouts (ops/stencil_kernels.py): fields x, y are (C, n0, n1, n2, P) f32
 // with C = 3, or (lanes, C, n0, n1, n2, P) for the lane forms; W is
-// symmetric half storage (H, C, C, n0, n1, n2, P) f32 or pencil-major
-// (n0, n1, O, C, C, n2, P) bf16, shared by all lanes.  y is additive:
-// per-patch partial sums, made consistent by the exchange that follows.
+// symmetric half storage (H, C, C, n0, n1, n2, P) f32, full slot-major
+// (O, C, C, n0, n1, n2, P) f32, or pencil-major (n0, n1, O, C, C, n2, P)
+// bf16, shared by all lanes.  y is additive: per-patch partial sums, made
+// consistent by the exchange that follows.
 //
 // Every kernel runs one thread per lattice site (i, j, k, p) with p the
 // fastest thread index, so each W and x load of a warp is one contiguous
-// run along the patch axis.  All three are bound by device-memory
+// run along the patch axis.  All of them are bound by device-memory
 // bandwidth: ~1 flop per byte of W, and W is 90% of the bytes.  A
 // neighbour outside the lattice contributes nothing, which is what the
 // JAX forms' zero halo of x gives; so no padded copy of x is made and no
@@ -17,10 +18,12 @@
 // W blocks and rely on the zero halo instead).
 //
 // The slot table `stab` (n_slots x 4 int32, built by
-// stencil_kernels._slot_table) gives per stencil slot its offset (o0, o1,
-// o2) and a code: h >= 0 reads stored slot h at the site itself;
-// -1 - h reads the transpose of stored slot h at the neighbour s + o
-// (operator symmetry: A[s, s+o] = W[h](s+o)^T for o = -offset(h)).
+// stencil_kernels._slot_table / _transpose_table) gives per table row an
+// offset (o0, o1, o2) and a code: h >= 0 reads stored slot h at the site
+// itself; -1 - h reads the transpose of stored slot h at the neighbour
+// s + o.  K1's table mixes both (operator symmetry: A[s, s+o] =
+// W[h](s+o)^T for o = -offset(h)); K5's table reads every slot directly,
+// and K5^T's table reads every slot transposed at the opposite offset.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -56,14 +59,33 @@ __device__ __forceinline__ long long neighbour(const Site& s, const int* e,
   return ((static_cast<long long>(ii) * n1 + jj) * n2 + kk) * P + s.p;
 }
 
+// One thread per site applies every row of the slot table: a direct
+// read W[h](s) x[s+o] or a transposed one W[h](s+o)^T x[s+o].
+//
 // K1, replaces pallas_stencil.py _kernel_sym / _apply_w_pallas_3d_sym
-// (:140-277).  Streams the 8 stored slots once at the site and reads the
-// 7 missing ones as transposes at the neighbour (same 15 block reads per
-// site as the Pallas kernel, from half the stored bytes).  With lanes > 1
-// (what jax.vmap makes of the Pallas call) the lane is the fastest part of
-// the block index, so the blocks of one site range run back to back and
-// all but the first read W from L2 rather than device memory.
-__global__ void apply_w_sym_kernel(const float* __restrict__ W,
+// (:140-277): symmetric half storage, the 8 stored slots read once at the
+// site and the 7 missing ones as transposes at the neighbour (same 15
+// block reads per site as the Pallas kernel, from half the stored bytes).
+// With lanes > 1 (what jax.vmap makes of the Pallas call) the lane is the
+// fastest part of the block index, so the blocks of one site range run
+// back to back and all but the first read W from L2 rather than device
+// memory.
+//
+// K5, replaces pallas_stencil.py _kernel / _apply_w_pallas_3d (:59-137):
+// full slot-major W (15, C, C, n0, n1, n2, P) of a nonsymmetric operator,
+// y[s] = sum_o W[o](s) x[s+o], every row direct.
+//
+// K5^T, the exact transpose of K5, y[t] = sum_o W[o](t-o)^T x[t-o]: a
+// gather (no atomics), every row transposed at offset -o.  It replaces the
+// jax.vjp of K5 that ns_solver.transpose_M takes through the NS velocity
+// V-cycle.  Each W element is still read once per launch, from the site
+// that stores it, by the thread of the site it acts on.
+//
+// K5 and K5^T stream twice K1's W bytes (all 15 slots stored: 88 MB at
+// the NS V-cycle's 9^3 x 224 fine level, 594 MB at 17^3 x 224) for the
+// same flops, so they are bound by device memory like K1; the warp's W
+// and x loads stay contiguous along the patch axis in both directions.
+__global__ void apply_w_slots_kernel(const float* __restrict__ W,
                                    const float* __restrict__ x,
                                    float* __restrict__ y,
                                    const int* __restrict__ stab, int n_slots,
@@ -252,7 +274,7 @@ int apply_w_sym_f32(const void* W, const void* x, void* y, const void* stab,
   const unsigned int blocks = blocks_for(n0, n1, n2, P);
   if (blocks == 0) return 0;
   cudaSetDevice(device);
-  apply_w_sym_kernel<<<blocks * lanes, kThreads, 0,
+  apply_w_slots_kernel<<<blocks * lanes, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(W), static_cast<const float*>(x),
       static_cast<float*>(y), static_cast<const int*>(stab), n_slots, n0, n1,
@@ -297,6 +319,33 @@ int apply_w_df_sym_f32(const void* W, const void* xh, const void* xl, void* yh,
       static_cast<float*>(yl), static_cast<const int*>(stab), n_slots, n0, n1,
       n2, P);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K5 (table of direct rows) and K5^T (table of transposed rows): one
+// field, C = 3, full slot-major W
+static int launch_full(const void* W, const void* x, void* y, const void* stab,
+                       int n_slots, int n0, int n1, int n2, int P, int device,
+                       void* stream) {
+  const unsigned int blocks = blocks_for(n0, n1, n2, P);
+  if (blocks == 0) return 0;
+  cudaSetDevice(device);
+  apply_w_slots_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(W), static_cast<const float*>(x),
+      static_cast<float*>(y), static_cast<const int*>(stab), n_slots, n0, n1,
+      n2, P, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int apply_w_full_f32(const void* W, const void* x, void* y, const void* stab,
+                     int n_slots, int n0, int n1, int n2, int P, int device,
+                     void* stream) {
+  return launch_full(W, x, y, stab, n_slots, n0, n1, n2, P, device, stream);
+}
+
+int apply_w_full_t_f32(const void* W, const void* x, void* y, const void* stab,
+                       int n_slots, int n0, int n1, int n2, int P, int device,
+                       void* stream) {
+  return launch_full(W, x, y, stab, n_slots, n0, n1, n2, P, device, stream);
 }
 
 const char* stencil_error_string(int err) {

@@ -189,9 +189,9 @@ def apply_w(ps: PatchSet, W, x):
       or apply_w_pencil_batched for a lane axis (W read once for all lanes);
     * symmetric half W (H slots) -> stencil_kernels.apply_w_sym, one launch
       for all lanes;
-    * full slot-major W -> the plain full-stencil form on the CPU.  On the
-      GPU that is the TPU kernel K5's job, which is not ported yet
-      (ROADMAP), so a CUDA tensor raises."""
+    * full slot-major W (nonsymmetric operators) -> stencil_kernels
+      .ApplyWFull, K5 with K5^T as its autograd backward, once per lane
+      (the plain forms on CPU tensors)."""
     from . import stencil_kernels as sk
 
     batched = x.dim() == ps.dim + 3
@@ -203,12 +203,11 @@ def apply_w(ps: PatchSet, W, x):
         if ps.dim == 2:
             return sk._lanes(sk._apply_w_sym, ps, W, x)
         return sk.apply_w_sym(ps, W, x)
-    if ps.dim == 3 and x.device.type != "cpu":
-        raise NotImplementedError(
-            "full slot-major W on the GPU needs the full-stencil kernel "
-            "(pallas_stencil._apply_w_pallas_3d), which is not ported yet"
-        )
-    return sk._lanes(sk._apply_w_full, ps, W, x)
+    if ps.dim == 2:
+        return sk._lanes(sk._apply_w_full, ps, W, x)
+    if batched:
+        return torch.stack([sk.ApplyWFull.apply(ps, W, xb) for xb in x])
+    return sk.ApplyWFull.apply(ps, W, x)
 
 
 def apply_w_df(ps: PatchSet, W, xh, xl):

@@ -8,9 +8,10 @@ Layout contract, as in the JAX package:
         y is additive (per-patch partial sums, made consistent afterwards
         by patchstencil.exchange_sum);
   W:    (H, C, C, n0, n1, n2, P) symmetric half storage (H = 8 of O = 15
-        slots, patchstencil.half_slots), or pencil-major
-        (n0, n1, O, C, C, n2, P) (to_pencil_major).  W is shared by all
-        lanes.
+        slots, patchstencil.half_slots), full slot-major
+        (O, C, C, n0, n1, n2, P) for a nonsymmetric operator, or
+        pencil-major (n0, n1, O, C, C, n2, P) (to_pencil_major).  W is
+        shared by all lanes.
 
 Kernels (sources in ../csrc/stencil.cu, built on first use by _build):
   apply_w_sym             K1, replaces pallas_stencil._apply_w_pallas_3d_sym
@@ -19,8 +20,12 @@ Kernels (sources in ../csrc/stencil.cu, built on first use by _build):
   apply_w_pencil_batched  K3, replaces pallas_stencil._apply_w_pallas_3d_pc_batched
                           (bf16 W read once for 1 <= B <= 8 lanes)
   apply_w_df_sym          K4, replaces pallas_stencil._apply_w_df_pallas_3d_sym
+  apply_w_full            K5, replaces pallas_stencil._apply_w_pallas_3d (full W)
+  apply_w_full_t          K5^T, the exact transpose of K5 (the jax.vjp of
+                          K5 in ns_solver.transpose_M); ApplyWFull is K5
+                          with K5^T as its autograd backward
 
-Dispatch is the same for all four: a tensor on the CPU takes the plain
+Dispatch is the same for all of them: a tensor on the CPU takes the plain
 twin; a CUDA tensor launches the kernel or raises.  There is no fallback
 and no lattice-size gate.  ``launches`` counts kernel launches per wrapper
 (the twin never counts).
@@ -34,7 +39,10 @@ import torch
 from . import df
 from .patchstencil import expand_sym_w, half_slots, shift_read
 
-launches = {"apply_w_sym": 0, "apply_w_pencil": 0, "apply_w_pencil_batched": 0, "apply_w_df_sym": 0}
+launches = {
+    "apply_w_sym": 0, "apply_w_pencil": 0, "apply_w_pencil_batched": 0, "apply_w_df_sym": 0,
+    "apply_w_full": 0, "apply_w_full_t": 0,
+}
 MAX_LANES = 8  # K3 is templated on the lane count up to this
 
 
@@ -67,15 +75,21 @@ def _pad_lat(x, dim):
 
 
 def _apply_w_full(ps, W, x):
-    """Full slot-major apply (O, C, C, *lat, P): all slots contract in one
-    broadcast multiply + reduction over (slot, component)."""
+    """Full slot-major apply (O, C, C, *lat, P): y[c] = sum over slots o and
+    components d of W[o, c, d] x[d] at s + o, accumulated one (o, d) pair
+    at a time (no (O, C, C, S) temporary)."""
     dim = ps.dim
     lat = x.shape[1 : 1 + dim]
     C = x.shape[0]
-    O = len(ps.stencil)
-    xw = _windows(_pad_lat(x, dim), ps.stencil, lat)  # (O, D, S)
-    Wf = W.reshape(O, C, C, -1)  # (O, C, D, S)
-    return torch.sum(Wf * xw[:, None], dim=(0, 2)).reshape(x.shape)
+    xp = _pad_lat(x, dim)
+    Wf = W.reshape(W.shape[0], C, C, -1)  # (O, C, D, S)
+    y = None
+    for oi, o in enumerate(ps.stencil):
+        xw = _windows(xp, [o], lat)[0]  # (D, S)
+        for d in range(C):
+            t = Wf[oi, :, d] * xw[d]
+            y = t if y is None else y + t
+    return y.reshape(x.shape)
 
 
 def _apply_w_sym(ps, W, x):
@@ -93,6 +107,17 @@ def _apply_w_sym(ps, W, x):
     for h in range(1, H):
         o = ps.stencil[kept[h]]
         z = torch.sum(W[h] * x[:, None], dim=0)  # (C, *lat, P): W^T x
+        y = y + shift_read(z, [-int(v) for v in o], lat_axes_offset=1)
+    return y
+
+
+def _apply_w_full_t(ps, W, x):
+    """Twin of K5^T: the exact transpose of _apply_w_full, every slot o as
+    a shifted transpose y[s] += W[o][:, :, s-o]^T x[s-o] (K1's missing-slot
+    form over all slots)."""
+    y = torch.zeros_like(x)
+    for q, o in enumerate(ps.stencil):
+        z = torch.sum(W[q] * x[:, None], dim=0)  # (D, *lat, P): W^T x
         y = y + shift_read(z, [-int(v) for v in o], lat_axes_offset=1)
     return y
 
@@ -192,6 +217,14 @@ def _slot_table(stencil, kept, device):
         else:
             code = -1 - pos[stencil.index(tuple(-v for v in o))]
         rows.append(list(o) + [code])
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _transpose_table(stencil, device):
+    """(O, 4) int32 table of K5^T: per slot q the offset -o_q and the code
+    -1-q, so the kernel adds W[q](s-o_q)^T x[s-o_q]."""
+    rows = [[-v for v in o] + [-1 - q] for q, o in enumerate(stencil)]
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
@@ -302,3 +335,57 @@ def apply_w_df_sym(ps, W, xh, xl):
         tab.data_ptr(), len(stencil), n0, n1, n2, P, device=xh.device,
     )
     return yh, yl
+
+
+def _full(name, fn, ps, W, x, tab):
+    """Launch K5 or K5^T (one field, C = 3, full slot-major f32 W)."""
+    _, n0, n1, n2, P = _check(name, ps, x, (W, x), torch.float32)
+    if W.shape != (len(ps.stencil), 3, 3, n0, n1, n2, P):
+        raise ValueError(f"{name}: W shape {tuple(W.shape)} does not match x")
+    y = torch.empty_like(x)
+    _launch(
+        name, fn, W.data_ptr(), x.data_ptr(), y.data_ptr(), tab.data_ptr(),
+        len(ps.stencil), n0, n1, n2, P, device=x.device,
+    )
+    return y
+
+
+def apply_w_full(ps, W, x):
+    """K5: y = A x from full slot-major W (O, C, C, n0, n1, n2, P) of a
+    nonsymmetric operator (the NS conv-diff velocity V-cycle)."""
+    if x.device.type == "cpu":
+        return _apply_w_full(ps, W, x)
+    stencil = _stencil_key(ps)
+    tab = _slot_table(stencil, tuple(range(len(stencil))), x.device)
+    return _full("apply_w_full", "apply_w_full_f32", ps, W, x, tab)
+
+
+def apply_w_full_t(ps, W, x):
+    """K5^T: y = A^T x for the same W, a gather of shifted transposes."""
+    if x.device.type == "cpu":
+        return _apply_w_full_t(ps, W, x)
+    tab = _transpose_table(_stencil_key(ps), x.device)
+    return _full("apply_w_full_t", "apply_w_full_t_f32", ps, W, x, tab)
+
+
+class ApplyWFull(torch.autograd.Function):
+    """K5 as a function of x alone, like the JAX package's custom VJP that
+    closes over W: the backward is K5^T (its twin on CPU tensors).  A
+    gradient with respect to W is not provided and raises."""
+
+    @staticmethod
+    def forward(ps, W, x):
+        return apply_w_full(ps, W, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ps, W, _ = inputs
+        ctx.ps = ps
+        ctx.save_for_backward(W)
+
+    @staticmethod
+    def backward(ctx, gy):
+        if ctx.needs_input_grad[1]:
+            raise RuntimeError("ApplyWFull is differentiable in x only, not in W")
+        (W,) = ctx.saved_tensors
+        return None, None, apply_w_full_t(ctx.ps, W, gy.contiguous())

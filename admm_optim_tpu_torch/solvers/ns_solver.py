@@ -1,0 +1,368 @@
+"""Newton solver for steady NS, the discrete adjoint and the shape gradient
+(port of the patch-backend parts of admm_optim_tpu/solvers/ns_solver.py,
+with the host-stepped adjoint driver of models/obstacle.py:713-839).
+
+Newton with the acceptBest backtracking line search; each linear solve is
+flexible GMRES on the assembled lattice Jacobian (ops.ns_patchjac), stepped
+from the host in chunks of ``lin_exec_chunk`` Arnoldi steps with GCRO-DR
+recycling.  The preconditioner is block triangular: lumped pressure mass /
+nu for the pressure, one Jacobi-smoothed conv-diff V-cycle on the
+once-refined P1-iso-P2 lattice for the velocity (K5 on the GPU).  The
+adjoint solves J^T lambda = -dJ_drag/ds with the exact transpose of that
+preconditioner, the autograd vjp through the V-cycle (K5^T).  The shape
+gradient is the autograd gradient of J + lambda^T R in the coordinates.
+
+Not ported: the monolithic jitted newton_solve / adjoint_solve (one
+host-stepped driver each is kept), PCD and the ELL preconditioner data.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..ops import navier_stokes as nsops
+from ..ops import patchstencil as pst
+from . import krylov
+from . import patch_mg as pmg
+
+
+@dataclasses.dataclass(frozen=True)
+class NewtonConfig:
+    """The JAX package's NewtonConfig, every default unchanged (see its
+    comments for the measurements behind them)."""
+
+    max_iters: int = 50
+    abs_tol: float = 1e-12
+    # converged flag threshold: the inner GMRES tolerance bounds the
+    # reachable Newton residual
+    accept_tol: float = 1e-7
+    line_search_steps: int = 20
+    line_search_reduce: float = 0.9
+    # FGMRES restart length, clamped by the basis memory budget
+    lin_restart: int = 200
+    lin_basis_budget_bytes: float = 4e9
+    lin_max_iters: int = 600
+    # inexact-Newton forcing term
+    lin_rel_tol: float = 1e-2
+    lin_abs_tol: float = 1e-14
+    # the adjoint keeps a tight tolerance: J' inherits its linear residual
+    adj_rel_tol: float = 1e-11
+    # Arnoldi chunk of the adjoint (host reads the estimate after each)
+    adj_exec_restart: int = 100
+    # Arnoldi chunk of the forward linear solves
+    lin_exec_chunk: int = 50
+    # GCRO-DR recycle dimensions (0 disables)
+    adj_recycle_k: int = 24
+    lin_recycle_k: int = 16
+    # stop Newton when an iteration reduces |R| by less than this fraction
+    stall_rtol: float = 1e-3
+
+
+def _restart_len(cfg: NewtonConfig, n_state: int, itemsize: int, mult: int = 1) -> int:
+    """FGMRES restart length bounded by the basis memory budget (2*(restart
+    +1) state vectors), at least 30."""
+    cap = int(cfg.lin_basis_budget_bytes // max(2 * n_state * itemsize, 1)) - 1
+    return max(30, min(mult * cfg.lin_restart, cap))
+
+
+def _chunked_rl(cfg: NewtonConfig, n_state: int, itemsize: int) -> int:
+    """Forward restart length rounded down to whole lin_exec_chunk chunks."""
+    ch = max(1, int(cfg.lin_exec_chunk))
+    return max(ch, (_restart_len(cfg, n_state, itemsize) // ch) * ch)
+
+
+def _norm(x):
+    return torch.sqrt(torch.sum(x * x))
+
+
+class NewtonResult(NamedTuple):
+    s: torch.Tensor
+    iters: int
+    res_norm: float
+    converged: bool
+    res_history: list  # |R| at the start and after every Newton iteration
+    lin_iters: list  # linear iterations per Newton iteration (chunk units)
+    seconds: list  # wall seconds per Newton iteration, synchronized
+
+
+def newton_solve_stepped(
+    space, coords, s0, visc, stab, cfg: NewtonConfig, M_fn, jv_fn, pre_fn,
+) -> NewtonResult:
+    """Host-stepped Newton with the acceptBest line search.
+
+    pre_fn(s) -> m_args builds the per-iterate data, whose last element is
+    the assembled Jacobian W; M_fn(r, *m_args) is the preconditioner and
+    jv_fn(x, W) the Jacobian apply (the JAX package's jv_from_m wiring).
+    Each linear solve runs FGMRES cycles of _chunked_rl steps, reading the
+    residual estimate after every lin_exec_chunk steps, with GCRO-DR
+    recycling carried across Newton iterates."""
+
+    def R(ss):
+        return nsops.ns_residual(space, coords, ss, visc, stab)
+
+    def wiring(m_args):
+        W = m_args[-1]
+        return (lambda x: jv_fn(x, W)), (lambda x: M_fn(x, *m_args))
+
+    n, isz = s0.numel(), s0.element_size()
+    rl = _chunked_rl(cfg, n, isz)
+    ch = min(max(1, int(cfg.lin_exec_chunk)), rl)
+    nrm = float(_norm(R(s0)))
+    hist, lin_hist, secs = [nrm], [], []
+    s, it = s0, 0
+    k_r = max(0, int(cfg.lin_recycle_k))
+    if rl < 8 * k_r:
+        # harmonic Ritz directions of short cycles are noise
+        k_r = 0
+    U_carry = None
+    while nrm > cfg.abs_tol and it < cfg.max_iters:
+        t0 = time.perf_counter()
+        Jv, Mx = wiring(pre_fn(s))
+        b = -R(s)
+        # inexact-Newton target fixed from this iterate's residual
+        target = max(cfg.lin_abs_tol, 0.1 * cfg.accept_tol, cfg.lin_rel_tol * nrm)
+        x = torch.zeros_like(s)
+        lin_its = 0
+        beta_prev = None
+        U = C = None
+        if k_r > 0 and U_carry is not None and U_carry.shape[0] == k_r:
+            # re-image the recycle space against this iterate's Jacobian
+            # (k plain applies, charged to the linear budget)
+            U, C = krylov.gcro_prepare(Jv, U_carry)
+            lin_its += k_r
+        while lin_its < cfg.lin_max_iters:
+            if U is not None:
+                x_p, V, Z, H, B, beta = krylov.gcro_chunk_start(Jv, b, x, U, C, rl)
+            else:
+                V, Z, H, beta = krylov.gmres_chunk_start(Jv, b, x, rl)
+                B, x_p = None, x
+            bf = float(beta)
+            if bf <= target:
+                x = x_p
+                break
+            if beta_prev is not None and not (bf < beta_prev * (1.0 - 1e-6)):
+                # restart cycle stagnated (f32 floor)
+                x = x_p
+                break
+            beta_prev = bf
+            x = x_p
+            j, est = 0, bf
+            while j < rl and est > target and lin_its < cfg.lin_max_iters:
+                if U is not None:
+                    V, Z, H, B, est = krylov.gcro_chunk_arnoldi(Jv, Mx, C, V, Z, H, B, beta, j, ch)
+                else:
+                    V, Z, H, est = krylov.gmres_chunk_arnoldi(Jv, Mx, V, Z, H, beta, j, ch)
+                j += ch
+                lin_its += ch
+            if U is not None:
+                x = krylov.gcro_chunk_finish(x, Z, H, B, beta, U, j)
+            else:
+                x = krylov.gmres_chunk_finish(x, Z, H, beta, j)
+            if k_r > 0:
+                Un, Cn = krylov.gcro_update_recycle(U, C, V, Z, H, B, k_r, j)
+                if Un.shape[0] == k_r:
+                    U, C = Un, Cn
+            del V, Z, H, B
+        if U is not None:
+            U_carry = U
+        s_new, nrm_new = _line_search(R, cfg, s, x, nrm)
+        stalled = nrm_new >= nrm * (1.0 - cfg.stall_rtol)
+        s, nrm = s_new, nrm_new
+        it += 1
+        hist.append(nrm)
+        lin_hist.append(lin_its)
+        secs.append(time.perf_counter() - t0)
+        if stalled:
+            break
+    return NewtonResult(s, it, nrm, nrm <= cfg.accept_tol, hist, lin_hist, secs)
+
+
+def _line_search(R, cfg: NewtonConfig, s, delta, nrm: float):
+    """acceptBest backtracking: try lambda = reduce^k for every k, keep the
+    best.  One host sync, at the end."""
+    best_s = s
+    best = torch.tensor(nrm, dtype=s.dtype, device=s.device)
+    for k in range(cfg.line_search_steps):
+        s_try = s + cfg.line_search_reduce**k * delta
+        nrm_t = _norm(R(s_try))
+        better = nrm_t < best
+        best_s = torch.where(better, s_try, best_s)
+        best = torch.where(better, nrm_t, best)
+    return best_s, float(best)
+
+
+def drag_gradient(space, coords, s, visc):
+    """dJ_drag/ds by autograd."""
+    sg = s.detach().requires_grad_(True)
+    with torch.enable_grad():
+        J = nsops.drag(space, coords, sg, visc)
+        return torch.autograd.grad(J, sg)[0]
+
+
+def shape_gradient(space, coords, s, lam, visc, stab, obstacle_vmask):
+    """J'(X) = d/dX [J_drag + lambda^T R] at fixed (s, lambda), masked to
+    the obstacle surface: (V, d)."""
+    X = coords.detach().requires_grad_(True)
+    s, lam = s.detach(), lam.detach()
+    with torch.enable_grad():
+        L = nsops.drag(space, X, s, visc) + torch.sum(lam * nsops.ns_residual(space, X, s, visc, stab))
+        g = torch.autograd.grad(L, X)[0]
+    return g * obstacle_vmask[:, None]
+
+
+class AdjointResult(NamedTuple):
+    lam: torch.Tensor
+    res_norm: float  # true residual norm where the loop stopped
+    iters: int  # Arnoldi steps in chunk units, plus the recycle re-images
+    exit: str  # "target", "stagnation" or "budget"
+    target: float
+    cycles: int
+
+
+def adjoint_solve_stepped(
+    space, coords, s, visc, Jt: Callable, MT: Callable, cfg: NewtonConfig = NewtonConfig(),
+) -> AdjointResult:
+    """J^T lambda = -dJ_drag/ds by host-stepped FGMRES with GCRO-DR (the
+    JAX package's models/obstacle.py _adjoint_stepped).
+
+    The target is max(lin_abs_tol, adj_rel_tol * |dJ/ds|); the restart is
+    the budgeted _restart_len(mult=2) rounded down to whole adj_exec_restart
+    chunks; the budget is 4 * lin_max_iters.  A cycle whose starting
+    residual does not drop below (1 - 1e-6) times the previous one stops
+    the loop (the float32 stagnation exit).  It starts cold, from lambda =
+    0 with no recycle space: the warm start across optimization steps
+    belongs to the optimization driver."""
+    gJ = drag_gradient(space, coords, s, visc)
+    b = -gJ
+    target = max(cfg.lin_abs_tol, cfg.adj_rel_tol * float(_norm(gJ)))
+    ch = max(1, int(cfg.adj_exec_restart))
+    rl_full = _restart_len(cfg, s.numel(), s.element_size(), mult=2)
+    rl = max(ch, (rl_full // ch) * ch)
+    budget = 4 * cfg.lin_max_iters
+    x = torch.zeros_like(s)
+    total, cycles = 0, 0
+    beta_prev = None
+    k_r = max(0, int(cfg.adj_recycle_k))
+    if rl < 8 * k_r:
+        k_r = 0
+    U = C = None
+    exit_ = "budget"
+    while True:
+        if U is not None:
+            x_p, V, Z, H, B, beta = krylov.gcro_chunk_start(Jt, b, x, U, C, rl)
+        else:
+            V, Z, H, beta = krylov.gmres_chunk_start(Jt, b, x, rl)
+            B, x_p = None, x
+        bf = float(beta)
+        if bf <= target or total >= budget:
+            x = x_p
+            exit_ = "target" if bf <= target else "budget"
+            break
+        if beta_prev is not None and not (bf < beta_prev * (1.0 - 1e-6)):
+            x = x_p
+            exit_ = "stagnation"
+            break
+        beta_prev = bf
+        x = x_p
+        j, est = 0, bf
+        while j < rl and est > target and total < budget:
+            if U is not None:
+                V, Z, H, B, est = krylov.gcro_chunk_arnoldi(Jt, MT, C, V, Z, H, B, beta, j, ch)
+            else:
+                V, Z, H, est = krylov.gmres_chunk_arnoldi(Jt, MT, V, Z, H, beta, j, ch)
+            j += ch
+            total += ch
+        if U is not None:
+            x = krylov.gcro_chunk_finish(x, Z, H, B, beta, U, j)
+        else:
+            x = krylov.gmres_chunk_finish(x, Z, H, beta, j)
+        cycles += 1
+        if k_r > 0:
+            Un, Cn = krylov.gcro_update_recycle(U, C, V, Z, H, B, k_r, j)
+            if Un.shape[0] == k_r:
+                U, C = Un, Cn
+        del V, Z, H, B
+    return AdjointResult(x, bf, total, exit_, target, cycles)
+
+
+# ---------------------------------------------------------------------------
+# block preconditioner on the patch backend
+# ---------------------------------------------------------------------------
+
+def ns_gmg_precond_data_patch(
+    ns_space, pre_ps, pre_struct_p, pre_tabs, base_dense_fn, parents_fine, coords, visc, s,
+):
+    """Velocity-block conv-diff hierarchy on the once-refined lattice and
+    the pressure block's lumped mass / nu.
+
+    The P2 velocity dofs of level L are the vertices of level L+1, so the
+    current velocity is the P1 advecting field of every level's operator;
+    geometry and velocity travel together as the stacked [coords | w]
+    lattice array.  base_dense_fn receives that array at level 0, (V0, 2d).
+    Returns (pre_data, pdiag)."""
+    from ..ops.convdiff import convdiff_corner_mats
+
+    Xf = 0.5 * (coords[parents_fine[:, 0]] + coords[parents_fine[:, 1]])
+    w, _ = ns_space.unpack(s)
+    cw_p = pst.to_patch_tab(pre_tabs[-1], torch.cat([Xf.T, w], dim=0))
+    pre_data = pmg.assemble_patch_mg_p(
+        pre_ps, pre_struct_p, cw_p, lambda c: convdiff_corner_mats(c, visc), base_dense_fn, pre_tabs,
+    )
+    return pre_data, nsops.pressure_mass_lumped(ns_space, coords, visc)
+
+
+def patch_velocity_M(pre_ps, pre_struct_p, pre_data, iters: int = 1):
+    """Velocity-block action zv ~= F^-1 rv, global (d, n_vel) in and out:
+    one V-cycle (iters > 1: V-cycle-preconditioned Richardson).  Fixed
+    (Dirichlet) dofs pass through untouched."""
+    tab = pre_data.tabs[pre_ps.k]
+    W = pre_data.W[-1]
+
+    def zv_fn(rv):
+        free = tab.free[None].to(rv.dtype)
+        b_p = pst.to_patch_tab(tab, rv)
+        bf = b_p * free
+        z_p = pmg.vcycle_p(pre_struct_p, pre_data, bf)
+        for _ in range(iters - 1):
+            Az = pmg._apply(pre_ps, tab, W, z_p)
+            z_p = z_p + pmg.vcycle_p(pre_struct_p, pre_data, (bf - Az) * free)
+        z_p = z_p + b_p * (1.0 - free)
+        return pst.from_patch_tab(tab, z_p, rv.shape[1], mode="owner")
+
+    return zv_fn
+
+
+def ns_gmg_M(ns_space, pdiag, vel_M, bt_fn=None):
+    """Block preconditioner: z_p = r_p / pdiag, then z_v = vel_M(r_v -
+    B^T z_p) (block triangular with bt_fn, the assembled B^T of
+    ops.ns_patchjac.make_bt_fn; block diagonal without)."""
+
+    def M(r):
+        rv, rp = ns_space.unpack(r)
+        zp = rp / pdiag
+        if bt_fn is not None:
+            rv = rv - bt_fn(zp)
+        return ns_space.pack(vel_M(rv), zp)
+
+    return M
+
+
+def transpose_M(M, n_state, dtype, device):
+    """The exact transpose of a linear preconditioner: the vector-Jacobian
+    product of M at zero, recorded once; each call of the result runs the
+    recorded backward (K5^T through the velocity V-cycle).  The adjoint
+    reproduces the forward solve's Krylov convergence with it (eig(J^T
+    M^T) = eig(M J)).  Plain autograd rather than torch.func.vjp: under
+    torch.func the tensors that a custom Function saves come back wrapped,
+    without the storage a kernel launch needs."""
+    x0 = torch.zeros(n_state, dtype=dtype, device=device, requires_grad=True)
+    with torch.enable_grad():
+        y = M(x0)
+
+    def MT(r):
+        return torch.autograd.grad(y, x0, r, retain_graph=True)[0]
+
+    return MT

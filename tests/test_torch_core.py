@@ -1,6 +1,6 @@
 """The port's jax-free copies of the host-side core (geomgen, mesh, ugx,
-meshkit, patches) give arrays identical to the JAX package's, and the port
-imports with JAX unavailable."""
+meshkit, patches, quadrature, spaces) give arrays identical to the JAX
+package's, and the port imports with JAX unavailable."""
 import dataclasses
 import pathlib
 import subprocess
@@ -13,7 +13,9 @@ import torch
 from admm_optim_tpu.core import geomgen as jgeomgen
 from admm_optim_tpu.core import mesh as jmesh
 from admm_optim_tpu.core import patches as jpatches
-from admm_optim_tpu_torch.core import geomgen, mesh, patches
+from admm_optim_tpu.core import quadrature as jquadrature
+from admm_optim_tpu.core import spaces as jspaces
+from admm_optim_tpu_torch.core import geomgen, mesh, patches, quadrature, spaces
 
 torch.set_num_threads(1)
 
@@ -57,6 +59,22 @@ def test_core_copies_match_jax_package(refs):
         _dataclass_same(a, b, f"ps.levels[{l}]")
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+def test_quadrature_and_space_tables_match_jax_package(dim):
+    """simplex_rule, p1_tab, p2_tab (every degree the NS space uses) and
+    p2_elem_dofs, bit for bit."""
+    for degree in (1, 2, 3, 4, 5):
+        _assert_same(quadrature.simplex_rule(dim, degree), jquadrature.simplex_rule(dim, degree),
+                     f"simplex_rule({dim}, {degree})")
+        _assert_same(spaces.p1_tab(dim, degree), jspaces.p1_tab(dim, degree), f"p1_tab({dim}, {degree})")
+        _assert_same(spaces.p2_tab(dim, degree), jspaces.p2_tab(dim, degree), f"p2_tab({dim}, {degree})")
+    base = geomgen.channel_3d() if dim == 3 else geomgen.channel_2d(diag="fixed")
+    jbase = jgeomgen.channel_3d() if dim == 3 else jgeomgen.channel_2d(diag="fixed")
+    lv, jlv = mesh.refine(base), jmesh.refine(jbase)
+    _assert_same(spaces.p2_elem_dofs(lv), jspaces.p2_elem_dofs(jlv), "p2_elem_dofs")
+    _assert_same(spaces.p2_dof_coords(lv), jspaces.p2_dof_coords(jlv), "p2_dof_coords")
+
+
 def test_port_imports_without_jax():
     """Every module of the port (and chip_smoke.py) imports with JAX and
     the JAX package made unimportable, as on a GPU machine without JAX."""
@@ -71,6 +89,9 @@ def test_port_imports_without_jax():
         "import chip_smoke\n"
         "assert 'admm_optim_tpu_torch.solvers.patch_mg' in names\n"
         "assert 'admm_optim_tpu_torch.xupdate_solve' in names\n"
+        "for n in ('core.quadrature', 'core.spaces', 'ops.convdiff', 'ops.navier_stokes',\n"
+        "          'ops.ns_patchjac', 'solvers.ns_solver', 'ns_run'):\n"
+        "    assert 'admm_optim_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
     out = subprocess.run(
@@ -78,4 +99,4 @@ def test_port_imports_without_jax():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 15
+    assert int(out.stdout.strip().splitlines()[-1]) >= 22

@@ -85,9 +85,11 @@ def test_k2_twin_matches_interpret_pallas_pencil_bf16(problem):
     sk.reset_launches()
     assert torch.equal(sk.apply_w_pencil(tps, Wpc_t, torch.from_numpy(x)), y_twin)
     assert torch.equal(st.apply_w(tps, st.PencilW(Wpc_t), torch.from_numpy(x)), y_twin)
-    assert sk.launches == {
-        "apply_w_sym": 0, "apply_w_pencil": 0, "apply_w_pencil_batched": 0, "apply_w_df_sym": 0,
+    assert set(sk.launches) == {
+        "apply_w_sym", "apply_w_pencil", "apply_w_pencil_batched", "apply_w_df_sym",
+        "apply_w_full", "apply_w_full_t",
     }
+    assert sum(sk.launches.values()) == 0
 
 
 @pytest.mark.parametrize("lanes", [5, 1])
@@ -207,15 +209,19 @@ def test_wrappers_raise_off_cpu_and_cuda(problem):
         sk.apply_w_pencil_batched(tps, Wpc, xbm)
     with pytest.raises(ValueError):
         st.apply_w(tps, st.PencilW(Wpc), xbm)
-    with pytest.raises(NotImplementedError):
-        st.apply_w(tps, st.expand_sym_w(tps, Wm), xm)
+    Wfm = st.expand_sym_w(tps, Wm)
+    with pytest.raises(ValueError):
+        sk.apply_w_full(tps, Wfm, xm)
+    with pytest.raises(ValueError):
+        sk.apply_w_full_t(tps, Wfm, xm)
+    with pytest.raises(ValueError):
+        st.apply_w(tps, Wfm, xm)
 
 
 def test_2d_lattices_take_the_plain_forms_on_every_device():
     """The JAX package has no 2D kernel (pallas_stencil.py:29-34): a 2D
     apply on a non-CPU tensor returns the plain form's result instead of
-    reaching a 3D-only kernel wrapper; 3D full slot-major W still raises
-    there (K5 is not ported)."""
+    reaching a 3D-only kernel wrapper, for symmetric half and full W."""
     l0 = geomgen.channel_2d(n_side=(3, 1), diag="fixed")
     ps2 = build_patchset(Hierarchy([l0, refine(l0)]))
     lat, P = ps2.fine.lat_shape, ps2.P
@@ -241,3 +247,88 @@ def test_build_requires_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+# ---------------------------------------------------------------------------
+# K5 (full slot-major apply) and its transpose, float64
+# ---------------------------------------------------------------------------
+
+K5_SHAPES = [((3, 3, 3), 5), ((5, 5, 5), 7)]
+
+
+def _k5_inputs(tps, shape, seed):
+    lat, P = shape
+    rng = np.random.default_rng(seed)
+    O = len(tps.stencil)
+    W = rng.normal(size=(O, 3, 3) + lat + (P,))
+    x = rng.normal(size=(3,) + lat + (P,))
+    y = rng.normal(size=(3,) + lat + (P,))
+    return W, x, y
+
+
+@pytest.mark.parametrize("shape", K5_SHAPES)
+def test_k5_twin_matches_interpret_pallas_and_jax_apply(problem, shape):
+    """K5's twin against the JAX package's full-stencil Pallas kernel in
+    interpret mode and against its patchstencil.apply_w (the XLA form)."""
+    jps, tps, _ = problem
+    W, x, _ = _k5_inputs(tps, shape, 11)
+    y_pal = pst._apply_w_pallas_3d.__wrapped__(
+        _stencil(jps), pst._SLOT_CHUNK, jnp.asarray(W), jnp.asarray(x), interpret=True
+    )
+    y_jax = jst.apply_w(jps, jnp.asarray(W), jnp.asarray(x))
+    y_twin = sk._apply_w_full(tps, torch.from_numpy(W), torch.from_numpy(x))
+    assert y_twin.dtype == torch.float64
+    assert _rel(y_twin, y_pal) < 1e-12
+    assert _rel(y_twin, y_jax) < 1e-12
+    # the wrapper, the dispatching apply_w and ApplyWFull on CPU tensors are
+    # the twin, and count no launch
+    sk.reset_launches()
+    Wt, xt = torch.from_numpy(W), torch.from_numpy(x)
+    assert torch.equal(sk.apply_w_full(tps, Wt, xt), y_twin)
+    assert torch.equal(st.apply_w(tps, Wt, xt), y_twin)
+    assert torch.equal(sk.ApplyWFull.apply(tps, Wt, xt), y_twin)
+    assert sum(sk.launches.values()) == 0
+
+
+@pytest.mark.parametrize("shape", K5_SHAPES)
+def test_k5_transpose_twin_matches_jax_vjp_and_is_adjoint(problem, shape):
+    jps, tps, _ = problem
+    W, x, y = _k5_inputs(tps, shape, 12)
+    _, vjp = jax.vjp(lambda v: jst.apply_w(jps, jnp.asarray(W), v), jnp.asarray(x))
+    yt_jax = vjp(jnp.asarray(y))[0]
+    Wt, xt, ytt = (torch.from_numpy(a) for a in (W, x, y))
+    yt = sk._apply_w_full_t(tps, Wt, ytt)
+    assert _rel(yt, yt_jax) < 1e-12
+    assert torch.equal(sk.apply_w_full_t(tps, Wt, ytt), yt)
+    # <A x, y> = <x, A^T y>
+    a = float(torch.sum(sk._apply_w_full(tps, Wt, xt) * ytt))
+    b = float(torch.sum(xt * yt))
+    assert abs(a - b) <= 1e-13 * max(abs(a), abs(b))
+
+
+def test_apply_w_full_autograd_backward_is_the_transpose(problem):
+    """ApplyWFull's backward (and so apply_w's on full 3D W, which
+    ns_solver.transpose_M records through the NS V-cycle) is K5^T's twin; a
+    gradient with respect to W raises."""
+    _, tps, _ = problem
+    W, x, y = (torch.from_numpy(a) for a in _k5_inputs(tps, K5_SHAPES[0], 13))
+    xg = x.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(st.apply_w(tps, W, xg), xg, y)
+    assert torch.equal(g, sk._apply_w_full_t(tps, W, y))
+    _, vjp = torch.func.vjp(lambda v: sk.ApplyWFull.apply(tps, W, v), x)
+    assert torch.equal(vjp(y)[0], sk._apply_w_full_t(tps, W, y))
+    Wg = W.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="differentiable in x only"):
+        sk.ApplyWFull.apply(tps, Wg, x).sum().backward()
+
+
+def test_transpose_table_codes(problem):
+    _, tps, _ = problem
+    stencil = _stencil(tps)
+    tab = sk._transpose_table(stencil, torch.device("cpu")).numpy()
+    assert tab.shape == (15, 4)
+    for q, (o0, o1, o2, code) in enumerate(tab):
+        assert (o0, o1, o2) == tuple(-v for v in stencil[q]) and code == -1 - q
+    direct = sk._slot_table(stencil, tuple(range(15)), torch.device("cpu")).numpy()
+    assert [tuple(r[:3]) for r in direct] == list(stencil)
+    assert list(direct[:, 3]) == list(range(15))
