@@ -16,3 +16,17 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> "_torch.device":
+    """The device an entry point runs on: the card unless the caller names
+    another one.  ``None`` means ``cuda`` and raises when there is none; it
+    never falls back to the CPU (the tests ask for ``"cpu"``)."""
+    if device is not None:
+        return _torch.device(device)
+    if not _torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the entry points run on the GPU by default; pass device='cpu' to run "
+            "the plain PyTorch forms on the CPU"
+        )
+    return _torch.device("cuda")

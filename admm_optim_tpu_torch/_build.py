@@ -79,11 +79,11 @@ def lib() -> ctypes.CDLL:
         ("apply_w_sym_f32", 4, 7),
         ("apply_w_pencil_bf16", 4, 7),
         ("apply_w_df_sym_f32", 6, 6),
-        ("apply_w_full_f32", 4, 6),
-        ("apply_w_full_t_f32", 4, 6),
+        ("apply_w_full_f32", 4, 7),
+        ("apply_w_full_t_f32", 4, 7),
     ):
         fn = getattr(handle, name)
-        # pointers..., n_slots, n0, n1, n2, P, [lanes,] device, stream
+        # pointers..., n_slots, n0, n1, n2, P, [lanes | ncomp,] device, stream
         fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
         fn.restype = i
     handle.stencil_error_string.argtypes = [i]

@@ -1,7 +1,7 @@
 """The patch-backend ADMM inner loop end to end: the port's counterpart of
 bench.py's ``admm_throughput``.
 
-    ctx = xupdate_solve.build(4, "cuda", torch.float32)  # shared with the solve
+    ctx = xupdate_solve.build(4)   # on the card, float32; shared with the solve
     out = admm_run.run(ctx)   # BENCH_CFG: 5 ADMM iterations, CG x-solves
     out.state.admm_it, out.state.total_newton, out.seconds
 

@@ -4,7 +4,7 @@ Turns the JAX package's state, given as numpy arrays (e.g.
 ``jax.tree_util.tree_map(np.asarray, data)``), into the port's on a torch
 device: the assembled multigrid state (``PatchMGData`` and its
 ``LevelTables``), the ADMM configuration and state, the Newton
-configuration and the packed NS state.  Only
+configuration, the packed NS state and the PCD Schur data.  Only
 attributes are read, so this module imports nothing of JAX.
 """
 from __future__ import annotations
@@ -66,6 +66,16 @@ def patch_mg_data(data, ps: PatchSet, device) -> patch_mg.PatchMGData:
         tabs=[level_tables(t, lvl, device) for t, lvl in zip(data.tabs, ps.levels)],
         W_sm=W_sm,
     )
+
+
+def pcd_data(ap_data, W_fp, mp, ps: PatchSet, device):
+    """The JAX package's PCD Schur data (ns_pcd_precond_data_patch, numpy
+    leaves) -> the port's (ap_data, W_fp, mp): the scalar pressure-Laplacian
+    hierarchy with its per-level W, inverse diagonals, lmax, dense base
+    inverse and level tables (whose ``free`` masks are the PCD
+    inlet-Dirichlet ones), the pressure convection-diffusion stencil and the
+    lumped pressure mass."""
+    return patch_mg_data(ap_data, ps, device), tensor(W_fp, device), tensor(mp, device)
 
 
 def admm_config(cfg):

@@ -2,7 +2,9 @@
 // of the Pallas TPU kernels in admm_optim_tpu/ops/pallas_stencil.py.
 //
 // Layouts (ops/stencil_kernels.py): fields x, y are (C, n0, n1, n2, P) f32
-// with C = 3, or (lanes, C, n0, n1, n2, P) for the lane forms; W is
+// with C = 3 (C = 1 too for the full-stencil apply and its transpose: the
+// scalar pressure operators of the PCD Schur block), or
+// (lanes, C, n0, n1, n2, P) for the lane forms; W is
 // symmetric half storage (H, C, C, n0, n1, n2, P) f32, full slot-major
 // (O, C, C, n0, n1, n2, P) f32, or pencil-major (n0, n1, O, C, C, n2, P)
 // bf16, shared by all lanes.  y is additive: per-patch partial sums, made
@@ -33,7 +35,6 @@
 
 namespace {
 
-constexpr int C = 3;
 constexpr int kThreads = 256;
 
 struct Site {
@@ -85,6 +86,18 @@ __device__ __forceinline__ long long neighbour(const Site& s, const int* e,
 // the NS V-cycle's 9^3 x 224 fine level, 594 MB at 17^3 x 224) for the
 // same flops, so they are bound by device memory like K1; the warp's W
 // and x loads stay contiguous along the patch axis in both directions.
+//
+// The kernel is templated on the component count C.  C = 3 serves K1, K5
+// and K5^T on vector fields.  C = 1 is K5 and K5^T on a scalar field, W
+// (15, 1, 1, n0, n1, n2, P): the pressure convection-diffusion stencil
+// and every sweep, residual and restriction of the pressure-Laplacian
+// V-cycle of the PCD Schur block (pallas_stencil.py _apply_w_pallas_3d is
+// generic in C the same way, C = y_ref.shape[0]).  A 1x1 block is its own
+// transpose, so at C = 1 the transposed rows differ from the direct ones
+// only in where W is read (at the neighbour) and in the sign of the
+// offset.  The scalar lattices are small (5^3 x 224 at refs=2 moves 1.9
+// MB), so there the launch itself, not the memory traffic, sets the time.
+template <int C>
 __global__ void apply_w_slots_kernel(const float* __restrict__ W,
                                    const float* __restrict__ x,
                                    float* __restrict__ y,
@@ -98,7 +111,9 @@ __global__ void apply_w_slots_kernel(const float* __restrict__ W,
   x += lane_off;
   y += lane_off;
   const Site s = site_of(t, n1, n2, P);
-  float acc[C] = {0.f, 0.f, 0.f};
+  float acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.f;
   for (int q = 0; q < n_slots; ++q) {
     const int* e = stab + 4 * q;
     const long long nb = neighbour(s, e, n0, n1, n2, P);
@@ -148,6 +163,7 @@ __global__ void apply_w_pencil_bf16_kernel(const __nv_bfloat16* __restrict__ W,
                                            const int* __restrict__ stab,
                                            int n_slots, int n0, int n1, int n2,
                                            int P) {
+  constexpr int C = 3;
   const long long sp = static_cast<long long>(n0) * n1 * n2 * P;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= sp) return;
@@ -206,6 +222,7 @@ __global__ void apply_w_df_sym_kernel(const float* __restrict__ W,
                                       float* __restrict__ yl,
                                       const int* __restrict__ stab, int n_slots,
                                       int n0, int n1, int n2, int P) {
+  constexpr int C = 3;
   const long long sp = static_cast<long long>(n0) * n1 * n2 * P;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= sp) return;
@@ -264,6 +281,33 @@ void launch_pencil(const Pencil& a) {
       a.W, a.x, a.y, a.stab, a.n_slots, a.n0, a.n1, a.n2, a.P);
 }
 
+// K5 (table of direct rows) and K5^T (table of transposed rows): one
+// field of ncomp = 3 or 1 components, full slot-major W; any other count
+// is refused
+template <int C>
+void launch_slots(const void* W, const void* x, void* y, const void* stab,
+                  int n_slots, int n0, int n1, int n2, int P,
+                  unsigned int blocks, void* stream) {
+  apply_w_slots_kernel<C><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(W), static_cast<const float*>(x),
+      static_cast<float*>(y), static_cast<const int*>(stab), n_slots, n0, n1,
+      n2, P, 1);
+}
+
+int launch_full(const void* W, const void* x, void* y, const void* stab,
+                int n_slots, int n0, int n1, int n2, int P, int ncomp,
+                int device, void* stream) {
+  if (ncomp != 1 && ncomp != 3) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned int blocks = blocks_for(n0, n1, n2, P);
+  if (blocks == 0) return 0;
+  cudaSetDevice(device);
+  if (ncomp == 3)
+    launch_slots<3>(W, x, y, stab, n_slots, n0, n1, n2, P, blocks, stream);
+  else
+    launch_slots<1>(W, x, y, stab, n_slots, n0, n1, n2, P, blocks, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -274,8 +318,8 @@ int apply_w_sym_f32(const void* W, const void* x, void* y, const void* stab,
   const unsigned int blocks = blocks_for(n0, n1, n2, P);
   if (blocks == 0) return 0;
   cudaSetDevice(device);
-  apply_w_slots_kernel<<<blocks * lanes, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  apply_w_slots_kernel<3><<<blocks * lanes, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(W), static_cast<const float*>(x),
       static_cast<float*>(y), static_cast<const int*>(stab), n_slots, n0, n1,
       n2, P, lanes);
@@ -321,31 +365,16 @@ int apply_w_df_sym_f32(const void* W, const void* xh, const void* xl, void* yh,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5 (table of direct rows) and K5^T (table of transposed rows): one
-// field, C = 3, full slot-major W
-static int launch_full(const void* W, const void* x, void* y, const void* stab,
-                       int n_slots, int n0, int n1, int n2, int P, int device,
-                       void* stream) {
-  const unsigned int blocks = blocks_for(n0, n1, n2, P);
-  if (blocks == 0) return 0;
-  cudaSetDevice(device);
-  apply_w_slots_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(W), static_cast<const float*>(x),
-      static_cast<float*>(y), static_cast<const int*>(stab), n_slots, n0, n1,
-      n2, P, 1);
-  return static_cast<int>(cudaGetLastError());
-}
-
 int apply_w_full_f32(const void* W, const void* x, void* y, const void* stab,
-                     int n_slots, int n0, int n1, int n2, int P, int device,
-                     void* stream) {
-  return launch_full(W, x, y, stab, n_slots, n0, n1, n2, P, device, stream);
+                     int n_slots, int n0, int n1, int n2, int P, int ncomp,
+                     int device, void* stream) {
+  return launch_full(W, x, y, stab, n_slots, n0, n1, n2, P, ncomp, device, stream);
 }
 
 int apply_w_full_t_f32(const void* W, const void* x, void* y, const void* stab,
-                       int n_slots, int n0, int n1, int n2, int P, int device,
-                       void* stream) {
-  return launch_full(W, x, y, stab, n_slots, n0, n1, n2, P, device, stream);
+                       int n_slots, int n0, int n1, int n2, int P, int ncomp,
+                       int device, void* stream) {
+  return launch_full(W, x, y, stab, n_slots, n0, n1, n2, P, ncomp, device, stream);
 }
 
 const char* stencil_error_string(int err) {

@@ -1,20 +1,31 @@
 """The patch-backend Navier-Stokes path end to end: the forward Newton
-solve, the drag, the adjoint and the shape gradient, wired as the JAX
-package's models/obstacle.py wires them for ``use_patch_ns`` (assembled
-lattice Jacobian, block-triangular preconditioner with one Jacobi V(2,2)
-conv-diff cycle for the velocity, stepped FGMRES with GCRO-DR).
+solve, the cold-start viscosity ladder, the drag, the adjoint and the shape
+gradient, wired as the JAX package's models/obstacle.py wires them for
+``use_patch_ns`` (assembled lattice Jacobian, block-triangular
+preconditioner with one Jacobi V(2,2) conv-diff cycle for the velocity,
+stepped FGMRES with GCRO-DR).
 
-    ctx = build(2, "cuda", torch.float32, visc=0.16)   # host mesh, tables
-    out = run(ctx)        # cold start, Newton, drag, adjoint, J'
+    ctx = build(2, visc=0.16)     # on the card, float32: host mesh, tables
+    out = run(ctx)                # cold start, Newton, drag, adjoint, J'
     out.newton.iters, out.adjoint.iters, out.drag, out.jprime_norm
+
+    ctx = build(2, visc=0.02, pressure_precond="pcd")
+    lad = solve_ladder(ctx)       # 0.16 -> 0.08 -> 0.04 -> 0.02, recycling
+    out = run(ctx, target_visc=0.02)   # ladder, then drag, adjoint, J' at 0.02
 
 The mesh is the 3D geomgen channel (or the 2D one with dim=2) refined
 ``num_refs`` times; the velocity V-cycle runs on the once more refined
 P1-iso-P2 lattice.  refs=2 is 3d_admm.lua's default size: 383,400 NS
-unknowns, fine velocity lattice 9^3 x 224.  float32 runs take
-``f32_presets``.  The ladder of viscosities to the target is the
-optimization driver's and is not run here: ``run`` solves at ``ctx.visc``
-from the cold start, the first rung of the JAX package's continuation.
+unknowns, fine velocity lattice 9^3 x 224, pressure lattice 5^3 x 224.
+float32 runs take ``f32_presets``.
+
+The pressure block of the preconditioner is ``pressure_precond``: "mass"
+(lumped mass / nu, the Stokes surrogate) or "pcd" (the Kay-Loghin-Wathen
+pressure convection-diffusion Schur approximation Mp^-1 Fp Ap^-1, whose
+scalar stencils run through the full-stencil kernel at C = 1).  ``run``
+without a target solves at ``ctx.visc`` from the cold start, the first rung
+of the JAX package's continuation when visc is 0.16; with a target it runs
+the whole cold-start ladder first.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import resolve_device
 from .core import geomgen
 from .core.mesh import Hierarchy, refine
 from .core.patches import PatchSet, build_patchset
@@ -39,6 +51,7 @@ from .solvers.ns_solver import NewtonConfig
 
 NS_DIR = ("inlet", "wall", "obstacle_surface")  # velocity Dirichlet, do-nothing outlet
 DEF_DIR = ("inlet", "wall", "outlet")  # deformation Dirichlet: masks J'
+PCD_DIR = ("inlet",)  # Dirichlet rows of the PCD Ap and Fp: where the flow enters
 
 
 def f32_presets(cfg: NewtonConfig) -> NewtonConfig:
@@ -75,19 +88,47 @@ class NSContext:
     pre_tabs: list
     tab_c: st.LevelTables
     wiring: nsjac.NSJacWiring
-    base_dense_fn: object
+    base0: dict  # level-0 wiring of the dense base solves (patterns, masks, elems)
     parents_fine: torch.Tensor  # (V_fine, 2) midpoint parents of the refined level
     coords: torch.Tensor  # (V, d)
     obstacle_vmask: torch.Tensor  # (V,)
     free_def: torch.Tensor  # (d, V) deformation free mask
-    visc: float
+    visc: float  # the target viscosity (the JAX package's cfg.visc)
     stab: float
     cfg: NewtonConfig
     host_seconds: float
+    pressure_precond: str = "mass"
+    vel_inner: int = 1
+    # pressure_precond == "pcd": scalar tables with the inlet-Dirichlet free
+    # masks and the Jacobi V(2,2) structure on the level-k patchset
+    pcd_tabs: list | None = None
+    pcd_struct: patch_mg.PatchMGStructure | None = None
 
     @property
     def n_state(self) -> int:
         return self.space.n_state
+
+    def at_visc(self, visc: float) -> "NSContext":
+        """This context with another target viscosity (tables shared)."""
+        return self if float(visc) == self.visc else dataclasses.replace(self, visc=float(visc))
+
+    def base_dense_fn(self, arg):
+        """Dense inverse of the level-0 conv-diff operator of the velocity
+        V-cycle from the (V0, 2d) stacked [coords | velocity].  As in the JAX
+        package it is assembled at the target viscosity ctx.visc on every
+        rung of the ladder; the lattice levels above it take the rung's."""
+        b, dim = self.base0, self.space.dim
+        em = convdiff_elem_mats(arg[:, :dim], b["elems"], arg[:, dim:].T, self.visc)
+        v0 = sparsity.bake_dirichlet(b["pat_v"], sparsity.assemble_values(b["pat_v"], em), b["fixed_v"])
+        return torch.linalg.inv(sparsity.to_dense(b["pat_v"], v0))
+
+    def ap_base_dense_fn(self, arg):
+        """Dense inverse of the level-0 unit-viscosity pressure Laplacian
+        (scalar pattern, inlet-Dirichlet) of the PCD Ap V-cycle."""
+        b, dim = self.base0, self.space.dim
+        em = convdiff_elem_mats(arg[:, :dim], b["elems"], arg[:, dim:].T, 1.0, ncomp=1)
+        v0 = sparsity.bake_dirichlet(b["pat_p"], sparsity.assemble_values(b["pat_p"], em), b["fixed_p"])
+        return torch.linalg.inv(sparsity.to_dense(b["pat_p"], v0))
 
     def jac(self, X, s, nu):
         v0, p0 = self.space.unpack(s)
@@ -103,23 +144,49 @@ class NSContext:
     def jtv(self, x, W):
         return _matvecs(self)[1](x, W)
 
-    def pre_full(self, X, s, nu):
-        """Per-iterate data of the preconditioner and the Newton matvec:
-        (pre_data, pdiag, X, W), W the assembled Jacobian (obstacle.py
-        _pre_full)."""
-        pre_data, pdiag = ns_solver.ns_gmg_precond_data_patch(
+    def pre_full(self, X, s, nu, seconds: dict | None = None):
+        """Per-iterate data of the preconditioner and the Newton matvec,
+        assembled at the viscosity nu of the current rung (obstacle.py
+        _pre_full): (pre_data, pdiag, X, W) with the mass block,
+        (pre_data, ap_data, W_fp, mp, X, W) with PCD; W is the assembled
+        Jacobian.  seconds, when given, receives the synchronized assembly
+        time of each part under "velocity", "pcd" and "jacobian"."""
+        def timed(name, fn):
+            if seconds is None:
+                return fn()
+            _sync(X.device)
+            t0 = time.perf_counter()
+            out = fn()
+            _sync(X.device)
+            seconds[name] = time.perf_counter() - t0
+            return out
+
+        pre_data, pdiag = timed("velocity", lambda: ns_solver.ns_gmg_precond_data_patch(
             self.space, self.pre_ps, self.pre_struct, self.pre_tabs, self.base_dense_fn,
             self.parents_fine, X, nu, s=s,
-        )
-        return pre_data, pdiag, X, self.jac(X, s, nu)
+        ))
+        mid = (pdiag,)
+        if self.pressure_precond == "pcd":
+            mid = timed("pcd", lambda: ns_solver.ns_pcd_precond_data_patch(
+                self.space, self.ps, self.pcd_struct, self.pcd_tabs, self.ap_base_dense_fn, X, nu, s=s,
+            ))
+        W = timed("jacobian", lambda: self.jac(X, s, nu))
+        return (pre_data,) + tuple(mid) + (X, W)
 
-    def M_fn(self, r, pre_data, pdiag, X, W):
-        """The block-triangular preconditioner with the assembled B^T."""
+    def M_fn(self, r, pre_data, *rest):
+        """The block-triangular preconditioner with the assembled B^T
+        (the viscosity-free coupling, exact on every rung): ns_gmg_M with
+        the mass block, ns_pcd_M with PCD."""
+        W = rest[-1]
         bt = _bt(self)
-        return ns_solver.ns_gmg_M(
-            self.space, pdiag, ns_solver.patch_velocity_M(self.pre_ps, self.pre_struct, pre_data),
-            bt_fn=lambda zp: bt(zp, W),
-        )(r)
+        vel_M = ns_solver.patch_velocity_M(self.pre_ps, self.pre_struct, pre_data, iters=self.vel_inner)
+        if self.pressure_precond == "pcd":
+            ap_data, W_fp, mp = rest[:3]
+            schur = ns_solver.pcd_schur_patch_M(
+                self.space, self.ps, self.pcd_struct, self.pcd_tabs, ap_data, W_fp, mp,
+            )
+            return ns_solver.ns_pcd_M(self.space, schur, vel_M, bt_fn=lambda zp: bt(zp, W))(r)
+        return ns_solver.ns_gmg_M(self.space, rest[0], vel_M, bt_fn=lambda zp: bt(zp, W))(r)
 
 
 def _matvecs(ctx):
@@ -135,13 +202,19 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def build(num_refs: int, device, dtype=torch.float32, visc: float = 0.16, dim: int = 3,
-          cfg: NewtonConfig | None = None, stab: float = 0.0) -> NSContext:
+def build(num_refs: int, device=None, dtype=torch.float32, visc: float = 0.16, dim: int = 3,
+          cfg: NewtonConfig | None = None, stab: float = 0.0, pressure_precond: str = "mass",
+          vel_inner: int = 1) -> NSContext:
     """Host hierarchy, NS space, the level-k and once-refined patchsets
-    with their device tables, and the level-0 dense base solve of the
-    velocity V-cycle.  cfg defaults to NewtonConfig(), with f32_presets
-    for float32."""
-    device = torch.device(device)
+    with their device tables, and the level-0 wiring of the dense base
+    solves.  device defaults to the card (an error without one); cfg
+    defaults to NewtonConfig(), with f32_presets for float32.
+    pressure_precond "pcd" adds the scalar pressure tables and V-cycle
+    structure of the PCD Schur block; vel_inner > 1 runs that many
+    V-cycle-preconditioned Richardson steps in the velocity block."""
+    if pressure_precond not in ("mass", "pcd"):
+        raise ValueError(f"pressure_precond must be 'mass' or 'pcd', got {pressure_precond!r}")
+    device = resolve_device(device)
     t0 = time.perf_counter()
     base = geomgen.channel_3d() if dim == 3 else geomgen.channel_2d(diag="fixed")
     levels = [base]
@@ -159,25 +232,32 @@ def build(num_refs: int, device, dtype=torch.float32, visc: float = 0.16, dim: i
     ps = build_patchset(hier)
     tab_c = st.make_tables(ps.fine, dtype, device)
     lvl0 = hier.levels[0]
-    pat0 = sparsity.build_pattern(lvl0.elems, lvl0.num_vertices, dim)
-    fixed0 = torch.as_tensor(np.repeat(lvl0.vertex_mask(NS_DIR)[None], dim, axis=0), device=device)
-    elems0 = torch.as_tensor(lvl0.elems.astype(np.int64), device=device)
-
-    def base_dense_fn(arg):  # (V0, 2d) stacked [coords | velocity]
-        em = convdiff_elem_mats(arg[:, :dim], elems0, arg[:, dim:].T, visc)
-        v0 = sparsity.bake_dirichlet(pat0, sparsity.assemble_values(pat0, em), fixed0)
-        return torch.linalg.inv(sparsity.to_dense(pat0, v0))
-
+    base0 = dict(
+        elems=torch.as_tensor(lvl0.elems.astype(np.int64), device=device),
+        pat_v=sparsity.build_pattern(lvl0.elems, lvl0.num_vertices, dim),
+        fixed_v=torch.as_tensor(np.repeat(lvl0.vertex_mask(NS_DIR)[None], dim, axis=0), device=device),
+    )
+    pcd_tabs = pcd_struct = None
+    if pressure_precond == "pcd":
+        pcd_tabs = ns_solver.pcd_patch_tables(hier, ps, dtype, device)
+        pcd_struct = patch_mg.PatchMGStructure(
+            ps, pre_smooth=2, post_smooth=2, smoother="jacobi", smoother_w="f32"
+        )
+        base0.update(
+            pat_p=sparsity.build_pattern(lvl0.elems, lvl0.num_vertices, 1),
+            fixed_p=torch.as_tensor(lvl0.vertex_mask(PCD_DIR)[None], device=device),
+        )
     if cfg is None:
         cfg = f32_presets(NewtonConfig()) if dtype == torch.float32 else NewtonConfig()
     ctx = NSContext(
         hier=hier, space=space, ps=ps, pre_ps=pre_ps, pre_struct=pre_struct, pre_tabs=pre_tabs,
-        tab_c=tab_c, wiring=nsjac.build_wiring(ps), base_dense_fn=base_dense_fn,
+        tab_c=tab_c, wiring=nsjac.build_wiring(ps), base0=base0,
         parents_fine=torch.as_tensor(fine_pre.parents.astype(np.int64), device=device),
         coords=torch.as_tensor(lvl.coords, dtype=dtype, device=device),
         obstacle_vmask=torch.as_tensor(lvl.subset_vertices["obstacle_surface"], dtype=dtype, device=device),
         free_def=torch.as_tensor(np.repeat(~lvl.vertex_mask(DEF_DIR)[None], dim, axis=0), dtype=dtype, device=device),
         visc=float(visc), stab=float(stab), cfg=cfg, host_seconds=0.0,
+        pressure_precond=pressure_precond, vel_inner=int(vel_inner), pcd_tabs=pcd_tabs, pcd_struct=pcd_struct,
     )
     _sync(device)
     ctx.host_seconds = time.perf_counter() - t0
@@ -191,29 +271,90 @@ def initial_state(ctx: NSContext):
     return ctx.space.pack(g, ctx.coords.new_zeros((ctx.space.n_pressure,)))
 
 
-def newton(ctx: NSContext, s0=None):
-    """The forward Newton solve at ctx.visc from s0 (default: the cold
-    start).  Returns (NewtonResult, per-iterate assembly seconds)."""
+def newton(ctx: NSContext, s0=None, visc: float | None = None, recycle: dict | None = None):
+    """The forward Newton solve at visc (default ctx.visc) from s0
+    (default: the cold start).  recycle carries the GCRO-DR space across
+    calls (newton_solve_stepped).  Returns (NewtonResult, assembly seconds:
+    per Newton iterate a dict {"velocity", "pcd" with PCD, "jacobian"})."""
     X = ctx.coords
+    nu = ctx.visc if visc is None else float(visc)
     s0 = initial_state(ctx) if s0 is None else s0
     assembly = []
 
     def pre_fn(s):
-        t0 = time.perf_counter()
-        out = ctx.pre_full(X, s, ctx.visc)
-        _sync(X.device)
-        assembly.append(time.perf_counter() - t0)
-        return out
+        assembly.append({})
+        return ctx.pre_full(X, s, nu, seconds=assembly[-1])
 
     res = ns_solver.newton_solve_stepped(
-        ctx.space, X, s0, ctx.visc, ctx.stab, ctx.cfg, M_fn=ctx.M_fn, jv_fn=ctx.jv, pre_fn=pre_fn,
+        ctx.space, X, s0, nu, ctx.stab, ctx.cfg, M_fn=ctx.M_fn, jv_fn=ctx.jv, pre_fn=pre_fn,
+        recycle=recycle,
     )
     return res, assembly
 
 
+class Rung(NamedTuple):
+    nu: float
+    inserted: bool  # a geometric-mean rung put in after a failed one
+    newton: ns_solver.NewtonResult  # converged False: the rung failed and was retried
+    assembly_seconds: list  # per Newton iterate {"velocity", "pcd", "jacobian": seconds}
+    seconds: float  # wall time of the rung, synchronized
+
+
+class LadderResult(NamedTuple):
+    s: torch.Tensor  # the state at the target viscosity
+    rungs: list  # one Rung per attempt, failed ones included, in order
+    recycle: dict  # the GCRO-DR space the last rung left, under "U"
+
+
+class LadderError(RuntimeError):
+    """The ladder's last attempt did not converge; rungs holds the record
+    of every attempt."""
+
+    def __init__(self, message: str, rungs: list):
+        super().__init__(message)
+        self.rungs = rungs
+
+
+def solve_ladder(ctx: NSContext, visc: float | None = None, start: float = 0.16) -> LadderResult:
+    """The cold-start viscosity continuation of the optimization loop
+    (obstacle.py run): Newton on every rung of continuation_ladder(visc)
+    from the state of the rung before, the first from initial_state, with
+    one GCRO-DR recycle dict for all rungs.  A rung that does not converge
+    is retried from the last converged state at the geometric mean of its
+    viscosity and the last converged one (at most 6 insertions); if the last
+    attempt fails the ladder raises LadderError.  visc defaults to ctx.visc."""
+    ctx = ctx if visc is None else ctx.at_visc(visc)
+    dev = ctx.coords.device
+    nus = continuation_ladder(ctx.visc, start)
+    planned = set(nus)
+    s = initial_state(ctx)
+    recycle, rungs = {}, []
+    nu_ok, bisects, i = None, 0, 0
+    while i < len(nus):
+        nu = nus[i]
+        _sync(dev)
+        t0 = time.perf_counter()
+        res, assembly = newton(ctx, s, visc=nu, recycle=recycle)
+        _sync(dev)
+        rungs.append(Rung(nu, nu not in planned, res, assembly, time.perf_counter() - t0))
+        if res.converged:
+            s, nu_ok = res.s, nu
+            i += 1
+            continue
+        if bisects >= 6:
+            break
+        prev = nu_ok if nu_ok is not None else nus[0] * 2.0
+        nus.insert(i, float(np.sqrt(prev * nu)))
+        bisects += 1
+    if not res.converged:
+        raise LadderError(f"initial NS solve failed: residual {res.res_norm}", rungs)
+    return LadderResult(s, rungs, recycle)
+
+
 def adjoint(ctx: NSContext, s):
-    """The adjoint at the state s with the exact transpose of the forward
-    preconditioner built at s (obstacle.py _adjoint_stepped)."""
+    """The adjoint at the state s and at ctx.visc with the exact transpose
+    of the forward preconditioner built at s (obstacle.py
+    _adjoint_stepped)."""
     X = ctx.coords
     m_args = ctx.pre_full(X, s, ctx.visc)
     W = m_args[-1]
@@ -232,19 +373,24 @@ def jprime(ctx: NSContext, s, lam):
 
 
 class NSRun(NamedTuple):
-    newton: ns_solver.NewtonResult
-    assembly_seconds: list  # preconditioner + Jacobian assembly per Newton iterate
+    newton: ns_solver.NewtonResult  # at the target viscosity (the last rung of a ladder)
+    assembly_seconds: list  # of that solve: per Newton iterate, seconds per part
     drag: float
     adjoint: ns_solver.AdjointResult
     jprime: torch.Tensor  # (d, V)
     jprime_norm: float
     seconds: dict  # per phase, synchronized
     launches: dict  # per phase: kernel launch counts (reset before each phase)
+    rungs: list | None = None  # the ladder's Rung records when a target was given
 
 
-def run(ctx: NSContext) -> NSRun:
-    """Cold start, Newton at ctx.visc, drag, adjoint, J'.  The kernel
-    launch counts are reset before each phase and read after it."""
+def run(ctx: NSContext, target_visc: float | None = None) -> NSRun:
+    """Without a target: cold start, Newton at ctx.visc, drag, adjoint, J'.
+    With one: the cold-start ladder down to target_visc (solve_ladder),
+    then drag, adjoint and J' at the target.  The kernel launch counts are
+    reset before each phase and read after it."""
+    if target_visc is not None:
+        ctx = ctx.at_visc(target_visc)
     dev = ctx.coords.device
     seconds, launches = {}, {}
 
@@ -258,8 +404,14 @@ def run(ctx: NSContext) -> NSRun:
         launches[name] = dict(sk.launches)
         return out
 
-    nres, assembly = phase("newton", lambda: newton(ctx))
+    rungs = None
+    if target_visc is None:
+        nres, assembly = phase("newton", lambda: newton(ctx))
+    else:
+        lad = phase("newton", lambda: solve_ladder(ctx))
+        rungs = lad.rungs
+        nres, assembly = rungs[-1].newton, rungs[-1].assembly_seconds
     drag = phase("drag", lambda: float(nsops.drag(ctx.space, ctx.coords, nres.s, ctx.visc)))
     ares = phase("adjoint", lambda: adjoint(ctx, nres.s))
     jp = phase("jprime", lambda: jprime(ctx, nres.s, ares.lam))
-    return NSRun(nres, assembly, drag, ares, jp, float(torch.linalg.vector_norm(jp)), seconds, launches)
+    return NSRun(nres, assembly, drag, ares, jp, float(torch.linalg.vector_norm(jp)), seconds, launches, rungs)

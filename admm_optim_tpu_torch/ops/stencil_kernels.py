@@ -5,7 +5,8 @@ admm_optim_tpu/ops/pallas_stencil.py).
 Layout contract, as in the JAX package:
   x, y: (C, n0, n1, n2, P) with C = 3, or (B, C, n0, n1, n2, P) with a
         leading lane axis (the ADMM x-update's 1+m simultaneous solves);
-        y is additive (per-patch partial sums, made consistent afterwards
+        K5 and K5^T also take scalar fields, C = 1 (the pressure operators
+        of the PCD Schur block); y is additive (per-patch partial sums, made consistent afterwards
         by patchstencil.exchange_sum);
   W:    (H, C, C, n0, n1, n2, P) symmetric half storage (H = 8 of O = 15
         slots, patchstencil.half_slots), full slot-major
@@ -20,7 +21,8 @@ Kernels (sources in ../csrc/stencil.cu, built on first use by _build):
   apply_w_pencil_batched  K3, replaces pallas_stencil._apply_w_pallas_3d_pc_batched
                           (bf16 W read once for 1 <= B <= 8 lanes)
   apply_w_df_sym          K4, replaces pallas_stencil._apply_w_df_pallas_3d_sym
-  apply_w_full            K5, replaces pallas_stencil._apply_w_pallas_3d (full W)
+  apply_w_full            K5, replaces pallas_stencil._apply_w_pallas_3d (full W),
+                          at C = 3 and at C = 1
   apply_w_full_t          K5^T, the exact transpose of K5 (the jax.vjp of
                           K5 in ns_solver.transpose_M); ApplyWFull is K5
                           with K5^T as its autograd backward
@@ -28,7 +30,8 @@ Kernels (sources in ../csrc/stencil.cu, built on first use by _build):
 Dispatch is the same for all of them: a tensor on the CPU takes the plain
 twin; a CUDA tensor launches the kernel or raises.  There is no fallback
 and no lattice-size gate.  ``launches`` counts kernel launches per wrapper
-(the twin never counts).
+(the twin never counts); the scalar form of K5 and K5^T counts under names
+of its own, ``apply_w_full/c1`` and ``apply_w_full_t/c1``.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ from .patchstencil import expand_sym_w, half_slots, shift_read
 
 launches = {
     "apply_w_sym": 0, "apply_w_pencil": 0, "apply_w_pencil_batched": 0, "apply_w_df_sym": 0,
-    "apply_w_full": 0, "apply_w_full_t": 0,
+    "apply_w_full": 0, "apply_w_full_t": 0, "apply_w_full/c1": 0, "apply_w_full_t/c1": 0,
 }
 MAX_LANES = 8  # K3 is templated on the lane count up to this
 
@@ -232,15 +235,21 @@ def _stencil_key(ps):
     return tuple(tuple(int(v) for v in o) for o in ps.stencil)
 
 
-def _check(name, ps, x, arrays, w_dtype, lane_axis=False):
-    """Validate what the kernels take: 3D, C = 3, f32 fields (with a leading
-    lane axis iff lane_axis), contiguous, all on x's CUDA device.  Returns
-    the lane count and the lattice (B, n0, n1, n2, P)."""
+def _check(name, ps, x, arrays, w_dtype, lane_axis=False, comps=(3,)):
+    """Validate what the kernels take: 3D, C in comps, f32 fields (with a
+    leading lane axis iff lane_axis), contiguous, all on x's CUDA device.
+    Returns the lane count, C and the lattice (B, C, n0, n1, n2, P)."""
+    if ps.dim != 3 or x.dim() != 5 + lane_axis or x.shape[-5] not in comps:
+        want = " or ".join(str(c) for c in comps)
+        lanes = "(B, C, n0, n1, n2, P)" if lane_axis else "(C, n0, n1, n2, P)"
+        scalar = "" if 1 in comps else (
+            "; the JAX package sends scalar fields only to the full-stencil apply and its transpose"
+        )
+        raise ValueError(
+            f"{name}: the kernel takes 3D fields {lanes} with C = {want}, got x {tuple(x.shape)}{scalar}"
+        )
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, got {x.device}")
-    if ps.dim != 3 or x.dim() != 5 + lane_axis or x.shape[-5] != 3:
-        lanes = "(B, 3, n0, n1, n2, P)" if lane_axis else "(3, n0, n1, n2, P)"
-        raise ValueError(f"{name}: the kernel takes 3D fields {lanes}, got x {tuple(x.shape)}")
     W = arrays[0]
     if W.dtype != w_dtype:
         raise ValueError(f"{name}: W must be {w_dtype}, got {W.dtype}")
@@ -250,10 +259,12 @@ def _check(name, ps, x, arrays, w_dtype, lane_axis=False):
     for a in arrays[1:]:
         if a.dtype != torch.float32 or a.shape != x.shape:
             raise ValueError(f"{name}: fields must be float32 of shape {tuple(x.shape)}")
-    return (x.shape[0] if lane_axis else 1,) + tuple(x.shape[-4:])
+    return (x.shape[0] if lane_axis else 1,) + tuple(x.shape[-5:])
 
 
 def _launch(name, fn, *args, device):
+    """Launch entry point fn of the kernel library on the current stream
+    and count it under name."""
     from .. import _build
 
     lib = _build.lib()
@@ -269,7 +280,7 @@ def apply_w_sym(ps, W, x):
     for a field or for every lane of (B, C, n0, n1, n2, P) in one launch."""
     if x.device.type == "cpu":
         return _lanes(_apply_w_sym, ps, W, x)
-    B, n0, n1, n2, P = _check("apply_w_sym", ps, x, (W, x), torch.float32, x.dim() == 6)
+    B, _, n0, n1, n2, P = _check("apply_w_sym", ps, x, (W, x), torch.float32, x.dim() == 6)
     if W.shape != (len(half_slots(ps)), 3, 3, n0, n1, n2, P):
         raise ValueError(f"apply_w_sym: W shape {tuple(W.shape)} does not match x")
     stencil = _stencil_key(ps)
@@ -285,7 +296,7 @@ def apply_w_sym(ps, W, x):
 
 def _pencil(name, ps, W_pc, x, lane_axis):
     """Launch the bf16 pencil kernel (K2 for a field, K3 for a lane axis)."""
-    B, n0, n1, n2, P = _check(name, ps, x, (W_pc, x), torch.bfloat16, lane_axis)
+    B, _, n0, n1, n2, P = _check(name, ps, x, (W_pc, x), torch.bfloat16, lane_axis)
     if not 1 <= B <= MAX_LANES:
         raise ValueError(f"{name}: the kernel takes 1 to {MAX_LANES} lanes, got {B}")
     stencil = _stencil_key(ps)
@@ -322,7 +333,7 @@ def apply_w_df_sym(ps, W, xh, xl):
     renormalized f32 pair (|yl| <= ulp(yh)/2)."""
     if xh.device.type == "cpu":
         return _apply_w_df_full(ps, expand_sym_w(ps, W), xh, xl)
-    _, n0, n1, n2, P = _check("apply_w_df_sym", ps, xh, (W, xh, xl), torch.float32)
+    _, _, n0, n1, n2, P = _check("apply_w_df_sym", ps, xh, (W, xh, xl), torch.float32)
     if W.shape != (len(half_slots(ps)), 3, 3, n0, n1, n2, P):
         raise ValueError(f"apply_w_df_sym: W shape {tuple(W.shape)} does not match x")
     stencil = _stencil_key(ps)
@@ -338,21 +349,24 @@ def apply_w_df_sym(ps, W, xh, xl):
 
 
 def _full(name, fn, ps, W, x, tab):
-    """Launch K5 or K5^T (one field, C = 3, full slot-major f32 W)."""
-    _, n0, n1, n2, P = _check(name, ps, x, (W, x), torch.float32)
-    if W.shape != (len(ps.stencil), 3, 3, n0, n1, n2, P):
+    """Launch K5 or K5^T: one field of C = 3 or C = 1 components, full
+    slot-major f32 W.  The scalar form counts as name + "/c1"."""
+    _, C, n0, n1, n2, P = _check(name, ps, x, (W, x), torch.float32, comps=(1, 3))
+    if W.shape != (len(ps.stencil), C, C, n0, n1, n2, P):
         raise ValueError(f"{name}: W shape {tuple(W.shape)} does not match x")
     y = torch.empty_like(x)
     _launch(
-        name, fn, W.data_ptr(), x.data_ptr(), y.data_ptr(), tab.data_ptr(),
-        len(ps.stencil), n0, n1, n2, P, device=x.device,
+        name if C == 3 else name + "/c1", fn, W.data_ptr(), x.data_ptr(), y.data_ptr(),
+        tab.data_ptr(), len(ps.stencil), n0, n1, n2, P, C, device=x.device,
     )
     return y
 
 
 def apply_w_full(ps, W, x):
     """K5: y = A x from full slot-major W (O, C, C, n0, n1, n2, P) of a
-    nonsymmetric operator (the NS conv-diff velocity V-cycle)."""
+    nonsymmetric operator: C = 3 in the NS conv-diff velocity V-cycle,
+    C = 1 in the PCD Schur block (the pressure convection-diffusion
+    stencil and the pressure-Laplacian V-cycle)."""
     if x.device.type == "cpu":
         return _apply_w_full(ps, W, x)
     stencil = _stencil_key(ps)

@@ -5,15 +5,20 @@ with the host-stepped adjoint driver of models/obstacle.py:713-839).
 Newton with the acceptBest backtracking line search; each linear solve is
 flexible GMRES on the assembled lattice Jacobian (ops.ns_patchjac), stepped
 from the host in chunks of ``lin_exec_chunk`` Arnoldi steps with GCRO-DR
-recycling.  The preconditioner is block triangular: lumped pressure mass /
-nu for the pressure, one Jacobi-smoothed conv-diff V-cycle on the
-once-refined P1-iso-P2 lattice for the velocity (K5 on the GPU).  The
-adjoint solves J^T lambda = -dJ_drag/ds with the exact transpose of that
-preconditioner, the autograd vjp through the V-cycle (K5^T).  The shape
-gradient is the autograd gradient of J + lambda^T R in the coordinates.
+recycling.  The preconditioner is block triangular: for the pressure,
+lumped pressure mass / nu (ns_gmg_M) or the PCD Schur approximation
+Mp^-1 Fp Ap^-1 (ns_pcd_M: one scalar Jacobi V-cycle on the pressure
+Laplacian, then the pressure convection-diffusion stencil, K5 at C = 1 on
+the GPU); for the velocity, one Jacobi-smoothed conv-diff V-cycle on the
+once-refined P1-iso-P2 lattice (K5 at C = 3).  The adjoint solves
+J^T lambda = -dJ_drag/ds with the exact transpose of that preconditioner,
+the autograd vjp through the V-cycles (K5^T).  The shape gradient is the
+autograd gradient of J + lambda^T R in the coordinates.
 
 Not ported: the monolithic jitted newton_solve / adjoint_solve (one
-host-stepped driver each is kept), PCD and the ELL preconditioner data.
+host-stepped solver each is kept) and the block-ELL forms of the
+preconditioner data (ns_gmg_precond_data, ns_pcd_spaces,
+ns_pcd_precond_data, the ELL branch of ns_pcd_M).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import dataclasses
 import time
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops import navier_stokes as nsops
@@ -90,6 +96,7 @@ class NewtonResult(NamedTuple):
 
 def newton_solve_stepped(
     space, coords, s0, visc, stab, cfg: NewtonConfig, M_fn, jv_fn, pre_fn,
+    recycle: dict | None = None,
 ) -> NewtonResult:
     """Host-stepped Newton with the acceptBest line search.
 
@@ -98,7 +105,11 @@ def newton_solve_stepped(
     jv_fn(x, W) the Jacobian apply (the JAX package's jv_from_m wiring).
     Each linear solve runs FGMRES cycles of _chunked_rl steps, reading the
     residual estimate after every lin_exec_chunk steps, with GCRO-DR
-    recycling carried across Newton iterates."""
+    recycling carried across Newton iterates.  recycle is the caller's
+    dict that carries the recycle space further, across continuation rungs
+    and optimization steps: its "U" seeds the first iterate (re-imaged
+    against that iterate's Jacobian at the cost of lin_recycle_k applies)
+    and is replaced by the space the last iterate left."""
 
     def R(ss):
         return nsops.ns_residual(space, coords, ss, visc, stab)
@@ -117,7 +128,7 @@ def newton_solve_stepped(
     if rl < 8 * k_r:
         # harmonic Ritz directions of short cycles are noise
         k_r = 0
-    U_carry = None
+    U_carry = recycle.get("U") if recycle is not None else None
     while nrm > cfg.abs_tol and it < cfg.max_iters:
         t0 = time.perf_counter()
         Jv, Mx = wiring(pre_fn(s))
@@ -177,6 +188,8 @@ def newton_solve_stepped(
         secs.append(time.perf_counter() - t0)
         if stalled:
             break
+    if recycle is not None:
+        recycle["U"] = U_carry
     return NewtonResult(s, it, nrm, nrm <= cfg.accept_tol, hist, lin_hist, secs)
 
 
@@ -294,6 +307,7 @@ def adjoint_solve_stepped(
 
 def ns_gmg_precond_data_patch(
     ns_space, pre_ps, pre_struct_p, pre_tabs, base_dense_fn, parents_fine, coords, visc, s,
+    adjoint: bool = False,
 ):
     """Velocity-block conv-diff hierarchy on the once-refined lattice and
     the pressure block's lumped mass / nu.
@@ -302,11 +316,14 @@ def ns_gmg_precond_data_patch(
     current velocity is the P1 advecting field of every level's operator;
     geometry and velocity travel together as the stacked [coords | w]
     lattice array.  base_dense_fn receives that array at level 0, (V0, 2d).
+    adjoint negates the advecting field (kept for parity; the adjoint
+    solve transposes the forward preconditioner instead).
     Returns (pre_data, pdiag)."""
     from ..ops.convdiff import convdiff_corner_mats
 
     Xf = 0.5 * (coords[parents_fine[:, 0]] + coords[parents_fine[:, 1]])
     w, _ = ns_space.unpack(s)
+    w = -w if adjoint else w
     cw_p = pst.to_patch_tab(pre_tabs[-1], torch.cat([Xf.T, w], dim=0))
     pre_data = pmg.assemble_patch_mg_p(
         pre_ps, pre_struct_p, cw_p, lambda c: convdiff_corner_mats(c, visc), base_dense_fn, pre_tabs,
@@ -343,6 +360,103 @@ def ns_gmg_M(ns_space, pdiag, vel_M, bt_fn=None):
     def M(r):
         rv, rp = ns_space.unpack(r)
         zp = rp / pdiag
+        if bt_fn is not None:
+            rv = rv - bt_fn(zp)
+        return ns_space.pack(vel_M(rv), zp)
+
+    return M
+
+
+# ---------------------------------------------------------------------------
+# PCD (pressure convection-diffusion) Schur block on the patch backend
+# ---------------------------------------------------------------------------
+
+def pcd_patch_tables(hier, ps, dtype=torch.float32, device="cpu"):
+    """Level tables of the scalar pressure space on the level-k patchset,
+    with the PCD inlet-Dirichlet free masks (Kay-Loghin-Wathen with
+    Dirichlet rows where the flow enters, the JAX package's ns_pcd_spaces)
+    in place of the patchset's own.  Exchange and ownership tables do not
+    depend on the Dirichlet set, so only ``free`` is rebuilt, from the
+    level's global ids."""
+    tabs = pmg.make_level_tables(ps, dtype, device)
+    out = []
+    for l, lvl in enumerate(ps.levels):
+        fixed = hier.levels[l].vertex_mask(("inlet",))
+        # contiguous like make_tables' own mask: elementwise results take its
+        # strides, and the kernel wrappers refuse strided fields
+        free = np.ascontiguousarray(np.moveaxis(~fixed[np.asarray(lvl.gid)], 0, -1))
+        out.append(dataclasses.replace(tabs[l], free=torch.as_tensor(free, dtype=dtype, device=device)))
+    return out
+
+
+def ns_pcd_precond_data_patch(
+    ns_space, ps, p_struct_p, p_tabs, ap_base_dense_fn, coords, visc, s=None, adjoint: bool = False,
+):
+    """PCD Schur data on the level-k lattice (the pressure P1 dofs are its
+    sites): the unit-viscosity pressure-Laplacian hierarchy Ap (w = 0, so
+    the artificial diffusion adds nothing), the fine-level plain Galerkin
+    pressure convection-diffusion stencil Fp at the frozen velocity and at
+    ``visc``, and the lumped pressure mass Mp (not nu-scaled: Fp carries
+    the physics).  All stencils are full 15-slot scalar ones, C = 1.
+    Returns (ap_data, W_fp, mp)."""
+    from ..ops.convdiff import convdiff_corner_mats
+
+    d = ns_space.dim
+    if s is None:
+        w = coords.new_zeros((d, ns_space.n_vel))
+    else:
+        w, _ = ns_space.unpack(s)
+        w = -w if adjoint else w
+    # P2 nodal coefficients are interpolatory and the vertex dofs come first
+    w_p1 = w[:, : ns_space.n_vertices]
+    tab = p_tabs[-1]
+    cw_ap = torch.cat([coords.T, torch.zeros_like(w_p1)], dim=0)
+    ap_data = pmg.assemble_patch_mg_p(
+        ps, p_struct_p, pst.to_patch_tab(tab, cw_ap),
+        lambda c: convdiff_corner_mats(c, 1.0, ncomp=1), ap_base_dense_fn, p_tabs,
+    )
+    cw_fp = torch.cat([coords.T, w_p1], dim=0)
+    W_fp = pst.assemble_w(
+        ps, ps.k, pst.to_patch_tab(tab, cw_fp),
+        lambda c: convdiff_corner_mats(c, visc, art_diff=False, ncomp=1),
+        free=tab.free.to(coords.dtype),
+    )
+    mp = torch.clamp_min(nsops.pressure_mass_lumped(ns_space, coords, 1.0), 1e-30)
+    return ap_data, W_fp, mp
+
+
+def pcd_schur_patch_M(ns_space, ps, p_struct_p, p_tabs, ap_data, W_fp, mp):
+    """S^-1 ~= Mp^-1 Fp Ap^-1 on the patch backend, global (n_p,) in and
+    out.  The Dirichlet rows of Ap and Fp are identity rows: the PCD inlet
+    constraint exists only inside the Schur surrogate (the true pressure
+    rows are divergence rows), so the fixed components pass through both
+    operators instead of vanishing; a zeroed subspace would make the
+    preconditioner singular there."""
+    tab = p_tabs[-1]
+
+    def S_inv(rp):
+        rp_p = pst.to_patch_tab(tab, rp[None])
+        free = tab.free[None].to(rp_p.dtype)
+        yp = pmg.vcycle_p(p_struct_p, ap_data, rp_p * free) + rp_p * (1.0 - free)
+        z = pst.exchange_sum(None, pst.apply_w(ps, W_fp, yp), tab)
+        z = z + yp * (1.0 - free)
+        zp = pst.from_patch_tab(tab, z, ns_space.n_pressure, mode="owner")
+        return zp[0] / mp
+
+    return S_inv
+
+
+def ns_pcd_M(ns_space, schur_fn, vel_M, bt_fn=None):
+    """Block-triangular preconditioner with the PCD Schur approximation:
+    z_p = schur_fn(r_p) = Mp^-1 Fp Ap^-1 r_p (one scalar V-cycle), then
+    z_v = vel_M(r_v - B^T z_p) (one conv-diff V-cycle), with bt_fn the
+    assembled B^T; block diagonal without it, which stalls GMRES at low
+    viscosity (the JAX package's measurement).  The patch form of the JAX
+    package's ns_pcd_M with schur_fn, vel_M and bt_fn given."""
+
+    def M(r):
+        rv, rp = ns_space.unpack(r)
+        zp = schur_fn(rp)
         if bt_fn is not None:
             rv = rv - bt_fn(zp)
         return ns_space.pack(vel_M(rv), zp)

@@ -1,7 +1,7 @@
 """The deformation multigrid solve end to end: the port's counterpart of
 bench.py's ``get_mesh`` + ``assemble_ctx`` + ``run_size``.
 
-    ctx = build(4, "cuda", torch.float32)   # host mesh, tables, assembly
+    ctx = build(4)                          # on the card, float32: host mesh, tables, assembly
     b = random_rhs(ctx, seed=0)             # free-masked right-hand side
     res = solve(ctx, b)                     # cg_ir_p to a 1e-8 true residual
 
@@ -20,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from . import resolve_device
 from .core import geomgen
 from .core.mesh import Hierarchy, refine
 from .core.patches import PatchSet, build_patchset
@@ -54,10 +55,12 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def build(num_refs: int, device, dtype=torch.float32) -> SolveContext:
+def build(num_refs: int, device=None, dtype=torch.float32) -> SolveContext:
     """Host hierarchy + patchset of the 3D geomgen channel, level-0 wiring
-    of the dense base solve, and the device assembly of every level."""
-    device = torch.device(device)
+    of the dense base solve, and the device assembly of every level.
+    device defaults to the card (an error without one); "cpu" takes the
+    plain forms."""
+    device = resolve_device(device)
     t0 = time.perf_counter()
     levels = [geomgen.channel_3d()]
     for _ in range(num_refs):

@@ -236,3 +236,72 @@ def test_batched_vcycle_bf16_pencil_stream_matches_jax(monkeypatch):
     vb = patch_mg.vcycle_p(ctx.struct, conv, torch.from_numpy(bl))
     assert sum(sk.launches.values()) == 0  # CPU tensors: the twins
     assert vb.dtype == torch.float32 and _rel(vb, vl) <= 1e-5
+
+
+def test_scalar_jacobi_vcycle_on_full_w_matches_jax():
+    """assemble_patch_mg_p and vcycle_p at C = 1 with Jacobi smoothing on a
+    full 15-slot nonsymmetric W (the PCD pressure hierarchy's form, here
+    with a random advecting field so that W is nonsymmetric), the
+    estimate_lmax_p power iterations included, against the JAX package on
+    the 3D refs=1 channel with inlet-Dirichlet masks: data to 1e-12, the
+    V-cycle to 1e-10, from the port's own assembly and from the converted
+    JAX state; no kernel launches on CPU tensors."""
+    from admm_optim_tpu.ops.convdiff import convdiff_corner_mats as jcorner
+    from admm_optim_tpu.ops.convdiff import convdiff_elem_mats as jelem
+    from admm_optim_tpu.solvers import ns_solver as jns
+    from admm_optim_tpu_torch import ns_run
+    from admm_optim_tpu_torch.ops.convdiff import convdiff_corner_mats
+
+    levels = [jgeomgen.channel_3d()]
+    levels.append(jrefine(levels[0]))
+    hier = JHierarchy(levels)
+    jps = jbuild_patchset(hier)
+    jtabs = jns.pcd_patch_tables(hier, jps, jnp.float64)
+    jstruct = jmg.PatchMGStructure(jps, pre_smooth=2, post_smooth=2, smoother="jacobi", smoother_w="f32")
+    lvl0 = hier.levels[0]
+    pat0 = jsp.build_pattern(lvl0.elems, lvl0.num_vertices, 1)
+    fixed0 = lvl0.vertex_mask(("inlet",))[None]
+
+    def jbase(arg):
+        em = jelem(arg[:, :3], jnp.asarray(lvl0.elems), arg[:, 3:].T, 0.05, ncomp=1)
+        v0 = jsp.bake_dirichlet(pat0, jsp.assemble_values(pat0, em), jnp.asarray(fixed0))
+        return jnp.linalg.inv(jsp.to_dense(pat0, v0))
+
+    rng = np.random.default_rng(31)
+    V = hier.fine.num_vertices
+    cw = np.concatenate([hier.fine.coords.T, rng.normal(size=(3, V))], axis=0)
+    jdata = jmg.assemble_patch_mg_p(
+        jps, jstruct, jst.to_patch(jps.fine, jnp.asarray(cw)), lambda c: jcorner(c, 0.05, ncomp=1), jbase, jtabs)
+    free = ~hier.fine.vertex_mask(("inlet",))
+    b = (rng.normal(size=(1, V)) * free)[:, np.moveaxis(jps.fine.gid, 0, -1)]
+    v_j = np.asarray(jmg.vcycle_p(jstruct, jdata, jnp.asarray(b)))
+
+    ctx = ns_run.build(1, "cpu", torch.float64, visc=0.05, dim=3, pressure_precond="pcd")
+    ps, tabs = ctx.ps, ctx.pcd_tabs
+
+    def tbase(arg):
+        b0 = ctx.base0
+        from admm_optim_tpu_torch.ops import sparsity
+        from admm_optim_tpu_torch.ops.convdiff import convdiff_elem_mats
+
+        em = convdiff_elem_mats(arg[:, :3], b0["elems"], arg[:, 3:].T, 0.05, ncomp=1)
+        v0 = sparsity.bake_dirichlet(b0["pat_p"], sparsity.assemble_values(b0["pat_p"], em), b0["fixed_p"])
+        return torch.linalg.inv(sparsity.to_dense(b0["pat_p"], v0))
+
+    data = patch_mg.assemble_patch_mg_p(
+        ps, ctx.pcd_struct, st.to_patch_tab(tabs[-1], torch.from_numpy(cw)),
+        lambda c: convdiff_corner_mats(c, 0.05, ncomp=1), tbase, tabs)
+    for l in range(len(ps.levels)):
+        assert data.W[l].shape[:3] == (15, 1, 1)
+        assert _rel(data.W[l], jdata.W[l]) <= 1e-12
+        assert _rel(data.inv_diag[l], jdata.inv_diag[l]) <= 1e-12
+        assert abs(float(data.lmax[l]) - float(jdata.lmax[l])) <= 1e-12 * float(jdata.lmax[l])
+    # nonsymmetric: slot o at s is not slot -o at s+o
+    assert _rel(data.W[-1], st.expand_sym_w(ps, data.W[-1][st.half_slots(ps)])) > 1e-3
+    assert _rel(data.base_inv, jdata.base_inv) <= 1e-10
+    sk.reset_launches()
+    bt = torch.from_numpy(b)
+    assert _rel(patch_mg.vcycle_p(ctx.pcd_struct, data, bt), v_j) <= 1e-10
+    conv = convert.patch_mg_data(jax.tree_util.tree_map(np.asarray, jdata), ps, "cpu")
+    assert _rel(patch_mg.vcycle_p(ctx.pcd_struct, conv, bt), v_j) <= 1e-10
+    assert sum(sk.launches.values()) == 0

@@ -87,7 +87,7 @@ def test_k2_twin_matches_interpret_pallas_pencil_bf16(problem):
     assert torch.equal(st.apply_w(tps, st.PencilW(Wpc_t), torch.from_numpy(x)), y_twin)
     assert set(sk.launches) == {
         "apply_w_sym", "apply_w_pencil", "apply_w_pencil_batched", "apply_w_df_sym",
-        "apply_w_full", "apply_w_full_t",
+        "apply_w_full", "apply_w_full_t", "apply_w_full/c1", "apply_w_full_t/c1",
     }
     assert sum(sk.launches.values()) == 0
 
@@ -332,3 +332,104 @@ def test_transpose_table_codes(problem):
     direct = sk._slot_table(stencil, tuple(range(15)), torch.device("cpu")).numpy()
     assert [tuple(r[:3]) for r in direct] == list(stencil)
     assert list(direct[:, 3]) == list(range(15))
+
+
+# ---------------------------------------------------------------------------
+# K5 and K5^T at C = 1 (the scalar pressure operators of the PCD Schur block)
+# ---------------------------------------------------------------------------
+
+def _k5_scalar_inputs(tps, shape, seed):
+    lat, P = shape
+    rng = np.random.default_rng(seed)
+    W = rng.normal(size=(len(tps.stencil), 1, 1) + lat + (P,))
+    x = rng.normal(size=(1,) + lat + (P,))
+    y = rng.normal(size=(1,) + lat + (P,))
+    return W, x, y
+
+
+@pytest.mark.parametrize("shape", K5_SHAPES)
+def test_k5_scalar_twin_matches_interpret_pallas_and_jax_apply(problem, shape):
+    """K5's twin at C = 1 against the JAX package's full-stencil Pallas
+    kernel (generic in C) in interpret mode and against its XLA apply_w,
+    dense random W and x so that every boundary pencil reads its lattice
+    edge; float64, 1e-12.  The wrapper, apply_w and ApplyWFull on CPU
+    tensors are the twin and count no launch."""
+    jps, tps, _ = problem
+    W, x, _ = _k5_scalar_inputs(tps, shape, 21)
+    y_pal = pst._apply_w_pallas_3d.__wrapped__(
+        _stencil(jps), pst._SLOT_CHUNK, jnp.asarray(W), jnp.asarray(x), interpret=True
+    )
+    y_jax = jst.apply_w(jps, jnp.asarray(W), jnp.asarray(x))
+    Wt, xt = torch.from_numpy(W), torch.from_numpy(x)
+    y_twin = sk._apply_w_full(tps, Wt, xt)
+    assert y_twin.shape == x.shape and y_twin.dtype == torch.float64
+    assert _rel(y_twin, y_pal) < 1e-12
+    assert _rel(y_twin, y_jax) < 1e-12
+    # boundary pencils on their own: the faces of the lattice
+    for ax in range(3):
+        for side in (0, -1):
+            idx = [slice(None)] * 5
+            idx[1 + ax] = side
+            assert _rel(y_twin[tuple(idx)], np.asarray(y_pal)[tuple(idx)]) < 1e-12
+    sk.reset_launches()
+    assert torch.equal(sk.apply_w_full(tps, Wt, xt), y_twin)
+    assert torch.equal(st.apply_w(tps, Wt, xt), y_twin)
+    assert torch.equal(sk.ApplyWFull.apply(tps, Wt, xt), y_twin)
+    assert sum(sk.launches.values()) == 0
+
+
+@pytest.mark.parametrize("shape", K5_SHAPES)
+def test_k5_scalar_transpose_twin_matches_jax_vjp_and_is_adjoint(problem, shape):
+    """K5^T's twin at C = 1 against the jax.vjp of the JAX apply (1e-12),
+    <A x, y> = <x, A^T y> (1e-13), and as the autograd backward of
+    apply_w on a scalar field."""
+    jps, tps, _ = problem
+    W, x, y = _k5_scalar_inputs(tps, shape, 22)
+    _, vjp = jax.vjp(lambda v: jst.apply_w(jps, jnp.asarray(W), v), jnp.asarray(x))
+    Wt, xt, ytt = (torch.from_numpy(a) for a in (W, x, y))
+    yt = sk._apply_w_full_t(tps, Wt, ytt)
+    assert _rel(yt, vjp(jnp.asarray(y))[0]) < 1e-12
+    assert torch.equal(sk.apply_w_full_t(tps, Wt, ytt), yt)
+    a = float(torch.sum(sk._apply_w_full(tps, Wt, xt) * ytt))
+    b = float(torch.sum(xt * yt))
+    assert abs(a - b) <= 1e-13 * max(abs(a), abs(b))
+    xg = xt.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(st.apply_w(tps, Wt, xg), xg, ytt)
+    assert torch.equal(g, yt)
+
+
+def test_component_counts_the_wrappers_take(problem):
+    """On meta tensors (neither CPU nor CUDA): C = 1 and C = 3 pass the
+    shape checks of the full-stencil apply and its transpose, through
+    apply_w and ApplyWFull too, and are refused only for the device; C = 2
+    is refused for its shape, and so is C = 1 on K1-K4, which the JAX
+    package never sends a scalar field."""
+    _, tps, _ = problem
+    lat, P = tps.fine.lat_shape, tps.P
+    O, H = len(tps.stencil), len(st.half_slots(tps))
+
+    def field(C, lanes=()):
+        return torch.empty(lanes + (C,) + lat + (P,), device="meta")
+
+    def weights(slots, C):
+        return torch.empty((slots, C, C) + lat + (P,), device="meta")
+
+    for C in (1, 3):
+        for fn in (sk.apply_w_full, sk.apply_w_full_t, st.apply_w, sk.ApplyWFull.apply):
+            with pytest.raises(ValueError, match="must be on the CPU or a CUDA device"):
+                fn(tps, weights(O, C), field(C))
+    for fn in (sk.apply_w_full, sk.apply_w_full_t, st.apply_w):
+        with pytest.raises(ValueError, match="C = 1 or 3"):
+            fn(tps, weights(O, 2), field(2))
+    Wpc = torch.empty((1,), dtype=torch.bfloat16, device="meta")
+    scalar_calls = (
+        lambda: sk.apply_w_sym(tps, weights(H, 1), field(1)),
+        lambda: sk.apply_w_sym(tps, weights(H, 1), field(1, (5,))),
+        lambda: st.apply_w(tps, weights(H, 1), field(1)),
+        lambda: sk.apply_w_pencil(tps, Wpc, field(1)),
+        lambda: sk.apply_w_pencil_batched(tps, Wpc, field(1, (5,))),
+        lambda: sk.apply_w_df_sym(tps, weights(H, 1), field(1), field(1)),
+    )
+    for call in scalar_calls:
+        with pytest.raises(ValueError, match="C = 3, got .*scalar fields only to the full-stencil apply"):
+            call()
