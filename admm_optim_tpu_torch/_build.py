@@ -76,14 +76,18 @@ def lib() -> ctypes.CDLL:
     handle = ctypes.CDLL(str(LIBRARY))
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, n_ptr, n_int in (
-        ("apply_w_sym_f32", 4, 7),
+        # pointers (the last one the slot table on the device), n_slots,
+        # n0, n1, n2, P, [lanes,] device, stream
+        ("apply_w_slots_f32", 4, 6),
         ("apply_w_pencil_bf16", 4, 7),
         ("apply_w_df_sym_f32", 6, 6),
-        ("apply_w_full_f32", 4, 7),
-        ("apply_w_full_t_f32", 4, 7),
+        # pointers (the last one the slot table in host memory, 15 x 4
+        # ints), n0, n1, n2, P, lanes | threads, device, stream
+        ("apply_w_sym_lanes_f32", 4, 6),
+        ("apply_w_scalar_f32", 4, 6),
+        ("launch_empty", 0, 1),
     ):
         fn = getattr(handle, name)
-        # pointers..., n_slots, n0, n1, n2, P, [lanes | ncomp,] device, stream
         fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
         fn.restype = i
     handle.stencil_error_string.argtypes = [i]

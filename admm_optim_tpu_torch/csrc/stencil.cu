@@ -10,14 +10,15 @@
 // bf16, shared by all lanes.  y is additive: per-patch partial sums, made
 // consistent by the exchange that follows.
 //
-// Every kernel runs one thread per lattice site (i, j, k, p) with p the
-// fastest thread index, so each W and x load of a warp is one contiguous
-// run along the patch axis.  All of them are bound by device-memory
-// bandwidth: ~1 flop per byte of W, and W is 90% of the bytes.  A
-// neighbour outside the lattice contributes nothing, which is what the
-// JAX forms' zero halo of x gives; so no padded copy of x is made and no
-// W is read beyond the lattice edge (the Pallas kernels read edge-clamped
-// W blocks and rely on the zero halo instead).
+// Every kernel runs one thread per lattice site (i, j, k, p), or per four
+// consecutive p in the scalar kernel, with p the fastest thread index, so
+// each W and x load of a warp is one contiguous run along the patch axis.
+// All of them are bound by device-memory bandwidth: ~1 flop per byte of
+// W, and W is 90% of the bytes.  A neighbour outside the lattice
+// contributes nothing, which is what the JAX forms' zero halo of x gives;
+// so no padded copy of x is made and no W is read beyond the lattice edge
+// (the Pallas kernels read edge-clamped W blocks and rely on the zero halo
+// instead).
 //
 // The slot table `stab` (n_slots x 4 int32, built by
 // stencil_kernels._slot_table / _transpose_table) gives per table row an
@@ -27,10 +28,14 @@
 // W[h](s+o)^T for o = -offset(h)); K5's table reads every slot directly,
 // and K5^T's table reads every slot transposed at the opposite offset.
 //
+// The scalar full-stencil kernel and K1's lane kernel take their table by
+// value instead (SlotTable, the same rows, in the kernel's parameters).
+//
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -67,10 +72,8 @@ __device__ __forceinline__ long long neighbour(const Site& s, const int* e,
 // (:140-277): symmetric half storage, the 8 stored slots read once at the
 // site and the 7 missing ones as transposes at the neighbour (same 15
 // block reads per site as the Pallas kernel, from half the stored bytes).
-// With lanes > 1 (what jax.vmap makes of the Pallas call) the lane is the
-// fastest part of the block index, so the blocks of one site range run
-// back to back and all but the first read W from L2 rather than device
-// memory.
+// A lane axis (what jax.vmap makes of the Pallas call) goes to
+// apply_w_sym_lanes_kernel below; this kernel is launched with lanes = 1.
 //
 // K5, replaces pallas_stencil.py _kernel / _apply_w_pallas_3d (:59-137):
 // full slot-major W (15, C, C, n0, n1, n2, P) of a nonsymmetric operator,
@@ -87,16 +90,9 @@ __device__ __forceinline__ long long neighbour(const Site& s, const int* e,
 // same flops, so they are bound by device memory like K1; the warp's W
 // and x loads stay contiguous along the patch axis in both directions.
 //
-// The kernel is templated on the component count C.  C = 3 serves K1, K5
-// and K5^T on vector fields.  C = 1 is K5 and K5^T on a scalar field, W
-// (15, 1, 1, n0, n1, n2, P): the pressure convection-diffusion stencil
-// and every sweep, residual and restriction of the pressure-Laplacian
-// V-cycle of the PCD Schur block (pallas_stencil.py _apply_w_pallas_3d is
-// generic in C the same way, C = y_ref.shape[0]).  A 1x1 block is its own
-// transpose, so at C = 1 the transposed rows differ from the direct ones
-// only in where W is read (at the neighbour) and in the sign of the
-// offset.  The scalar lattices are small (5^3 x 224 at refs=2 moves 1.9
-// MB), so there the launch itself, not the memory traffic, sets the time.
+// The kernel is templated on the component count C and instantiated for
+// C = 3: K1, K5 and K5^T on vector fields.  Scalar fields (C = 1) have a
+// kernel of their own, apply_w_scalar_kernel below.
 template <int C>
 __global__ void apply_w_slots_kernel(const float* __restrict__ W,
                                    const float* __restrict__ x,
@@ -138,6 +134,186 @@ __global__ void apply_w_slots_kernel(const float* __restrict__ W,
 #pragma unroll
   for (int c = 0; c < C; ++c) y[c * sp + t] = acc[c];
 }
+
+// The slot table by value: the rows of stencil_kernels._slot_table or
+// _transpose_table for the 15-slot Kuhn stencil, in the kernel's
+// parameters.  The slot loop then has a compile-time length and unrolls,
+// and a row costs no memory round trip.
+constexpr int kSlots = 15;
+
+struct SlotTable {
+  int row[kSlots][4];
+};
+
+// What both kernels below share.  The grid is (blocks along one (i, j)
+// pencil row, n1, n0): a thread knows i and j from its block and its place
+// r along the row of n2 * P sites, which is also its place in memory, so
+// no index is ever divided.  The neighbour at offset (o0, o1, o2) lies
+// ((o0 * n1 + o1) * n2 + o2) * P sites further on; it is inside the
+// lattice when i + o0 and j + o1 are (the same answer for the whole block)
+// and r + o2 * P stays inside the row.  Site indices are 32-bit: the
+// entry points refuse n0 * n1 * n2 * P >= 2^31.
+//
+// A neighbour outside the lattice is not branched around: its address is
+// clamped to the site itself, so nothing is read beyond the lattice, and
+// the loaded weight is replaced by 0.  Every load of a thread is then
+// independent of every other and of every branch, so many can be in
+// flight at once.
+struct Neighbour {
+  int at;   // flat site index of the neighbour, or of the site itself
+  bool ok;  // inside the lattice
+};
+
+__device__ __forceinline__ Neighbour neighbour_of(int o0, int o1, int o2, int i, int j,
+                                                  int r, int t, int n0, int n1,
+                                                  int row, int P) {
+  Neighbour nb;
+  nb.ok = static_cast<unsigned>(i + o0) < static_cast<unsigned>(n0) &&
+          static_cast<unsigned>(j + o1) < static_cast<unsigned>(n1) &&
+          static_cast<unsigned>(r + o2 * P) < static_cast<unsigned>(row);
+  nb.at = nb.ok ? t + (o0 * n1 + o1) * row + o2 * P : t;
+  return nb;
+}
+
+__device__ __forceinline__ float zero_like(float) { return 0.f; }
+__device__ __forceinline__ float4 zero_like(float4) { return make_float4(0.f, 0.f, 0.f, 0.f); }
+template <typename V>
+__device__ __forceinline__ V keep_if(bool ok, V v) {
+  return ok ? v : zero_like(v);
+}
+__device__ __forceinline__ void mul_add(float& acc, float w, float x) { acc += w * x; }
+__device__ __forceinline__ void mul_add(float4& acc, float4 w, float4 x) {
+  acc.x += w.x * x.x;
+  acc.y += w.y * x.y;
+  acc.z += w.z * x.z;
+  acc.w += w.w * x.w;
+}
+
+// K5 and K5^T on a scalar field, C = 1: W (15, 1, 1, n0, n1, n2, P), the
+// pressure convection-diffusion stencil and every sweep, residual and
+// restriction of the pressure-Laplacian V-cycle of the PCD Schur block.
+// Replaces pallas_stencil.py _kernel / _apply_w_pallas_3d (:59-137) at
+// C = y_ref.shape[0] = 1, and its jax.vjp.  A 1x1 block is its own
+// transpose, so a transposed row differs from a direct one only in where
+// W is read (at the neighbour) and in the sign of the offset; one kernel
+// serves both tables.
+//
+// Bound: device memory at 17^3 x 224 (75 MB, one multiply-add per 4 bytes
+// of W); at the PCD path's 5^3 x 224 (1.9 MB) the launch and the latency
+// of one round of loads.  A thread has 15 multiply-adds and nothing else
+// to hide a load behind, so the design is about that latency.  V = float4
+// takes 4 consecutive p per thread (a neighbour has the same p, so direct
+// and transposed reads stay aligned; it needs P % 4 == 0 and 16-byte
+// aligned bases, else V = float).  All 30 loads of a thread go out as
+// asynchronous copies into the thread's own column of shared memory
+// (cp.async: no register waits for a load, so none is held back behind a
+// multiply-add, which is what the compiler did to 30 loads into
+// registers), one wait, then the sum in table order out of shared memory.
+// The stage is 2 x 15 x blockDim.x values of V: 30 KB at 64 threads of
+// float4, so seven blocks fit an SM, and 5^3 x 224, 7,000 threads of
+// float4, spreads over 125 blocks.
+template <typename V>
+__global__ void __launch_bounds__(256)
+apply_w_scalar_kernel(const V* __restrict__ W, const V* __restrict__ x,
+                      V* __restrict__ y, const SlotTable tab, int n0, int n1,
+                      int n2, int P) {  // P in units of V
+  extern __shared__ float4 stage_bytes[];
+  V* stage = reinterpret_cast<V*>(stage_bytes) + threadIdx.x;
+  const int row = n2 * P;
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= row) return;  // no thread waits for another: each reads only its own column
+  const int j = blockIdx.y, i = blockIdx.z;
+  const int t = (i * n1 + j) * row + r;
+  const size_t sp = static_cast<size_t>(n0) * n1 * row;
+  unsigned inside = 0;  // bit q: slot q's neighbour lies inside the lattice
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    const Neighbour nb = neighbour_of(tab.row[q][0], tab.row[q][1], tab.row[q][2], i, j, r,
+                                      t, n0, n1, row, P);
+    const int code = tab.row[q][3];
+    const bool direct = code >= 0;
+    const V* wq = W + static_cast<size_t>(direct ? code : -1 - code) * sp;
+    __pipeline_memcpy_async(stage + 2 * q * blockDim.x, wq + (direct ? t : nb.at), sizeof(V));
+    __pipeline_memcpy_async(stage + (2 * q + 1) * blockDim.x, x + nb.at, sizeof(V));
+    inside |= static_cast<unsigned>(nb.ok) << q;
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  V acc = zero_like(V());
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q)
+    mul_add(acc, keep_if((inside >> q) & 1u, stage[2 * q * blockDim.x]),
+            stage[(2 * q + 1) * blockDim.x]);
+  y[t] = acc;
+}
+
+// K1 on a lane axis: B lanes (B, 3, n0, n1, n2, P) that share one
+// symmetric-half W, the operator and the assembled Hessian of the ADMM
+// x-update's 1+m simultaneous Krylov solves.  Replaces jax.vmap of
+// pallas_stencil.py _apply_w_pallas_3d_sym (:140-277).
+//
+// Bound: device memory.  W is 317 MB at 17^3 x 224 and a lane's x and y
+// 13 MB each, so the design is K3's: each 3x3 block of W is loaded once
+// into registers, at the site for a direct row and at the neighbour for a
+// transposed one, and applied to every lane's x at the neighbour, with the
+// B x 3 sums in registers (B is a template parameter so that they stay
+// there).  One launch moves W once plus B x (x + y).  Direct and
+// transposed rows differ only in the two strides of the block, chosen
+// without a branch.  The per-lane sum order is that of
+// apply_w_slots_kernel<3> on K1's table, so each lane equals K1 on that
+// lane's field bit for bit.
+template <int B>
+__global__ void __launch_bounds__(256)
+apply_w_sym_lanes_kernel(const float* __restrict__ W, const float* __restrict__ x,
+                         float* __restrict__ y, const SlotTable tab, int n0,
+                         int n1, int n2, int P) {
+  constexpr int C = 3;
+  const int row = n2 * P;
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= row) return;
+  const int j = blockIdx.y, i = blockIdx.z;
+  const int t = (i * n1 + j) * row + r;
+  const size_t sp = static_cast<size_t>(n0) * n1 * row;
+  const size_t lane = C * sp;
+  float acc[B][C];
+#pragma unroll
+  for (int b = 0; b < B; ++b)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[b][c] = 0.f;
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    const Neighbour nb = neighbour_of(tab.row[q][0], tab.row[q][1], tab.row[q][2], i, j, r,
+                                      t, n0, n1, row, P);
+    const int code = tab.row[q][3];
+    const bool direct = code >= 0;
+    const float* w = W + static_cast<size_t>(direct ? code : -1 - code) * C * C * sp +
+                     (direct ? t : nb.at);
+    const size_t sc = direct ? C * sp : sp;  // stride of the sum's component c
+    const size_t sd = direct ? sp : C * sp;  // stride of x's component d
+    float wv[C][C];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int d = 0; d < C; ++d) wv[c][d] = keep_if(nb.ok, w[c * sc + d * sd]);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      float xv[C];
+#pragma unroll
+      for (int d = 0; d < C; ++d) xv[d] = x[b * lane + d * sp + nb.at];
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int d = 0; d < C; ++d) acc[b][c] += wv[c][d] * xv[d];
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < B; ++b)
+#pragma unroll
+    for (int c = 0; c < C; ++c) y[b * lane + c * sp + t] = acc[b][c];
+}
+
+// Nothing: its device time is the floor under every one-launch time.
+__global__ void empty_kernel() {}
 
 // K2 and K3: full 15-slot apply from pencil-major bf16 W for B lanes that
 // share W.  B = 1 is K2, replacing pallas_stencil.py _kernel_pc /
@@ -281,48 +457,99 @@ void launch_pencil(const Pencil& a) {
       a.W, a.x, a.y, a.stab, a.n_slots, a.n0, a.n1, a.n2, a.P);
 }
 
-// K5 (table of direct rows) and K5^T (table of transposed rows): one
-// field of ncomp = 3 or 1 components, full slot-major W; any other count
-// is refused
-template <int C>
-void launch_slots(const void* W, const void* x, void* y, const void* stab,
-                  int n_slots, int n0, int n1, int n2, int P,
-                  unsigned int blocks, void* stream) {
-  apply_w_slots_kernel<C><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(W), static_cast<const float*>(x),
-      static_cast<float*>(y), static_cast<const int*>(stab), n_slots, n0, n1,
-      n2, P, 1);
+// What the kernels with a by-value table take: the table's 15 x 4 ints in
+// host memory, and a lattice whose pencil grid (blocks along a row, n1,
+// n0) and 32-bit site indices hold it.
+struct RowGrid {
+  SlotTable tab;
+  dim3 grid;
+  bool ok;
+};
+
+RowGrid row_grid(const int* slots, int n0, int n1, int n2, int P, int threads) {
+  RowGrid g;
+  const long long row = static_cast<long long>(n2) * P;
+  g.ok = threads >= 32 && threads <= 256 && threads % 32 == 0 && n0 <= 65535 &&
+         n1 <= 65535 && row * n0 * n1 < (1LL << 31);
+  if (!g.ok) return g;
+  for (int q = 0; q < kSlots; ++q)
+    for (int v = 0; v < 4; ++v) g.tab.row[q][v] = slots[4 * q + v];
+  g.grid = dim3(static_cast<unsigned int>((row + threads - 1) / threads), n1, n0);
+  return g;
 }
 
-int launch_full(const void* W, const void* x, void* y, const void* stab,
-                int n_slots, int n0, int n1, int n2, int P, int ncomp,
-                int device, void* stream) {
-  if (ncomp != 1 && ncomp != 3) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned int blocks = blocks_for(n0, n1, n2, P);
-  if (blocks == 0) return 0;
-  cudaSetDevice(device);
-  if (ncomp == 3)
-    launch_slots<3>(W, x, y, stab, n_slots, n0, n1, n2, P, blocks, stream);
-  else
-    launch_slots<1>(W, x, y, stab, n_slots, n0, n1, n2, P, blocks, stream);
-  return static_cast<int>(cudaGetLastError());
+struct Lanes {
+  const float* W;
+  const float* x;
+  float* y;
+  int n0, n1, n2, P;
+  cudaStream_t stream;
+};
+
+template <int B>
+void launch_lanes(const Lanes& a, const RowGrid& g) {
+  apply_w_sym_lanes_kernel<B><<<g.grid, kThreads, 0, a.stream>>>(
+      a.W, a.x, a.y, g.tab, a.n0, a.n1, a.n2, a.P);
 }
+
+// The scalar kernel with its stage of 2 x 15 x threads values of V in
+// dynamic shared memory; above 48 KB a kernel has to be allowed it first.
+template <typename V>
+void launch_scalar(const V* W, const V* x, V* y, const RowGrid& g, int n0, int n1,
+                   int n2, int Pv, int threads, cudaStream_t stream) {
+  const size_t stage = 2 * kSlots * static_cast<size_t>(threads) * sizeof(V);
+  if (stage > 48 * 1024)
+    cudaFuncSetAttribute(apply_w_scalar_kernel<V>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(stage));
+  apply_w_scalar_kernel<V><<<g.grid, threads, stage, stream>>>(W, x, y, g.tab, n0, n1,
+                                                              n2, Pv);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 
 }  // namespace
 
 extern "C" {
 
-int apply_w_sym_f32(const void* W, const void* x, void* y, const void* stab,
-                    int n_slots, int n0, int n1, int n2, int P, int lanes,
-                    int device, void* stream) {
+// K1 (its half-storage table), K5 (the table of direct rows) and K5^T
+// (the table of transposed rows) on one field of 3 components; stab is the
+// table on the device
+int apply_w_slots_f32(const void* W, const void* x, void* y, const void* stab,
+                      int n_slots, int n0, int n1, int n2, int P, int device,
+                      void* stream) {
   const unsigned int blocks = blocks_for(n0, n1, n2, P);
   if (blocks == 0) return 0;
   cudaSetDevice(device);
-  apply_w_slots_kernel<3><<<blocks * lanes, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  apply_w_slots_kernel<3><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(W), static_cast<const float*>(x),
       static_cast<float*>(y), static_cast<const int*>(stab), n_slots, n0, n1,
-      n2, P, lanes);
+      n2, P, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 on 2..8 lanes; slots is K1's table (15 x 4 ints, host memory).  Any
+// other lane count, or a lattice of 2^31 sites or more, is refused.
+int apply_w_sym_lanes_f32(const void* W, const void* x, void* y, const int* slots,
+                          int n0, int n1, int n2, int P, int lanes, int device,
+                          void* stream) {
+  if (static_cast<long long>(n0) * n1 * n2 * P == 0) return 0;
+  const RowGrid g = row_grid(slots, n0, n1, n2, P, kThreads);
+  if (!g.ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaSetDevice(device);
+  const Lanes args{static_cast<const float*>(W), static_cast<const float*>(x),
+                   static_cast<float*>(y), n0, n1, n2, P,
+                   static_cast<cudaStream_t>(stream)};
+  switch (lanes) {
+    case 2: launch_lanes<2>(args, g); break;
+    case 3: launch_lanes<3>(args, g); break;
+    case 4: launch_lanes<4>(args, g); break;
+    case 5: launch_lanes<5>(args, g); break;
+    case 6: launch_lanes<6>(args, g); break;
+    case 7: launch_lanes<7>(args, g); break;
+    case 8: launch_lanes<8>(args, g); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -365,16 +592,35 @@ int apply_w_df_sym_f32(const void* W, const void* xh, const void* xl, void* yh,
   return static_cast<int>(cudaGetLastError());
 }
 
-int apply_w_full_f32(const void* W, const void* x, void* y, const void* stab,
-                     int n_slots, int n0, int n1, int n2, int P, int ncomp,
-                     int device, void* stream) {
-  return launch_full(W, x, y, stab, n_slots, n0, n1, n2, P, ncomp, device, stream);
+// K5 and K5^T on a scalar field; slots is the direct or the transposed
+// table (15 x 4 ints, host memory), threads the block size (a multiple of
+// 32 up to 256).  float4 along p where P and the bases allow it.  A
+// lattice of 2^31 sites or more is refused.
+int apply_w_scalar_f32(const void* W, const void* x, void* y, const int* slots,
+                       int n0, int n1, int n2, int P, int threads, int device,
+                       void* stream) {
+  if (static_cast<long long>(n0) * n1 * n2 * P == 0) return 0;
+  const bool vec = P % 4 == 0 && aligned16(W) && aligned16(x) && aligned16(y);
+  const int Pv = vec ? P / 4 : P;
+  const RowGrid g = row_grid(slots, n0, n1, n2, Pv, threads);
+  if (!g.ok || static_cast<long long>(n0) * n1 * n2 * P >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaSetDevice(device);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    launch_scalar(static_cast<const float4*>(W), static_cast<const float4*>(x),
+                  static_cast<float4*>(y), g, n0, n1, n2, Pv, threads, s);
+  else
+    launch_scalar(static_cast<const float*>(W), static_cast<const float*>(x),
+                  static_cast<float*>(y), g, n0, n1, n2, Pv, threads, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
-int apply_w_full_t_f32(const void* W, const void* x, void* y, const void* stab,
-                       int n_slots, int n0, int n1, int n2, int P, int ncomp,
-                       int device, void* stream) {
-  return launch_full(W, x, y, stab, n_slots, n0, n1, n2, P, ncomp, device, stream);
+// one launch of a kernel that does nothing
+int launch_empty(int device, void* stream) {
+  cudaSetDevice(device);
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* stencil_error_string(int err) {

@@ -15,14 +15,15 @@ Layout contract, as in the JAX package:
         shared by all lanes.
 
 Kernels (sources in ../csrc/stencil.cu, built on first use by _build):
-  apply_w_sym             K1, replaces pallas_stencil._apply_w_pallas_3d_sym
-                          (one launch for all lanes, as jax.vmap of it)
+  apply_w_sym             K1, replaces pallas_stencil._apply_w_pallas_3d_sym;
+                          on a lane axis (jax.vmap of it) a kernel of its
+                          own reads W once for 2 <= B <= 8 lanes
   apply_w_pencil          K2, replaces pallas_stencil._apply_w_pallas_3d_pc (bf16 W)
   apply_w_pencil_batched  K3, replaces pallas_stencil._apply_w_pallas_3d_pc_batched
                           (bf16 W read once for 1 <= B <= 8 lanes)
   apply_w_df_sym          K4, replaces pallas_stencil._apply_w_df_pallas_3d_sym
   apply_w_full            K5, replaces pallas_stencil._apply_w_pallas_3d (full W),
-                          at C = 3 and at C = 1
+                          at C = 3 and, by a scalar kernel of its own, at C = 1
   apply_w_full_t          K5^T, the exact transpose of K5 (the jax.vjp of
                           K5 in ns_solver.transpose_M); ApplyWFull is K5
                           with K5^T as its autograd backward
@@ -31,22 +32,31 @@ Dispatch is the same for all of them: a tensor on the CPU takes the plain
 twin; a CUDA tensor launches the kernel or raises.  There is no fallback
 and no lattice-size gate.  ``launches`` counts kernel launches per wrapper
 (the twin never counts); the scalar form of K5 and K5^T counts under names
-of its own, ``apply_w_full/c1`` and ``apply_w_full_t/c1``.
+of its own, ``apply_w_full/c1`` and ``apply_w_full_t/c1``, and K1's lane
+kernel as ``apply_w_sym/lanes``.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 
 import torch
 
+from .. import _build
 from . import df
 from .patchstencil import expand_sym_w, half_slots, shift_read
 
 launches = {
-    "apply_w_sym": 0, "apply_w_pencil": 0, "apply_w_pencil_batched": 0, "apply_w_df_sym": 0,
-    "apply_w_full": 0, "apply_w_full_t": 0, "apply_w_full/c1": 0, "apply_w_full_t/c1": 0,
+    "apply_w_sym": 0, "apply_w_sym/lanes": 0, "apply_w_pencil": 0, "apply_w_pencil_batched": 0,
+    "apply_w_df_sym": 0, "apply_w_full": 0, "apply_w_full_t": 0, "apply_w_full/c1": 0, "apply_w_full_t/c1": 0,
 }
-MAX_LANES = 8  # K3 is templated on the lane count up to this
+MAX_LANES = 8  # K3 and K1's lane kernel are templated on the lane count up to this
+BY_VALUE_SLOTS = 15  # the 3D stencil: what a by-value slot table holds
+MAX_SITES = 2**31  # the kernels with a by-value table index lattice sites in 32 bits
+# Block size of the scalar kernel, a multiple of 32 up to 256 (chip_smoke.py
+# times 64, 128 and 256 at the PCD path's shapes).
+SCALAR_THREADS = 64
 
 
 def reset_launches():
@@ -203,15 +213,34 @@ def to_pencil_major(ps, W, dtype=None):
     return out
 
 
+def fill_unused_w(ps, W, value):
+    """A copy of slot-major W (full or symmetric half) with every entry
+    whose neighbour s + o lies outside the lattice set to value.  No apply
+    uses such an entry: a direct read multiplies it by x outside the
+    lattice, which is no term of the sum, and a transposed read at s never
+    comes from a site inside.  So the result of every apply must be the
+    same for any finite value; the tests and chip_smoke.py hold the twins
+    and the kernels' clamped reads to that."""
+    O = len(ps.stencil)
+    slots = range(O) if W.shape[0] == O else half_slots(ps)
+    W = W.clone()
+    for h, oi in enumerate(slots):
+        for ax, o in enumerate(ps.stencil[oi]):
+            if o:
+                idx = [slice(None)] * W[h].dim()
+                idx[2 + ax] = -1 if o > 0 else 0
+                W[h][tuple(idx)] = value
+    return W
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _slot_table(stencil, kept, device):
-    """(O, 4) int32 on the device: per stencil slot its offset and a code,
-    h >= 0 for a stored slot (W[h] at the site itself) or -1-h for a
-    missing slot (the transpose of stored slot h at the neighbour)."""
+def _slot_rows(stencil, kept):
+    """Per stencil slot its offset and a code: h >= 0 for a stored slot
+    (W[h] at the site itself) or -1-h for a missing slot (the transpose of
+    stored slot h at the neighbour)."""
     pos = {k: i for i, k in enumerate(kept)}
     rows = []
     for oi, o in enumerate(stencil):
@@ -220,25 +249,84 @@ def _slot_table(stencil, kept, device):
         else:
             code = -1 - pos[stencil.index(tuple(-v for v in o))]
         rows.append(list(o) + [code])
-    return torch.tensor(rows, dtype=torch.int32, device=device)
+    return rows
+
+
+def _transpose_rows(stencil):
+    """The rows of K5^T: per slot q the offset -o_q and the code -1-q, so
+    the kernel adds W[q](s-o_q)^T x[s-o_q]."""
+    return [[-v for v in o] + [-1 - q] for q, o in enumerate(stencil)]
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_table(stencil, kept, device):
+    """_slot_rows as an (O, 4) int32 tensor on the device."""
+    return torch.tensor(_slot_rows(stencil, kept), dtype=torch.int32, device=device)
 
 
 @functools.lru_cache(maxsize=None)
 def _transpose_table(stencil, device):
-    """(O, 4) int32 table of K5^T: per slot q the offset -o_q and the code
-    -1-q, so the kernel adds W[q](s-o_q)^T x[s-o_q]."""
-    rows = [[-v for v in o] + [-1 - q] for q, o in enumerate(stencil)]
-    return torch.tensor(rows, dtype=torch.int32, device=device)
+    """_transpose_rows as an (O, 4) int32 tensor on the device."""
+    return torch.tensor(_transpose_rows(stencil), dtype=torch.int32, device=device)
 
 
-def _stencil_key(ps):
-    return tuple(tuple(int(v) for v in o) for o in ps.stencil)
+class StencilTables:
+    """What a launch needs of one patchset's stencil, made once per
+    patchset (and device) instead of once per call: the stencil as a tuple,
+    the half slots, and K1's, K5's and K5^T's slot tables ("sym", "full",
+    "full_t"), as tensors on a device for the kernels that read the table
+    from memory and packed as 15 x 4 C ints for the kernels that take it by
+    value."""
+
+    def __init__(self, ps):
+        self.stencil = tuple(tuple(int(v) for v in o) for o in ps.stencil)
+        self.n_slots = len(self.stencil)
+        self.kept = tuple(half_slots(ps))
+        self._on_device = {}
+        self._packed = {}
+
+    def rows(self, kind):
+        if kind == "full_t":
+            return _transpose_rows(self.stencil)
+        kept = self.kept if kind == "sym" else tuple(range(self.n_slots))
+        return _slot_rows(self.stencil, kept)
+
+    def on_device(self, kind, device):
+        key = (kind, device)
+        tab = self._on_device.get(key)
+        if tab is None:
+            if kind == "full_t":
+                tab = _transpose_table(self.stencil, device)
+            else:
+                kept = self.kept if kind == "sym" else tuple(range(self.n_slots))
+                tab = _slot_table(self.stencil, kept, device)
+            self._on_device[key] = tab
+        return tab
+
+    def packed(self, kind):
+        tab = self._packed.get(kind)
+        if tab is None:
+            if self.n_slots != BY_VALUE_SLOTS:
+                raise ValueError(f"the by-value table holds {BY_VALUE_SLOTS} slots, the stencil has {self.n_slots}")
+            flat = [v for row in self.rows(kind) for v in row]
+            tab = self._packed[kind] = (ctypes.c_int * len(flat))(*flat)
+        return tab
 
 
-def _check(name, ps, x, arrays, w_dtype, lane_axis=False, comps=(3,)):
+def stencil_tables(ps):
+    """The StencilTables of ps, kept on the patchset itself."""
+    tabs = ps.__dict__.get("_stencil_tables")
+    if tabs is None:
+        tabs = ps.__dict__["_stencil_tables"] = StencilTables(ps)
+    return tabs
+
+
+def _check(name, ps, x, arrays, w_dtype, lane_axis=False, comps=(3,), max_sites=None):
     """Validate what the kernels take: 3D, C in comps, f32 fields (with a
-    leading lane axis iff lane_axis), contiguous, all on x's CUDA device.
-    Returns the lane count, C and the lattice (B, C, n0, n1, n2, P)."""
+    leading lane axis of 1 to MAX_LANES lanes iff lane_axis), contiguous,
+    fewer than max_sites lattice sites where the kernel indexes them in 32
+    bits, all on x's CUDA device.  Returns the lane count, C and the
+    lattice (B, C, n0, n1, n2, P)."""
     if ps.dim != 3 or x.dim() != 5 + lane_axis or x.shape[-5] not in comps:
         want = " or ".join(str(c) for c in comps)
         lanes = "(B, C, n0, n1, n2, P)" if lane_axis else "(C, n0, n1, n2, P)"
@@ -248,8 +336,9 @@ def _check(name, ps, x, arrays, w_dtype, lane_axis=False, comps=(3,)):
         raise ValueError(
             f"{name}: the kernel takes 3D fields {lanes} with C = {want}, got x {tuple(x.shape)}{scalar}"
         )
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, got {x.device}")
+    B = x.shape[0] if lane_axis else 1
+    if not 1 <= B <= MAX_LANES:
+        raise ValueError(f"{name}: the kernel takes 1 to {MAX_LANES} lanes, got {B}")
     W = arrays[0]
     if W.dtype != w_dtype:
         raise ValueError(f"{name}: W must be {w_dtype}, got {W.dtype}")
@@ -259,55 +348,77 @@ def _check(name, ps, x, arrays, w_dtype, lane_axis=False, comps=(3,)):
     for a in arrays[1:]:
         if a.dtype != torch.float32 or a.shape != x.shape:
             raise ValueError(f"{name}: fields must be float32 of shape {tuple(x.shape)}")
-    return (x.shape[0] if lane_axis else 1,) + tuple(x.shape[-5:])
+    if max_sites is not None and math.prod(x.shape[-4:]) >= max_sites:
+        raise ValueError(
+            f"{name}: the kernel indexes lattice sites in 32 bits and takes fewer than {max_sites} "
+            f"of them, got {tuple(x.shape[-4:])}"
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, got {x.device}")
+    return (B,) + tuple(x.shape[-5:])
 
 
 def _launch(name, fn, *args, device):
     """Launch entry point fn of the kernel library on the current stream
     and count it under name."""
-    from .. import _build
-
-    lib = _build.lib()
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn)(*args, device.index or 0, stream)
+    err = getattr(_build.lib(), fn)(*args, device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed: {_build.error_string(err)}")
     launches[name] += 1
 
 
+def launch_empty(device):
+    """One launch of the library's empty kernel on the current stream: the
+    floor under the device time of any single launch.  Counts nowhere."""
+    device = torch.device(device)
+    err = _build.lib().launch_empty(device.index or 0, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch_empty: CUDA launch failed: {_build.error_string(err)}")
+
+
 def apply_w_sym(ps, W, x):
     """K1: y = A x from symmetric half storage W (H, C, C, n0, n1, n2, P),
-    for a field or for every lane of (B, C, n0, n1, n2, P) in one launch."""
+    for a field, or for the 2 to 8 lanes of (B, C, n0, n1, n2, P) in one
+    launch that reads W once for all of them (a lane axis of one lane is
+    the field's kernel); the lane form counts as "apply_w_sym/lanes"."""
     if x.device.type == "cpu":
         return _lanes(_apply_w_sym, ps, W, x)
-    B, _, n0, n1, n2, P = _check("apply_w_sym", ps, x, (W, x), torch.float32, x.dim() == 6)
-    if W.shape != (len(half_slots(ps)), 3, 3, n0, n1, n2, P):
-        raise ValueError(f"apply_w_sym: W shape {tuple(W.shape)} does not match x")
-    stencil = _stencil_key(ps)
-    tab = _slot_table(stencil, tuple(half_slots(ps)), x.device)
-    y = torch.empty_like(x)
-    _launch(
-        "apply_w_sym", "apply_w_sym_f32",
-        W.data_ptr(), x.data_ptr(), y.data_ptr(), tab.data_ptr(),
-        len(stencil), n0, n1, n2, P, B, device=x.device,
+    lane_axis = x.dim() == 6
+    many = lane_axis and x.shape[0] != 1
+    B, _, n0, n1, n2, P = _check(
+        "apply_w_sym", ps, x, (W, x), torch.float32, lane_axis, max_sites=MAX_SITES if many else None
     )
+    tabs = stencil_tables(ps)
+    if W.shape != (len(tabs.kept), 3, 3, n0, n1, n2, P):
+        raise ValueError(f"apply_w_sym: W shape {tuple(W.shape)} does not match x")
+    y = torch.empty_like(x)
+    if many:
+        _launch(
+            "apply_w_sym/lanes", "apply_w_sym_lanes_f32",
+            W.data_ptr(), x.data_ptr(), y.data_ptr(), tabs.packed("sym"),
+            n0, n1, n2, P, B, device=x.device,
+        )
+    else:
+        _launch(
+            "apply_w_sym", "apply_w_slots_f32",
+            W.data_ptr(), x.data_ptr(), y.data_ptr(), tabs.on_device("sym", x.device).data_ptr(),
+            tabs.n_slots, n0, n1, n2, P, device=x.device,
+        )
     return y
 
 
 def _pencil(name, ps, W_pc, x, lane_axis):
     """Launch the bf16 pencil kernel (K2 for a field, K3 for a lane axis)."""
     B, _, n0, n1, n2, P = _check(name, ps, x, (W_pc, x), torch.bfloat16, lane_axis)
-    if not 1 <= B <= MAX_LANES:
-        raise ValueError(f"{name}: the kernel takes 1 to {MAX_LANES} lanes, got {B}")
-    stencil = _stencil_key(ps)
-    if W_pc.shape != (n0, n1, len(stencil), 3, 3, n2, P):
+    tabs = stencil_tables(ps)
+    if W_pc.shape != (n0, n1, tabs.n_slots, 3, 3, n2, P):
         raise ValueError(f"{name}: W_pc shape {tuple(W_pc.shape)} does not match x")
-    tab = _slot_table(stencil, tuple(range(len(stencil))), x.device)
     y = torch.empty_like(x)
     _launch(
         name, "apply_w_pencil_bf16",
-        W_pc.data_ptr(), x.data_ptr(), y.data_ptr(), tab.data_ptr(),
-        len(stencil), n0, n1, n2, P, B, device=x.device,
+        W_pc.data_ptr(), x.data_ptr(), y.data_ptr(), tabs.on_device("full", x.device).data_ptr(),
+        tabs.n_slots, n0, n1, n2, P, B, device=x.device,
     )
     return y
 
@@ -334,31 +445,41 @@ def apply_w_df_sym(ps, W, xh, xl):
     if xh.device.type == "cpu":
         return _apply_w_df_full(ps, expand_sym_w(ps, W), xh, xl)
     _, _, n0, n1, n2, P = _check("apply_w_df_sym", ps, xh, (W, xh, xl), torch.float32)
-    if W.shape != (len(half_slots(ps)), 3, 3, n0, n1, n2, P):
+    tabs = stencil_tables(ps)
+    if W.shape != (len(tabs.kept), 3, 3, n0, n1, n2, P):
         raise ValueError(f"apply_w_df_sym: W shape {tuple(W.shape)} does not match x")
-    stencil = _stencil_key(ps)
-    tab = _slot_table(stencil, tuple(half_slots(ps)), xh.device)
     yh = torch.empty_like(xh)
     yl = torch.empty_like(xh)
     _launch(
         "apply_w_df_sym", "apply_w_df_sym_f32",
         W.data_ptr(), xh.data_ptr(), xl.data_ptr(), yh.data_ptr(), yl.data_ptr(),
-        tab.data_ptr(), len(stencil), n0, n1, n2, P, device=xh.device,
+        tabs.on_device("sym", xh.device).data_ptr(), tabs.n_slots, n0, n1, n2, P, device=xh.device,
     )
     return yh, yl
 
 
-def _full(name, fn, ps, W, x, tab):
-    """Launch K5 or K5^T: one field of C = 3 or C = 1 components, full
-    slot-major f32 W.  The scalar form counts as name + "/c1"."""
-    _, C, n0, n1, n2, P = _check(name, ps, x, (W, x), torch.float32, comps=(1, 3))
-    if W.shape != (len(ps.stencil), C, C, n0, n1, n2, P):
+def _full(name, kind, ps, W, x):
+    """Launch K5 (kind "full") or K5^T ("full_t") on one field of C = 3 or
+    C = 1 components, full slot-major f32 W.  The scalar form has a kernel
+    of its own and counts as name + "/c1"."""
+    scalar = x.dim() == 5 and x.shape[0] == 1
+    _, C, n0, n1, n2, P = _check(
+        name, ps, x, (W, x), torch.float32, comps=(1, 3), max_sites=MAX_SITES if scalar else None
+    )
+    tabs = stencil_tables(ps)
+    if W.shape != (tabs.n_slots, C, C, n0, n1, n2, P):
         raise ValueError(f"{name}: W shape {tuple(W.shape)} does not match x")
     y = torch.empty_like(x)
-    _launch(
-        name if C == 3 else name + "/c1", fn, W.data_ptr(), x.data_ptr(), y.data_ptr(),
-        tab.data_ptr(), len(ps.stencil), n0, n1, n2, P, C, device=x.device,
-    )
+    if C == 1:
+        _launch(
+            name + "/c1", "apply_w_scalar_f32", W.data_ptr(), x.data_ptr(), y.data_ptr(),
+            tabs.packed(kind), n0, n1, n2, P, SCALAR_THREADS, device=x.device,
+        )
+    else:
+        _launch(
+            name, "apply_w_slots_f32", W.data_ptr(), x.data_ptr(), y.data_ptr(),
+            tabs.on_device(kind, x.device).data_ptr(), tabs.n_slots, n0, n1, n2, P, device=x.device,
+        )
     return y
 
 
@@ -369,17 +490,14 @@ def apply_w_full(ps, W, x):
     stencil and the pressure-Laplacian V-cycle)."""
     if x.device.type == "cpu":
         return _apply_w_full(ps, W, x)
-    stencil = _stencil_key(ps)
-    tab = _slot_table(stencil, tuple(range(len(stencil))), x.device)
-    return _full("apply_w_full", "apply_w_full_f32", ps, W, x, tab)
+    return _full("apply_w_full", "full", ps, W, x)
 
 
 def apply_w_full_t(ps, W, x):
     """K5^T: y = A^T x for the same W, a gather of shifted transposes."""
     if x.device.type == "cpu":
         return _apply_w_full_t(ps, W, x)
-    tab = _transpose_table(_stencil_key(ps), x.device)
-    return _full("apply_w_full_t", "apply_w_full_t_f32", ps, W, x, tab)
+    return _full("apply_w_full_t", "full_t", ps, W, x)
 
 
 class ApplyWFull(torch.autograd.Function):

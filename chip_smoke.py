@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only    (phases 1-3, then stop)
 
 Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
   1. device: the card's name and power limit;
@@ -9,15 +10,20 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
   3. kernels: each kernel against its plain PyTorch twin at the refs=4
      fine shape (17^3 x 224), at the NS V-cycle's refs=2 fine shape
      (9^3 x 224) and at a small shape with boundary pencils (3^3 x 5),
-     random W with a Dirichlet mask, the lane forms (K1 on a lane axis,
-     K3) with B = 5 lanes; K5 and K5^T with C = 3 and with C = 1 (the
-     scalar pressure operators of the PCD Schur block) at those shapes and
-     at the refs=2 pressure lattice (5^3 x 224); errors, median device
-     times (L2 emptied before each launch), the time of one call made on
-     an idle card, each kernel's bound (bytes over 3.35 TB/s or flops over
-     the published peak, whichever is larger), for K3 the time of five K2
-     launches on the same lanes, for K5 and K5^T the adjointness
-     <A x, y> = <x, A^T y> on the card;
+     random W with a Dirichlet mask, K3 with B = 5 lanes, K1 on a lane axis
+     with B = 2, 5 and 8 (each lane also bitwise equal to K1 on that
+     field); K5 and K5^T with C = 3 and with C = 1 (the scalar pressure
+     operators of the PCD Schur block) at those shapes, at the refs=2
+     pressure lattices (5^3 and 3^3 x 224) and at a P that is no multiple
+     of 4 (5^3 x 222); errors, median device times (L2 emptied before each
+     launch), the time of one call made on an idle card, each kernel's
+     bound (bytes over 3.35 TB/s or flops over the published peak,
+     whichever is larger) and the launch floor (the device time of an empty
+     kernel), for K3 the time of five K2 launches on the same lanes, for K5
+     and K5^T the adjointness <A x, y> = <x, A^T y> on the card, for the
+     scalar kernel and K1's lane kernel the same result with 1e30 in every
+     W entry whose neighbour lies outside the lattice, and the scalar
+     kernel's time at block sizes 64, 128 and 256;
   4. slice: xupdate_solve.build(4) + solve on the GPU (2,843,910 DoF), its
      convergence to a true relative residual <= 1e-8 (evaluated once in
      f64 with the plain apply), the kernel launch counts of that run;
@@ -53,6 +59,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import multiprocessing
+import re
 import statistics
 import subprocess
 import sys
@@ -76,9 +83,14 @@ PALLAS = "admm_optim_tpu/ops/pallas_stencil.py"
 FINE_SHAPE = ((17, 17, 17), 224)  # refs=4 fine lattice, P
 NS_SHAPE = ((9, 9, 9), 224)  # refs=2 fine lattice of the NS velocity V-cycle
 PCD_SHAPE = ((5, 5, 5), 224)  # refs=2 pressure lattice: the PCD Schur block's fine level
+PCD_COARSE_SHAPE = ((3, 3, 3), 224)  # its coarse level
+ODD_P_SHAPE = ((5, 5, 5), 222)  # P % 4 != 0: the scalar kernel's scalar-width form
 SMALL_SHAPE = ((3, 3, 3), 5)
 REPS = 20
 LANES = 5  # 1 + m lanes of the 3D x-update
+LANE_COUNTS = (2, LANES, 8)  # K1's lane kernel is checked at these
+SCALAR_BLOCKS = (64, 128, 256)  # block sizes the scalar kernel is timed at
+POISON = 1e30  # put into W where no apply may read it
 # published H100 SXM rates (NVIDIA data sheet): HBM3 bandwidth, and the
 # float32 and float64 rates outside the tensor cores, for the bounds
 H100_SXM_GBPS = 3350.0
@@ -93,12 +105,14 @@ NS_ADJOINT_BUDGET = 200  # adjoint iterations of the mass-block phase (the PCD p
 # the kernels each path must launch, and the TPU kernel each replaces
 PATHS = {
     "solve": ("apply_w_sym", "apply_w_pencil", "apply_w_df_sym"),
-    "admm": ("apply_w_sym", "apply_w_pencil_batched"),
+    "admm": ("apply_w_sym/lanes", "apply_w_pencil_batched"),
     "ns": ("apply_w_full", "apply_w_full_t"),
     "pcd": ("apply_w_full", "apply_w_full_t", "apply_w_full/c1", "apply_w_full_t/c1"),
 }
 REPLACES = {
     "apply_w_sym": f"{PALLAS}:213",
+    # what jax.vmap makes of the same kernel (admm_optim_tpu/optim/spaces.py:269-296)
+    "apply_w_sym/lanes": f"{PALLAS}:213 (its jax.vmap over the lanes of the x-update)",
     "apply_w_pencil": f"{PALLAS}:370",
     "apply_w_pencil_batched": f"{PALLAS}:337",
     "apply_w_df_sym": f"{PALLAS}:588",
@@ -175,6 +189,30 @@ def _median_ms(fn, reps, before):
     return statistics.median(times)
 
 
+def ptxas_report(nvcc_log):
+    """(kernel<template argument>, registers and spills) per entry function
+    of nvcc's -Xptxas -v output."""
+    out, kernel, spills = [], None, ""
+    for line in nvcc_log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+((?:apply_w|empty)\w*?_kernel)(?:I(?:Li(\d+)|(f)|\d+(float4))E)?", line)
+        if m:
+            arg = m.group(2) or m.group(4) or ("float" if m.group(3) else None)
+            kernel = m.group(1) + (f"<{arg}>" if arg else "")
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and kernel:
+            out.append((kernel, f"{line.split(':', 1)[1].strip()}; {spills}"))
+            kernel = None
+    return out
+
+
+def warm_ms(fn, reps=REPS):
+    """median_ms with the L2 left as it is: each timed run follows a spin
+    of ~0.2 ms that touches no memory, so the host is still ahead of the
+    card and fn finds in L2 what its last run left there."""
+    return _median_ms(fn, reps, lambda: torch.cuda._sleep(300_000))
+
+
 def stencil_patchset():
     """A small 3D channel patchset: the kernels need only its 15-slot
     Kuhn stencil, which every channel_3d hierarchy shares."""
@@ -202,7 +240,10 @@ def kernel_phase(ps, shape, seed, timed, full_only=False, device="cuda"):
     of max_abs_err, rel_err, ms (device), call_ms (one call to an idle
     card), plain_ms, extra_ms, bound_ms, bound_by, and per C the
     adjointness of K5/K5^T.  Flops count 2 per multiply-add of
-    the full 15-slot stencil, per lane."""
+    the full 15-slot stencil, per lane.  The scalar kernel and K1's lane
+    kernel must also give the same result with POISON in the W entries no
+    apply may read, and each lane of the lane kernel must equal K1 on that
+    lane's field bit for bit."""
     lat, P = shape
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -245,6 +286,19 @@ def kernel_phase(ps, shape, seed, timed, full_only=False, device="cuda"):
         a = float(torch.sum(y.double() * yt.double()))
         b = float(torch.sum(xf.double() * z.double()))
         out["adjointness" + sfx] = abs(a - b) / max(abs(a), abs(b))
+        if C == 1:
+            Wp = sk.fill_unused_w(ps, Wf, POISON)
+            check(torch.equal(sk.apply_w_full(ps, Wp, xf), y) and torch.equal(sk.apply_w_full_t(ps, Wp, yt), z),
+                  f"scalar K5 and K5^T at {lat} x {P} read no W entry whose neighbour lies outside the lattice")
+            if timed:
+                out["apply_w_full/c1"]["warm_ms"] = warm_ms(lambda: sk.apply_w_full(ps, Wf, xf))
+                out["apply_w_full_t/c1"]["warm_ms"] = warm_ms(lambda: sk.apply_w_full_t(ps, Wf, yt))
+                threads = sk.SCALAR_THREADS
+                for n in SCALAR_BLOCKS:
+                    sk.SCALAR_THREADS = n
+                    out["apply_w_full/c1"][f"ms_block_{n}"] = median_ms(lambda: sk.apply_w_full(ps, Wf, xf))
+                    out["apply_w_full_t/c1"][f"ms_block_{n}"] = median_ms(lambda: sk.apply_w_full_t(ps, Wf, yt))
+                sk.SCALAR_THREADS = threads
 
     full(3)
     full(1)
@@ -273,12 +327,21 @@ def kernel_phase(ps, shape, seed, timed, full_only=False, device="cuda"):
         lambda: sk.apply_w_pencil(ps, W_pc, xh), lambda: sk._apply_w_pencil(ps, W_pc, xh),
         nbytes(W_pc, xh, y), flops,
     )
-    y = sk.apply_w_sym(ps, W, xb)
-    record(
-        "apply_w_sym/lanes", y, sk._lanes(sk._apply_w_sym, ps, W, xb),
-        lambda: sk.apply_w_sym(ps, W, xb), lambda: sk._lanes(sk._apply_w_sym, ps, W, xb),
-        nbytes(W, xb, y), LANES * flops,
-    )
+    # K1's lane kernel: against the twin, bit for bit against K1 on each
+    # lane's field, and with POISON where it may not read
+    Wp = sk.fill_unused_w(ps, W, POISON)
+    for B in LANE_COUNTS:
+        xB = xb if B == LANES else torch.randn((B, 3) + lat + (P,), generator=g, device=dev) * free
+        y = sk.apply_w_sym(ps, W, xB)
+        record(
+            "apply_w_sym/lanes" + ("" if B == LANES else f" B={B}"), y, sk._lanes(sk._apply_w_sym, ps, W, xB),
+            lambda: sk.apply_w_sym(ps, W, xB), lambda: sk._lanes(sk._apply_w_sym, ps, W, xB),
+            nbytes(W, xB, y), B * flops,
+        )
+        check(all(torch.equal(y[b], sk.apply_w_sym(ps, W, xB[b])) for b in range(B)),
+              f"K1 on {B} lanes at {lat} x {P} equals K1 on each lane's field bit for bit")
+        check(torch.equal(sk.apply_w_sym(ps, Wp, xB), y),
+              f"K1 on {B} lanes at {lat} x {P} reads no W entry whose neighbour lies outside the lattice")
     # K3 against its twin, and against LANES launches of K2 (extra_ms)
     y = sk.apply_w_pencil_batched(ps, W_pc, xb)
     record(
@@ -300,12 +363,15 @@ def kernel_phase(ps, shape, seed, timed, full_only=False, device="cuda"):
 
 
 def read_launches(path):
-    """Launch counts of one path's run (counts were reset just before it);
-    each kernel the path runs must have launched."""
+    """Launch counts of one path's run (counts were reset just before it),
+    of the kernels that launched; each kernel of the path must have."""
     torch.cuda.synchronize()
-    counts = {name: sk.launches[name] for name in PATHS[path]}
-    for name, n in counts.items():
-        check(n > 0, f"{name} launched by the {path} path")
+    return required_launched(path, {name: n for name, n in sk.launches.items() if n})
+
+
+def required_launched(path, counts):
+    for name in PATHS[path]:
+        check(counts.get(name, 0) > 0, f"{name} launched by the {path} path")
     return counts
 
 
@@ -325,7 +391,7 @@ def true_rel_residual(ctx, b, res):
 
 def device_ms(prof):
     """(device ms of all kernels, of apply_w_slots_kernel<3> (K5/K5^T at
-    C = 3), of apply_w_slots_kernel<1> (at C = 1), the five kernels with
+    C = 3), of apply_w_scalar_kernel (at C = 1), the five kernels with
     the most device time as (name, ms, count)) in a torch.profiler run, or
     None when the trace holds no device time."""
     from torch.autograd import DeviceType
@@ -339,7 +405,7 @@ def device_ms(prof):
         t = getattr(e, "self_cuda_time_total", 0.0) if t is None else t
         total += t
         by_name.append((e.key[:60], t / 1e3, e.count))
-        if "apply_w_slots_kernel<1>" in e.key:
+        if "apply_w_scalar_kernel" in e.key:
             k5c1 += t
         elif "apply_w_slots_kernel" in e.key:
             k5 += t
@@ -408,10 +474,8 @@ def counted(fn):
 def path_launches(path, by_phase):
     """The launches of one NS path summed over its phases; each kernel of
     the path must have launched."""
-    counts = {name: sum(n[name] for n in by_phase.values()) for name in PATHS[path]}
-    for name, n in counts.items():
-        check(n > 0, f"{name} launched by the {path} path")
-    return counts
+    counts = {name: sum(n[name] for n in by_phase.values()) for name in sk.launches}
+    return required_launched(path, {name: n for name, n in counts.items() if n})
 
 
 def report_rungs(tag, rungs):
@@ -636,7 +700,42 @@ def pcd_small(proc, conn):
     check(ddrag <= DRAG_TOL and djp <= JPRIME_TOL, "refs=1 GPU drag and J' agree with the f64 CPU run")
 
 
-def main():
+def kernel_table(phases, floor_ms, launches):
+    """The entries of the kernels line: per kernel its times at the main
+    path's fine shape (and at 17^3 x 224 where that is another), its bound,
+    the launch floor and its launches per path.  library_ms is null for
+    every kernel: no single PyTorch call computes a per-site variable
+    stencil."""
+    kernels = []
+    for name, replaces in REPLACES.items():
+        shape = JSON_SHAPE[name]
+        t = phases[shape][name]
+        entry = {
+            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": sum(n.get(name, 0) for n in launches.values()),
+            "launches_by_path": {path: n[name] for path, n in launches.items() if name in n},
+            "max_abs_err": t["max_abs_err"], "rel_err": t["rel_err"], "ms": t["ms"], "call_ms": t["call_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "floor_ms": floor_ms, "library_ms": None, "shape": shape,
+        }
+        if name == "apply_w_sym/lanes":
+            entry["lanes"] = LANES
+            for B in LANE_COUNTS:
+                if B != LANES:
+                    ln = phases[shape][f"{name} B={B}"]
+                    entry[f"lanes_{B}"] = {k: ln[k] for k in ("max_abs_err", "ms", "call_ms", "bound_ms")}
+        if name == "apply_w_pencil_batched":
+            entry.update(lanes=LANES, k2_x_lanes_ms=t["extra_ms"])
+        entry.update({k: v for k, v in t.items() if k.startswith("ms_block_") or k == "warm_ms"})
+        if shape != "17^3x224":
+            f = phases["17^3x224"][name]
+            entry.update(ms_17=f["ms"], call_ms_17=f["call_ms"], plain_ms_17=f["plain_ms"],
+                         bound_ms_17=f["bound_ms"], max_abs_err_17=f["max_abs_err"])
+        kernels.append(entry)
+    return kernels
+
+
+def main(kernels_only=False):
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU")
@@ -644,6 +743,9 @@ def main():
     smi = nvidia_smi()
     log(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
+    if kernels_only:
+        run_phases(kind, None, None, kernels_only)
+        return
     # the float64 CPU reference of phase 8 takes minutes: it runs in a child
     # process (two threads) beside the GPU phases, which keep one core busy
     mp = multiprocessing.get_context("spawn")
@@ -651,51 +753,60 @@ def main():
     proc = mp.Process(target=cpu_ladder_reference, args=(child_conn,), daemon=True)
     proc.start()
     try:
-        run_phases(kind, proc, conn)
+        run_phases(kind, proc, conn, kernels_only)
     finally:
         proc.kill()
         proc.join()
 
 
-def run_phases(kind, proc, conn):
+def run_phases(kind, proc, conn, kernels_only=False):
 
     # 2. build
     t0 = time.perf_counter()
     nvcc_s, nvcc_log = _build.build()
     _build.lib()
     log(f"[build] {SOURCE} -> {_build.LIBRARY.name}: nvcc {nvcc_s:.2f} s, total {time.perf_counter() - t0:.2f} s")
-    for line in nvcc_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    for kernel, used in ptxas_report(nvcc_log):
+        log(f"[build] {kernel}: {used}")
 
-    # 3. kernels vs twins
+    # 3. kernels vs twins; the limits are relative to max |y|: float32 sums
+    # of 15 or 45 products in another order than the twin's (~1e-7), and
+    # K4's f64 sums against a float64 apply
     ps_k = stencil_patchset()
-    limits = {
-        "apply_w_sym": 1e-5, "apply_w_sym/lanes": 1e-5, "apply_w_pencil": 1e-5,
-        "apply_w_pencil_batched": 1e-5, "apply_w_df_sym": 1e-13,
-        "apply_w_full": 1e-5, "apply_w_full_t": 1e-5, "apply_w_full/c1": 1e-5, "apply_w_full_t/c1": 1e-5,
-        "adjointness": 1e-5,
-    }
     phases = {
         "17^3x224": kernel_phase(ps_k, FINE_SHAPE, seed=1, timed=True),
         "9^3x224": kernel_phase(ps_k, NS_SHAPE, seed=3, timed=True),
         "5^3x224": kernel_phase(ps_k, PCD_SHAPE, seed=4, timed=True, full_only=True),
+        "3^3x224": kernel_phase(ps_k, PCD_COARSE_SHAPE, seed=5, timed=True, full_only=True),
+        "5^3x222": kernel_phase(ps_k, ODD_P_SHAPE, seed=6, timed=False, full_only=True),
         "3^3x5": kernel_phase(ps_k, SMALL_SHAPE, seed=2, timed=False),
     }
+    floor_ms = median_ms(lambda: sk.launch_empty("cuda"))
     _flush.clear()
+    log(f"[kernel] launch floor: an empty kernel takes {floor_ms:.4f} ms of device time (the same median, L2 emptied; "
+        f"{warm_ms(lambda: sk.launch_empty('cuda')):.4f} ms with L2 left warm)")
     for label, res in phases.items():
         for sfx, C in (("", 3), ("/c1", 1)):
             adj = res.pop("adjointness" + sfx)
             log(f"[kernel] K5/K5^T adjointness C = {C} {label:9s} |<Ax,y> - <x,A^T y>| / max {adj:.3e} (limit 1e-5)")
-            check(adj <= limits["adjointness"], f"K5/K5^T adjointness at C = {C}, {label}: {adj:.3e}")
+            check(adj <= 1e-5, f"K5/K5^T adjointness at C = {C}, {label}: {adj:.3e}")
         for name, t in res.items():
+            limit = 1e-13 if name == "apply_w_df_sym" else 1e-5
             log(
                 f"[kernel] {name:22s} {label:9s} max_abs_err {t['max_abs_err']:.3e} rel {t['rel_err']:.3e} "
-                f"(limit {limits[name]:.0e}) kernel {t['ms']:.4f} ms (one call to an idle card "
-                f"{t['call_ms']:.4f} ms) twin {t['plain_ms']:.4f} ms bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+                f"(limit {limit:.0e}) kernel {t['ms']:.4f} ms (one call to an idle card "
+                f"{t['call_ms']:.4f} ms) twin {t['plain_ms']:.4f} ms bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
+                f"floor {floor_ms:.4f} ms"
                 + (f" {LANES} x K2 {t['extra_ms']:.4f} ms" if name == "apply_w_pencil_batched" else "")
+                + (f" L2 warm {t['warm_ms']:.4f} ms" if "warm_ms" in t else "")
+                + "".join(f" block {n}: {t[f'ms_block_{n}']:.4f} ms" for n in SCALAR_BLOCKS if f"ms_block_{n}" in t)
             )
-            check(t["rel_err"] <= limits[name], f"{name} at {label}: rel err {t['rel_err']:.3e} > {limits[name]:.0e}")
+            check(t["rel_err"] <= limit, f"{name} at {label}: rel err {t['rel_err']:.3e} > {limit:.0e}")
+    if kernels_only:
+        print(json.dumps({"kernels": kernel_table(phases, floor_ms, {})}))
+        print(nvidia_smi())
+        log("[kernel] --kernels-only: the paths were not driven, so this run proves nothing about them")
+        return
 
     # 4. the solve path: build + solve at refs=4; counts from 0
     launches = {}
@@ -814,32 +925,7 @@ def run_phases(kind, proc, conn):
         f"{mj_ms:.3f} ms, with that process {'running' if beside else 'already ended'}")
     del mj_again
 
-    # library_ms is null for every kernel: no single PyTorch call computes a
-    # per-site variable stencil
-    kernels = []
-    for name, replaces in REPLACES.items():
-        shape = JSON_SHAPE[name]
-        t = phases[shape][name]
-        entry = {
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": sum(n.get(name, 0) for n in launches.values()),
-            "launches_by_path": {path: n[name] for path, n in launches.items() if name in n},
-            "max_abs_err": t["max_abs_err"], "rel_err": t["rel_err"], "ms": t["ms"], "call_ms": t["call_ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "shape": shape,
-        }
-        if name == "apply_w_sym":
-            ln = phases[shape]["apply_w_sym/lanes"]
-            entry.update(lanes=LANES, lanes_max_abs_err=ln["max_abs_err"], lanes_ms=ln["ms"],
-                         lanes_call_ms=ln["call_ms"], lanes_plain_ms=ln["plain_ms"], lanes_bound_ms=ln["bound_ms"])
-        if name == "apply_w_pencil_batched":
-            entry.update(lanes=LANES, k2_x_lanes_ms=t["extra_ms"])
-        if shape != "17^3x224":
-            f = phases["17^3x224"][name]
-            entry.update(ms_17=f["ms"], call_ms_17=f["call_ms"], plain_ms_17=f["plain_ms"],
-                         bound_ms_17=f["bound_ms"], max_abs_err_17=f["max_abs_err"])
-        kernels.append(entry)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_table(phases, floor_ms, launches)}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -847,4 +933,6 @@ def run_phases(kind, proc, conn):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] not in ([], ["--kernels-only"]):
+        raise SystemExit(__doc__)
+    main(kernels_only=bool(sys.argv[1:]))

@@ -86,7 +86,7 @@ def test_k2_twin_matches_interpret_pallas_pencil_bf16(problem):
     assert torch.equal(sk.apply_w_pencil(tps, Wpc_t, torch.from_numpy(x)), y_twin)
     assert torch.equal(st.apply_w(tps, st.PencilW(Wpc_t), torch.from_numpy(x)), y_twin)
     assert set(sk.launches) == {
-        "apply_w_sym", "apply_w_pencil", "apply_w_pencil_batched", "apply_w_df_sym",
+        "apply_w_sym", "apply_w_sym/lanes", "apply_w_pencil", "apply_w_pencil_batched", "apply_w_df_sym",
         "apply_w_full", "apply_w_full_t", "apply_w_full/c1", "apply_w_full_t/c1",
     }
     assert sum(sk.launches.values()) == 0
@@ -433,3 +433,164 @@ def test_component_counts_the_wrappers_take(problem):
     for call in scalar_calls:
         with pytest.raises(ValueError, match="C = 3, got .*scalar fields only to the full-stencil apply"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# the scalar kernel and K1's lane kernel: by-value tables, refusals, the
+# twins at a P that is no multiple of 4, and the W entries no apply reads
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["sym", "full", "full_t"])
+def test_by_value_tables_equal_the_device_tables(problem, kind):
+    """The 15 x 4 C ints packed for the kernels that take their slot table
+    by value equal, row for row, the tensors the other kernels read
+    (_slot_table, _transpose_table); both are made once per patchset."""
+    _, tps, _ = problem
+    stencil = _stencil(tps)
+    assert len(stencil) == sk.BY_VALUE_SLOTS == 15
+    tabs = sk.stencil_tables(tps)
+    assert sk.stencil_tables(tps) is tabs and tabs.stencil == stencil
+    assert tabs.kept == tuple(st.half_slots(tps)) and tabs.n_slots == 15
+    if kind == "full_t":
+        want = sk._transpose_table(stencil, torch.device("cpu"))
+    else:
+        kept = tabs.kept if kind == "sym" else tuple(range(15))
+        want = sk._slot_table(stencil, kept, torch.device("cpu"))
+    packed = tabs.packed(kind)
+    assert tabs.packed(kind) is packed and len(packed) == 60
+    np.testing.assert_array_equal(np.array(list(packed)).reshape(15, 4), want.numpy())
+    assert tabs.on_device(kind, torch.device("cpu")) is want
+    assert tabs.rows(kind) == want.tolist()
+
+
+def test_by_value_table_refuses_another_slot_count():
+    """A 2D patchset's 7-slot stencil does not fit the 15-slot by-value
+    table (the kernels are 3D only; _check refuses 2D before)."""
+    l0 = geomgen.channel_2d(n_side=(3, 1), diag="fixed")
+    ps2 = build_patchset(Hierarchy([l0, refine(l0)]))
+    with pytest.raises(ValueError, match="by-value table holds 15 slots"):
+        sk.stencil_tables(ps2).packed("full")
+
+
+@pytest.mark.parametrize("case", ["no lanes", "nine lanes", "strided field", "strided W", "2^31 sites on lanes",
+                                  "2^31 sites on a scalar field", "2^31 sites on the scalar transpose"])
+def test_new_kernels_refusals_on_meta_tensors(problem, case):
+    """What the wrappers of K1's lane kernel and of the scalar kernel
+    refuse, on meta tensors (no memory behind them): a lane axis of 0 or 9
+    lanes, a field or W that is not contiguous, and a lattice of 2^31 sites
+    or more, which the kernels' 32-bit site indices cannot hold.  Each is
+    refused for that reason, ahead of the refusal of the meta device."""
+    _, tps, _ = problem
+    lat, P = tps.fine.lat_shape, tps.P
+    H, O = len(st.half_slots(tps)), len(tps.stencil)
+    meta = dict(device="meta")
+    big = (2, 1024, 1024, 1024)  # 2^31 sites
+    if case == "no lanes":
+        call = lambda: sk.apply_w_sym(tps, torch.empty((H, 3, 3) + lat + (P,), **meta),  # noqa: E731
+                                      torch.empty((0, 3) + lat + (P,), **meta))
+        match = "1 to 8 lanes, got 0"
+    elif case == "nine lanes":
+        call = lambda: sk.apply_w_sym(tps, torch.empty((H, 3, 3) + lat + (P,), **meta),  # noqa: E731
+                                      torch.empty((9, 3) + lat + (P,), **meta))
+        match = "1 to 8 lanes, got 9"
+    elif case == "strided field":
+        x = torch.empty((5, 3) + lat + (2 * P,), **meta)[..., ::2]
+        call = lambda: sk.apply_w_sym(tps, torch.empty((H, 3, 3) + lat + (P,), **meta), x)  # noqa: E731
+        match = "must be contiguous"
+    elif case == "strided W":
+        W = torch.empty((O, 1, 1) + lat + (2 * P,), **meta)[..., ::2]
+        call = lambda: sk.apply_w_full(tps, W, torch.empty((1,) + lat + (P,), **meta))  # noqa: E731
+        match = "must be contiguous"
+    elif case == "2^31 sites on lanes":
+        call = lambda: sk.apply_w_sym(tps, torch.empty((H, 3, 3) + big, **meta),  # noqa: E731
+                                      torch.empty((2, 3) + big, **meta))
+        match = "indexes lattice sites in 32 bits"
+    else:
+        fn = sk.apply_w_full if case.endswith("field") else sk.apply_w_full_t
+        call = lambda: fn(tps, torch.empty((O, 1, 1) + big, **meta), torch.empty((1,) + big, **meta))  # noqa: E731
+        match = "indexes lattice sites in 32 bits"
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def test_kernels_with_64_bit_indices_take_2_31_sites(problem):
+    """One field on K1 and C = 3 on K5 keep their 64-bit kernel: 2^31 sites
+    pass every check and are refused only for the meta device."""
+    _, tps, _ = problem
+    H, O = len(st.half_slots(tps)), len(tps.stencil)
+    big = (2, 1024, 1024, 1024)
+    for W, x, fn in (
+        (torch.empty((H, 3, 3) + big, device="meta"), torch.empty((1, 3) + big, device="meta"), sk.apply_w_sym),
+        (torch.empty((O, 3, 3) + big, device="meta"), torch.empty((3,) + big, device="meta"), sk.apply_w_full),
+    ):
+        with pytest.raises(ValueError, match="must be on the CPU or a CUDA device"):
+            fn(tps, W, x)
+
+
+@pytest.mark.parametrize("lanes", [2, 5, 8])
+def test_k1_lane_twin_is_the_single_field_twin_per_lane(problem, lanes):
+    """The lane form on CPU tensors equals the single-field twin on each
+    lane's field bit for bit (what chip_smoke.py holds the lane kernel to
+    against K1 on the card), and jax.vmap of the JAX symmetric apply within
+    1e-6 of max |y| in float32 (another summation order)."""
+    jps, tps, W = problem
+    xb = np.random.default_rng(30 + lanes).normal(size=(lanes, 3) + tps.fine.lat_shape + (tps.P,)).astype(np.float32)
+    Wt = torch.from_numpy(W)
+    y = sk.apply_w_sym(tps, Wt, torch.from_numpy(xb))
+    assert y.shape == xb.shape and y.dtype == torch.float32
+    for b in range(lanes):
+        assert torch.equal(y[b], sk._apply_w_sym(tps, Wt, torch.from_numpy(xb[b])))
+    y_j = jax.vmap(lambda x: jst._apply_w_sym(jps, jnp.asarray(W), x))(jnp.asarray(xb))
+    assert _rel(y, y_j) < 1e-6
+
+
+ODD_P_SHAPE = ((5, 5, 5), 6)  # P % 4 != 0: the scalar kernel's scalar-width form
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_k5_scalar_twins_float32_at_a_p_that_is_no_multiple_of_4(problem, transposed):
+    """The scalar twins in float32 at P = 6 against the JAX package: K5's
+    against the full-stencil Pallas kernel in interpret mode, K5^T's against
+    the jax.vjp of the JAX apply; within 1e-6 of max |y| (15 float32
+    products summed in another order)."""
+    jps, tps, _ = problem
+    W, x, y = (a.astype(np.float32) for a in _k5_scalar_inputs(tps, ODD_P_SHAPE, 31))
+    Wt = torch.from_numpy(W)
+    if transposed:
+        _, vjp = jax.vjp(lambda v: jst.apply_w(jps, jnp.asarray(W), v), jnp.asarray(x))
+        got, want = sk.apply_w_full_t(tps, Wt, torch.from_numpy(y)), vjp(jnp.asarray(y))[0]
+    else:
+        want = pst._apply_w_pallas_3d.__wrapped__(
+            _stencil(jps), pst._SLOT_CHUNK, jnp.asarray(W), jnp.asarray(x), interpret=True
+        )
+        got = sk.apply_w_full(tps, Wt, torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert _rel(got, want) < 1e-6
+
+
+@pytest.mark.parametrize("form", ["scalar K5", "scalar K5^T", "K5", "K5^T", "K1", "K1 on lanes"])
+def test_w_entries_beyond_the_lattice_edge_are_never_used(problem, form):
+    """Every W entry whose neighbour lies outside the lattice filled with
+    1e30: no twin's result changes by a bit.  The kernels clamp the
+    addresses of such neighbours to the site and drop the weight;
+    chip_smoke.py holds them to the same on the card."""
+    _, tps, W_sym = problem
+    lat, P = (5, 5, 5), 6
+    rng = np.random.default_rng(32)
+    if form.startswith("K1"):
+        W = torch.from_numpy(W_sym)
+        lanes = (5,) if form.endswith("lanes") else ()
+        x = torch.from_numpy(rng.normal(size=lanes + (3,) + tps.fine.lat_shape + (tps.P,)).astype(np.float32))
+        fn = sk.apply_w_sym
+    else:
+        C = 1 if form.startswith("scalar") else 3
+        W = torch.from_numpy(rng.normal(size=(len(tps.stencil), C, C) + lat + (P,)).astype(np.float32))
+        x = torch.from_numpy(rng.normal(size=(C,) + lat + (P,)).astype(np.float32))
+        fn = sk.apply_w_full_t if form.endswith("^T") else sk.apply_w_full
+    Wp = sk.fill_unused_w(tps, W, 1e30)
+    changed = int((Wp != W).sum())
+    assert changed > 0 and float(Wp.max()) > 9e29
+    # the center slot has no neighbour outside; an offset of +1 along one
+    # axis loses that axis' last plane
+    assert torch.equal(Wp[0], W[0])
+    assert torch.equal(fn(tps, Wp, x), fn(tps, W, x))
