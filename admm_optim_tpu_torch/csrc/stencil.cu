@@ -11,7 +11,8 @@
 // consistent by the exchange that follows.
 //
 // Every kernel runs one thread per lattice site (i, j, k, p), or per four
-// consecutive p in the scalar kernel, with p the fastest thread index, so
+// consecutive p in the kernels that load float4, with p the fastest thread
+// index, so
 // each W and x load of a warp is one contiguous run along the patch axis.
 // All of them are bound by device-memory bandwidth: ~1 flop per byte of
 // W, and W is 90% of the bytes.  A neighbour outside the lattice
@@ -20,16 +21,17 @@
 // (the Pallas kernels read edge-clamped W blocks and rely on the zero halo
 // instead).
 //
-// The slot table `stab` (n_slots x 4 int32, built by
-// stencil_kernels._slot_table / _transpose_table) gives per table row an
-// offset (o0, o1, o2) and a code: h >= 0 reads stored slot h at the site
-// itself; -1 - h reads the transpose of stored slot h at the neighbour
-// s + o.  K1's table mixes both (operator symmetry: A[s, s+o] =
-// W[h](s+o)^T for o = -offset(h)); K5's table reads every slot directly,
-// and K5^T's table reads every slot transposed at the opposite offset.
-//
-// The scalar full-stencil kernel and K1's lane kernel take their table by
-// value instead (SlotTable, the same rows, in the kernel's parameters).
+// The slot table (n_slots x 4 int32, built by stencil_kernels._slot_table
+// / _transpose_table) gives per table row an offset (o0, o1, o2) and a
+// code: h >= 0 reads stored slot h at the site itself; -1 - h reads the
+// transpose of stored slot h at the neighbour s + o.  K1's table mixes
+// both (operator symmetry: A[s, s+o] = W[h](s+o)^T for o = -offset(h));
+// K5's table reads every slot directly, and K5^T's table reads every slot
+// transposed at the opposite offset: K5^T is a gather (no atomics), and
+// each W element is still read once per launch, from the site that stores
+// it, by the thread of the site it acts on.  K2, K3 and K4 read the table
+// (`stab`) from device memory; K1, K5 and K5^T take it by value
+// (SlotTable, the same rows, in the kernel's parameters).
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -65,76 +67,6 @@ __device__ __forceinline__ long long neighbour(const Site& s, const int* e,
   return ((static_cast<long long>(ii) * n1 + jj) * n2 + kk) * P + s.p;
 }
 
-// One thread per site applies every row of the slot table: a direct
-// read W[h](s) x[s+o] or a transposed one W[h](s+o)^T x[s+o].
-//
-// K1, replaces pallas_stencil.py _kernel_sym / _apply_w_pallas_3d_sym
-// (:140-277): symmetric half storage, the 8 stored slots read once at the
-// site and the 7 missing ones as transposes at the neighbour (same 15
-// block reads per site as the Pallas kernel, from half the stored bytes).
-// A lane axis (what jax.vmap makes of the Pallas call) goes to
-// apply_w_sym_lanes_kernel below; this kernel is launched with lanes = 1.
-//
-// K5, replaces pallas_stencil.py _kernel / _apply_w_pallas_3d (:59-137):
-// full slot-major W (15, C, C, n0, n1, n2, P) of a nonsymmetric operator,
-// y[s] = sum_o W[o](s) x[s+o], every row direct.
-//
-// K5^T, the exact transpose of K5, y[t] = sum_o W[o](t-o)^T x[t-o]: a
-// gather (no atomics), every row transposed at offset -o.  It replaces the
-// jax.vjp of K5 that ns_solver.transpose_M takes through the NS velocity
-// V-cycle.  Each W element is still read once per launch, from the site
-// that stores it, by the thread of the site it acts on.
-//
-// K5 and K5^T stream twice K1's W bytes (all 15 slots stored: 88 MB at
-// the NS V-cycle's 9^3 x 224 fine level, 594 MB at 17^3 x 224) for the
-// same flops, so they are bound by device memory like K1; the warp's W
-// and x loads stay contiguous along the patch axis in both directions.
-//
-// The kernel is templated on the component count C and instantiated for
-// C = 3: K1, K5 and K5^T on vector fields.  Scalar fields (C = 1) have a
-// kernel of their own, apply_w_scalar_kernel below.
-template <int C>
-__global__ void apply_w_slots_kernel(const float* __restrict__ W,
-                                   const float* __restrict__ x,
-                                   float* __restrict__ y,
-                                   const int* __restrict__ stab, int n_slots,
-                                   int n0, int n1, int n2, int P, int lanes) {
-  const long long sp = static_cast<long long>(n0) * n1 * n2 * P;
-  const long long t =
-      static_cast<long long>(blockIdx.x / lanes) * blockDim.x + threadIdx.x;
-  if (t >= sp) return;
-  const long long lane_off = static_cast<long long>(blockIdx.x % lanes) * C * sp;
-  x += lane_off;
-  y += lane_off;
-  const Site s = site_of(t, n1, n2, P);
-  float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
-  for (int q = 0; q < n_slots; ++q) {
-    const int* e = stab + 4 * q;
-    const long long nb = neighbour(s, e, n0, n1, n2, P);
-    if (nb < 0) continue;
-    float xv[C];
-#pragma unroll
-    for (int d = 0; d < C; ++d) xv[d] = x[d * sp + nb];
-    if (e[3] >= 0) {
-      const float* w = W + static_cast<long long>(e[3]) * C * C * sp + t;
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-#pragma unroll
-        for (int d = 0; d < C; ++d) acc[c] += w[(c * C + d) * sp] * xv[d];
-    } else {
-      const float* w = W + static_cast<long long>(-1 - e[3]) * C * C * sp + nb;
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-#pragma unroll
-        for (int d = 0; d < C; ++d) acc[c] += w[(d * C + c) * sp] * xv[d];
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < C; ++c) y[c * sp + t] = acc[c];
-}
-
 // The slot table by value: the rows of stencil_kernels._slot_table or
 // _transpose_table for the 15-slot Kuhn stencil, in the kernel's
 // parameters.  The slot loop then has a compile-time length and unrolls,
@@ -145,10 +77,10 @@ struct SlotTable {
   int row[kSlots][4];
 };
 
-// What both kernels below share.  The grid is (blocks along one (i, j)
-// pencil row, n1, n0): a thread knows i and j from its block and its place
-// r along the row of n2 * P sites, which is also its place in memory, so
-// no index is ever divided.  The neighbour at offset (o0, o1, o2) lies
+// What the kernels with a by-value table share.  The grid is (blocks along
+// one (i, j) pencil row, n1, n0): a thread knows i and j from its block and
+// its place r along the row of n2 * P sites, which is also its place in
+// memory, so no index is ever divided.  The neighbour at offset (o0, o1, o2) lies
 // ((o0 * n1 + o1) * n2 + o2) * P sites further on; it is inside the
 // lattice when i + o0 and j + o1 are (the same answer for the whole block)
 // and r + o2 * P stays inside the row.  Site indices are 32-bit: the
@@ -259,9 +191,8 @@ apply_w_scalar_kernel(const V* __restrict__ W, const V* __restrict__ x,
 // B x 3 sums in registers (B is a template parameter so that they stay
 // there).  One launch moves W once plus B x (x + y).  Direct and
 // transposed rows differ only in the two strides of the block, chosen
-// without a branch.  The per-lane sum order is that of
-// apply_w_slots_kernel<3> on K1's table, so each lane equals K1 on that
-// lane's field bit for bit.
+// without a branch.  The per-lane sum order is that of apply_w_c3_kernel
+// on K1's table, so each lane equals K1 on that lane's field bit for bit.
 template <int B>
 __global__ void __launch_bounds__(256)
 apply_w_sym_lanes_kernel(const float* __restrict__ W, const float* __restrict__ x,
@@ -310,6 +241,121 @@ apply_w_sym_lanes_kernel(const float* __restrict__ W, const float* __restrict__ 
   for (int b = 0; b < B; ++b)
 #pragma unroll
     for (int c = 0; c < C; ++c) y[b * lane + c * sp + t] = acc[b][c];
+}
+
+// K1, K5 and K5^T on one field of C = 3 components: K1's table (its half
+// storage), K5's (direct rows) and K5^T's (transposed rows), by value.
+// Replaces pallas_stencil.py _kernel_sym / _apply_w_pallas_3d_sym
+// (:140-277) on one field, _kernel / _apply_w_pallas_3d (:59-137) at
+// C = 3, and the jax.vjp of the latter.
+//
+// K1 reads the 8 stored slots of symmetric half storage at the site and the
+// 7 missing ones as transposes at the neighbour (the same 15 block reads
+// per site as the Pallas kernel, from half the stored bytes); K5 reads
+// full slot-major W (15, 3, 3, n0, n1, n2, P) of a nonsymmetric operator,
+// y[s] = sum_o W[o](s) x[s+o]; K5^T, its exact transpose, y[t] = sum_o
+// W[o](t-o)^T x[t-o].
+//
+// Bound: device memory.  A site reads 15 x 9 W values (8 x 9 stored for
+// K1) and 15 x 3 x values (cached: each x is read by 15 sites) for 135
+// multiply-adds.  The NS velocity V-cycle runs it on 9^3 x 224 (88 MB of
+// K5's W) and on its coarse levels 5^3 and 3^3 x 224 (15 MB, 3.3 MB),
+// where there are too few sites (28,000 and 6,048) to hide a memory round
+// trip behind each slot, as one thread per site with a serial slot loop
+// did.  So every thread keeps its loads in flight itself: V = float4 takes
+// 4 consecutive p (a neighbour has the same p, so direct and transposed
+// reads stay aligned; it needs P % 4 == 0 and 16-byte aligned bases, else
+// V = float), and the 15 slots go in kC3Groups groups of kC3Group slots
+// through a double-buffered stage in shared memory: the 36 cp.async
+// copies of group g + 1 are issued before the sum of group g, so a thread
+// always has one group in flight while it sums the other.  The stage is
+// 2 x 3 x 12 values of V a thread (the 3x3 block of W, then x[0..2], per
+// slot), 72 KB for the block of 64 float4 threads: three blocks an SM.
+// Each thread reads only what it copied, so no barrier is needed.  The
+// per-component sum order is q ascending, d ascending, one multiply-add
+// each: that of apply_w_sym_lanes_kernel, so K1 on lanes equals this
+// kernel on each lane's field bit for bit.
+constexpr int kC3Threads = 64;
+constexpr int kC3Group = 3;  // slots per stage group
+constexpr int kC3Groups = kSlots / kC3Group;
+constexpr int kC3Slot = 12;  // values of V staged per slot
+
+__device__ __forceinline__ void fma_into(float& acc, float w, float x) { acc = fmaf(w, x, acc); }
+__device__ __forceinline__ void fma_into(float4& acc, float4 w, float4 x) {
+  acc.x = fmaf(w.x, x.x, acc.x);
+  acc.y = fmaf(w.y, x.y, acc.y);
+  acc.z = fmaf(w.z, x.z, acc.z);
+  acc.w = fmaf(w.w, x.w, acc.w);
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kC3Threads)
+apply_w_c3_kernel(const V* __restrict__ W, const V* __restrict__ x, V* __restrict__ y,
+                  const SlotTable tab, int n0, int n1, int n2, int P) {  // P in units of V
+  constexpr int C = 3;
+  constexpr int T = kC3Threads;
+  extern __shared__ float4 stage_bytes[];
+  V* stage = reinterpret_cast<V*>(stage_bytes) + threadIdx.x;
+  const int row = n2 * P;
+  const int r = blockIdx.x * T + threadIdx.x;
+  if (r >= row) return;  // no thread waits for another: each reads only its own column
+  const int j = blockIdx.y, i = blockIdx.z;
+  const int t = (i * n1 + j) * row + r;
+  const size_t sp = static_cast<size_t>(n0) * n1 * row;
+  unsigned inside = 0;  // bit q: slot q's neighbour lies inside the lattice
+  // copies of group g's slots into buffer g % 2, committed as one batch
+  auto stage_group = [&](int g) {
+    V* buf = stage + (g % 2) * kC3Group * kC3Slot * T;
+#pragma unroll
+    for (int k = 0; k < kC3Group; ++k) {
+      const int q = g * kC3Group + k;
+      const Neighbour nb = neighbour_of(tab.row[q][0], tab.row[q][1], tab.row[q][2], i, j, r,
+                                        t, n0, n1, row, P);
+      const int code = tab.row[q][3];
+      const bool direct = code >= 0;
+      const V* w = W + static_cast<size_t>(direct ? code : -1 - code) * C * C * sp +
+                   (direct ? t : nb.at);
+      const size_t sc = direct ? C * sp : sp;  // stride of the sum's component c
+      const size_t sd = direct ? sp : C * sp;  // stride of x's component d
+      V* slot = buf + k * kC3Slot * T;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int d = 0; d < C; ++d)
+          __pipeline_memcpy_async(slot + (c * C + d) * T, w + c * sc + d * sd, sizeof(V));
+#pragma unroll
+      for (int d = 0; d < C; ++d)
+        __pipeline_memcpy_async(slot + (C * C + d) * T, x + d * sp + nb.at, sizeof(V));
+      inside |= static_cast<unsigned>(nb.ok) << q;
+    }
+    __pipeline_commit();
+  };
+  V acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = zero_like(V());
+  stage_group(0);
+#pragma unroll
+  for (int g = 0; g < kC3Groups; ++g) {
+    if (g + 1 < kC3Groups) {
+      stage_group(g + 1);
+      __pipeline_wait_prior(1);  // group g has landed, group g + 1 is in flight
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    const V* buf = stage + (g % 2) * kC3Group * kC3Slot * T;
+#pragma unroll
+    for (int k = 0; k < kC3Group; ++k) {
+      const bool ok = (inside >> (g * kC3Group + k)) & 1u;
+      const V* slot = buf + k * kC3Slot * T;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int d = 0; d < C; ++d)
+          fma_into(acc[c], keep_if(ok, slot[(c * C + d) * T]), slot[(C * C + d) * T]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) y[c * sp + t] = acc[c];
 }
 
 // Nothing: its device time is the floor under every one-launch time.
@@ -508,24 +554,50 @@ void launch_scalar(const V* W, const V* x, V* y, const RowGrid& g, int n0, int n
 
 bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 
+// The C = 3 kernel with its stage of 2 x kC3Group x 12 x kC3Threads values
+// of V in dynamic shared memory (72 KB for float4).  Allowed the stage and
+// the largest shared-memory carveout once per V, so that three blocks fit
+// an SM; then launched.
+template <typename V>
+cudaError_t launch_c3(const V* W, const V* x, V* y, const RowGrid& g, int n0, int n1, int n2,
+                      int Pv, cudaStream_t stream) {
+  constexpr size_t stage = 2 * kC3Group * kC3Slot * kC3Threads * sizeof(V);
+  static const cudaError_t allowed = [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        apply_w_c3_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(stage));
+    return e != cudaSuccess ? e
+                            : cudaFuncSetAttribute(apply_w_c3_kernel<V>,
+                                                   cudaFuncAttributePreferredSharedMemoryCarveout,
+                                                   static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  }();
+  if (allowed != cudaSuccess) return allowed;
+  apply_w_c3_kernel<V><<<g.grid, kC3Threads, stage, stream>>>(W, x, y, g.tab, n0, n1, n2, Pv);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // K1 (its half-storage table), K5 (the table of direct rows) and K5^T
-// (the table of transposed rows) on one field of 3 components; stab is the
-// table on the device
-int apply_w_slots_f32(const void* W, const void* x, void* y, const void* stab,
-                      int n_slots, int n0, int n1, int n2, int P, int device,
-                      void* stream) {
-  const unsigned int blocks = blocks_for(n0, n1, n2, P);
-  if (blocks == 0) return 0;
+// (the table of transposed rows) on one field of 3 components; slots is
+// the table (15 x 4 ints, host memory).  float4 along p where P and the
+// bases allow it.  A lattice of 2^31 sites or more is refused.
+int apply_w_c3_f32(const void* W, const void* x, void* y, const int* slots, int n0, int n1,
+                   int n2, int P, int device, void* stream) {
+  if (static_cast<long long>(n0) * n1 * n2 * P == 0) return 0;
+  const bool vec = P % 4 == 0 && aligned16(W) && aligned16(x) && aligned16(y);
+  const int Pv = vec ? P / 4 : P;
+  const RowGrid g = row_grid(slots, n0, n1, n2, Pv, kC3Threads);
+  if (!g.ok || static_cast<long long>(n0) * n1 * n2 * P >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaSetDevice(device);
-  apply_w_slots_kernel<3><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(W), static_cast<const float*>(x),
-      static_cast<float*>(y), static_cast<const int*>(stab), n_slots, n0, n1,
-      n2, P, 1);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      vec ? launch_c3(static_cast<const float4*>(W), static_cast<const float4*>(x),
+                      static_cast<float4*>(y), g, n0, n1, n2, Pv, s)
+          : launch_c3(static_cast<const float*>(W), static_cast<const float*>(x),
+                      static_cast<float*>(y), g, n0, n1, n2, Pv, s));
 }
 
 // K1 on 2..8 lanes; slots is K1's table (15 x 4 ints, host memory).  Any

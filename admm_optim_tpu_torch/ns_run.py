@@ -381,6 +381,7 @@ class NSRun(NamedTuple):
     jprime_norm: float
     seconds: dict  # per phase, synchronized
     launches: dict  # per phase: kernel launch counts (reset before each phase)
+    launches_by_lattice: dict  # per phase: the same by (kernel, lattice)
     rungs: list | None = None  # the ladder's Rung records when a target was given
 
 
@@ -392,7 +393,7 @@ def run(ctx: NSContext, target_visc: float | None = None) -> NSRun:
     if target_visc is not None:
         ctx = ctx.at_visc(target_visc)
     dev = ctx.coords.device
-    seconds, launches = {}, {}
+    seconds, launches, by_lattice = {}, {}, {}
 
     def phase(name, fn):
         sk.reset_launches()
@@ -402,6 +403,7 @@ def run(ctx: NSContext, target_visc: float | None = None) -> NSRun:
         _sync(dev)
         seconds[name] = time.perf_counter() - t0
         launches[name] = dict(sk.launches)
+        by_lattice[name] = dict(sk.launches_by_lattice)
         return out
 
     rungs = None
@@ -414,4 +416,4 @@ def run(ctx: NSContext, target_visc: float | None = None) -> NSRun:
     drag = phase("drag", lambda: float(nsops.drag(ctx.space, ctx.coords, nres.s, ctx.visc)))
     ares = phase("adjoint", lambda: adjoint(ctx, nres.s))
     jp = phase("jprime", lambda: jprime(ctx, nres.s, ares.lam))
-    return NSRun(nres, assembly, drag, ares, jp, float(torch.linalg.vector_norm(jp)), seconds, launches, rungs)
+    return NSRun(nres, assembly, drag, ares, jp, float(torch.linalg.vector_norm(jp)), seconds, launches, by_lattice, rungs)

@@ -16,14 +16,16 @@ Layout contract, as in the JAX package:
 
 Kernels (sources in ../csrc/stencil.cu, built on first use by _build):
   apply_w_sym             K1, replaces pallas_stencil._apply_w_pallas_3d_sym;
-                          on a lane axis (jax.vmap of it) a kernel of its
-                          own reads W once for 2 <= B <= 8 lanes
+                          one field goes to the C = 3 kernel that K5 and
+                          K5^T share, a lane axis (jax.vmap of it) to a
+                          kernel that reads W once for 2 <= B <= 8 lanes
   apply_w_pencil          K2, replaces pallas_stencil._apply_w_pallas_3d_pc (bf16 W)
   apply_w_pencil_batched  K3, replaces pallas_stencil._apply_w_pallas_3d_pc_batched
                           (bf16 W read once for 1 <= B <= 8 lanes)
   apply_w_df_sym          K4, replaces pallas_stencil._apply_w_df_pallas_3d_sym
   apply_w_full            K5, replaces pallas_stencil._apply_w_pallas_3d (full W),
-                          at C = 3 and, by a scalar kernel of its own, at C = 1
+                          at C = 3 by the C = 3 kernel and, by a scalar
+                          kernel of its own, at C = 1
   apply_w_full_t          K5^T, the exact transpose of K5 (the jax.vjp of
                           K5 in ns_solver.transpose_M); ApplyWFull is K5
                           with K5^T as its autograd backward
@@ -33,7 +35,8 @@ twin; a CUDA tensor launches the kernel or raises.  There is no fallback
 and no lattice-size gate.  ``launches`` counts kernel launches per wrapper
 (the twin never counts); the scalar form of K5 and K5^T counts under names
 of its own, ``apply_w_full/c1`` and ``apply_w_full_t/c1``, and K1's lane
-kernel as ``apply_w_sym/lanes``.
+kernel as ``apply_w_sym/lanes``.  ``launches_by_lattice`` counts the same
+launches per (name, (n0, n1, n2, P)).
 """
 from __future__ import annotations
 
@@ -51,6 +54,8 @@ launches = {
     "apply_w_sym": 0, "apply_w_sym/lanes": 0, "apply_w_pencil": 0, "apply_w_pencil_batched": 0,
     "apply_w_df_sym": 0, "apply_w_full": 0, "apply_w_full_t": 0, "apply_w_full/c1": 0, "apply_w_full_t/c1": 0,
 }
+# the same launches by lattice: (name, (n0, n1, n2, P)) -> count
+launches_by_lattice = {}
 MAX_LANES = 8  # K3 and K1's lane kernel are templated on the lane count up to this
 BY_VALUE_SLOTS = 15  # the 3D stencil: what a by-value slot table holds
 MAX_SITES = 2**31  # the kernels with a by-value table index lattice sites in 32 bits
@@ -62,6 +67,7 @@ SCALAR_THREADS = 64
 def reset_launches():
     for k in launches:
         launches[k] = 0
+    launches_by_lattice.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +331,7 @@ def _check(name, ps, x, arrays, w_dtype, lane_axis=False, comps=(3,), max_sites=
     """Validate what the kernels take: 3D, C in comps, f32 fields (with a
     leading lane axis of 1 to MAX_LANES lanes iff lane_axis), contiguous,
     fewer than max_sites lattice sites where the kernel indexes them in 32
-    bits, all on x's CUDA device.  Returns the lane count, C and the
+    bits, all on x's device.  Returns the lane count, C and the
     lattice (B, C, n0, n1, n2, P)."""
     if ps.dim != 3 or x.dim() != 5 + lane_axis or x.shape[-5] not in comps:
         want = " or ".join(str(c) for c in comps)
@@ -353,19 +359,21 @@ def _check(name, ps, x, arrays, w_dtype, lane_axis=False, comps=(3,), max_sites=
             f"{name}: the kernel indexes lattice sites in 32 bits and takes fewer than {max_sites} "
             f"of them, got {tuple(x.shape[-4:])}"
         )
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, got {x.device}")
     return (B,) + tuple(x.shape[-5:])
 
 
-def _launch(name, fn, *args, device):
-    """Launch entry point fn of the kernel library on the current stream
-    and count it under name."""
+def _launch(name, fn, lattice, *args, device):
+    """Launch entry point fn of the kernel library on the current stream of
+    a CUDA device and count it under name and under (name, lattice)."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on the CPU or a CUDA device, got {device}")
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(_build.lib(), fn)(*args, device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed: {_build.error_string(err)}")
     launches[name] += 1
+    key = (name, lattice)
+    launches_by_lattice[key] = launches_by_lattice.get(key, 0) + 1
 
 
 def launch_empty(device):
@@ -377,6 +385,17 @@ def launch_empty(device):
         raise RuntimeError(f"launch_empty: CUDA launch failed: {_build.error_string(err)}")
 
 
+def _c3(name, kind, ps, W, x, lattice):
+    """Launch K1 (kind "sym"), K5 ("full") or K5^T ("full_t") on one field
+    of C = 3 components, the table by value."""
+    y = torch.empty_like(x)
+    _launch(
+        name, "apply_w_c3_f32", lattice, W.data_ptr(), x.data_ptr(), y.data_ptr(),
+        stencil_tables(ps).packed(kind), *lattice, device=x.device,
+    )
+    return y
+
+
 def apply_w_sym(ps, W, x):
     """K1: y = A x from symmetric half storage W (H, C, C, n0, n1, n2, P),
     for a field, or for the 2 to 8 lanes of (B, C, n0, n1, n2, P) in one
@@ -385,26 +404,18 @@ def apply_w_sym(ps, W, x):
     if x.device.type == "cpu":
         return _lanes(_apply_w_sym, ps, W, x)
     lane_axis = x.dim() == 6
-    many = lane_axis and x.shape[0] != 1
-    B, _, n0, n1, n2, P = _check(
-        "apply_w_sym", ps, x, (W, x), torch.float32, lane_axis, max_sites=MAX_SITES if many else None
-    )
+    B, _, n0, n1, n2, P = _check("apply_w_sym", ps, x, (W, x), torch.float32, lane_axis, max_sites=MAX_SITES)
     tabs = stencil_tables(ps)
     if W.shape != (len(tabs.kept), 3, 3, n0, n1, n2, P):
         raise ValueError(f"apply_w_sym: W shape {tuple(W.shape)} does not match x")
+    lattice = (n0, n1, n2, P)
+    if B == 1:
+        return _c3("apply_w_sym", "sym", ps, W, x, lattice)
     y = torch.empty_like(x)
-    if many:
-        _launch(
-            "apply_w_sym/lanes", "apply_w_sym_lanes_f32",
-            W.data_ptr(), x.data_ptr(), y.data_ptr(), tabs.packed("sym"),
-            n0, n1, n2, P, B, device=x.device,
-        )
-    else:
-        _launch(
-            "apply_w_sym", "apply_w_slots_f32",
-            W.data_ptr(), x.data_ptr(), y.data_ptr(), tabs.on_device("sym", x.device).data_ptr(),
-            tabs.n_slots, n0, n1, n2, P, device=x.device,
-        )
+    _launch(
+        "apply_w_sym/lanes", "apply_w_sym_lanes_f32", lattice,
+        W.data_ptr(), x.data_ptr(), y.data_ptr(), tabs.packed("sym"), *lattice, B, device=x.device,
+    )
     return y
 
 
@@ -416,7 +427,7 @@ def _pencil(name, ps, W_pc, x, lane_axis):
         raise ValueError(f"{name}: W_pc shape {tuple(W_pc.shape)} does not match x")
     y = torch.empty_like(x)
     _launch(
-        name, "apply_w_pencil_bf16",
+        name, "apply_w_pencil_bf16", (n0, n1, n2, P),
         W_pc.data_ptr(), x.data_ptr(), y.data_ptr(), tabs.on_device("full", x.device).data_ptr(),
         tabs.n_slots, n0, n1, n2, P, B, device=x.device,
     )
@@ -451,7 +462,7 @@ def apply_w_df_sym(ps, W, xh, xl):
     yh = torch.empty_like(xh)
     yl = torch.empty_like(xh)
     _launch(
-        "apply_w_df_sym", "apply_w_df_sym_f32",
+        "apply_w_df_sym", "apply_w_df_sym_f32", (n0, n1, n2, P),
         W.data_ptr(), xh.data_ptr(), xl.data_ptr(), yh.data_ptr(), yl.data_ptr(),
         tabs.on_device("sym", xh.device).data_ptr(), tabs.n_slots, n0, n1, n2, P, device=xh.device,
     )
@@ -462,24 +473,18 @@ def _full(name, kind, ps, W, x):
     """Launch K5 (kind "full") or K5^T ("full_t") on one field of C = 3 or
     C = 1 components, full slot-major f32 W.  The scalar form has a kernel
     of its own and counts as name + "/c1"."""
-    scalar = x.dim() == 5 and x.shape[0] == 1
-    _, C, n0, n1, n2, P = _check(
-        name, ps, x, (W, x), torch.float32, comps=(1, 3), max_sites=MAX_SITES if scalar else None
-    )
+    _, C, n0, n1, n2, P = _check(name, ps, x, (W, x), torch.float32, comps=(1, 3), max_sites=MAX_SITES)
     tabs = stencil_tables(ps)
     if W.shape != (tabs.n_slots, C, C, n0, n1, n2, P):
         raise ValueError(f"{name}: W shape {tuple(W.shape)} does not match x")
+    lattice = (n0, n1, n2, P)
+    if C == 3:
+        return _c3(name, kind, ps, W, x, lattice)
     y = torch.empty_like(x)
-    if C == 1:
-        _launch(
-            name + "/c1", "apply_w_scalar_f32", W.data_ptr(), x.data_ptr(), y.data_ptr(),
-            tabs.packed(kind), n0, n1, n2, P, SCALAR_THREADS, device=x.device,
-        )
-    else:
-        _launch(
-            name, "apply_w_slots_f32", W.data_ptr(), x.data_ptr(), y.data_ptr(),
-            tabs.on_device(kind, x.device).data_ptr(), tabs.n_slots, n0, n1, n2, P, device=x.device,
-        )
+    _launch(
+        name + "/c1", "apply_w_scalar_f32", lattice, W.data_ptr(), x.data_ptr(), y.data_ptr(),
+        tabs.packed(kind), *lattice, SCALAR_THREADS, device=x.device,
+    )
     return y
 
 

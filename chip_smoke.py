@@ -13,17 +13,22 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      random W with a Dirichlet mask, K3 with B = 5 lanes, K1 on a lane axis
      with B = 2, 5 and 8 (each lane also bitwise equal to K1 on that
      field); K5 and K5^T with C = 3 and with C = 1 (the scalar pressure
-     operators of the PCD Schur block) at those shapes, at the refs=2
-     pressure lattices (5^3 and 3^3 x 224) and at a P that is no multiple
-     of 4 (5^3 x 222); errors, median device times (L2 emptied before each
-     launch), the time of one call made on an idle card, each kernel's
-     bound (bytes over 3.35 TB/s or flops over the published peak,
-     whichever is larger) and the launch floor (the device time of an empty
-     kernel), for K3 the time of five K2 launches on the same lanes, for K5
-     and K5^T the adjointness <A x, y> = <x, A^T y> on the card, for the
-     scalar kernel and K1's lane kernel the same result with 1e30 in every
-     W entry whose neighbour lies outside the lattice, and the scalar
-     kernel's time at block sizes 64, 128 and 256;
+     operators of the PCD Schur block), K1 on one field and K2 also at the
+     coarse 3D levels of the NS velocity V-cycle, which are the refs=2
+     pressure lattices too (5^3 and 3^3 x 224), and K5 and K5^T at a P that
+     is no multiple of 4 (5^3 x 222); errors, median device times (L2
+     emptied before each launch), the time of one call made on an idle
+     card, each kernel's bound (bytes over 3.35 TB/s or flops over the
+     published peak, whichever is larger) and the launch floor (the device
+     time of an empty kernel), for K3 the time of five K2 launches on the
+     same lanes, for K5 and K5^T the adjointness <A x, y> = <x, A^T y> on
+     the card, for every kernel with a by-value table (K1 on a field and
+     on lanes, K5 and K5^T at C = 3 and C = 1) the same result with 1e30 in
+     every W entry whose neighbour lies outside the lattice, each timed
+     kernel's time also with the L2 emptied of clean lines (by reading, not
+     zeroing, the 512 MB buffer: no write-back of the buffer's lines) and
+     with the L2 left warm, and the scalar kernel's time at block sizes 64,
+     128 and 256;
   4. slice: xupdate_solve.build(4) + solve on the GPU (2,843,910 DoF), its
      convergence to a true relative residual <= 1e-8 (evaluated once in
      f64 with the plain apply), the kernel launch counts of that run;
@@ -45,11 +50,14 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      launches per phase, peak memory, and a profiled window of the Krylov
      operators for the card's busy share and K5's share of device time;
   8. small: refs=1 solve, ADMM run and PCD ladder to visc 0.02 (with
-     drag, adjoint and J') held against the port's float64 CPU runs.  The
-     CPU ladder runs in a child process beside phases 2-7.
+     drag, adjoint and J') held against the port's float64 CPU runs: the
+     solve and the ADMM run here, the ladder as kept in
+     tests/goldens/chip_pcd_ladder_refs1.npz (made on the CPU, in minutes,
+     by tests/goldens/make_chip_reference.py).
 Each path (solve, ADMM, NS, PCD) is driven with the launch counts set to 0
 just before it (the NS paths reset them before each of their phases) and
-read just after; each of its kernels must have launched.
+read just after; each of its kernels must have launched.  The counts are
+printed per kernel and per kernel and lattice.
 The last three lines are the kernel table as one JSON object, the
 nvidia-smi name/power-limit line, and {"ok": true, "device": {...}}.  Any failure
 raises, and the run exits nonzero without that last line.
@@ -58,13 +66,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import multiprocessing
+import pathlib
 import re
 import statistics
 import subprocess
 import sys
 import time
-import traceback
 
 import numpy as np
 import torch
@@ -86,6 +93,12 @@ PCD_SHAPE = ((5, 5, 5), 224)  # refs=2 pressure lattice: the PCD Schur block's f
 PCD_COARSE_SHAPE = ((3, 3, 3), 224)  # its coarse level
 ODD_P_SHAPE = ((5, 5, 5), 222)  # P % 4 != 0: the scalar kernel's scalar-width form
 SMALL_SHAPE = ((3, 3, 3), 5)
+# the kernel groups of kernel_phase: all at 17^3, 9^3 and 3^3 x 5; what the
+# coarse levels and the PCD path run at 5^3 and 3^3 x 224
+GROUPS = ("full", "sym", "pencil", "lanes", "batched", "df")
+COARSE_GROUPS = ("full", "sym", "pencil")
+# the device kernel of K1, K5 and K5^T on a field of C = 3, as the profiler names it
+C3_KERNEL = "apply_w_c3_kernel"
 REPS = 20
 LANES = 5  # 1 + m lanes of the 3D x-update
 LANE_COUNTS = (2, LANES, 8)  # K1's lane kernel is checked at these
@@ -101,6 +114,8 @@ PCD_VISC = 0.02  # its last: the reference's default viscosity
 # refs=1 PCD ladder, card float32 against CPU float64, relative (pcd_small says why)
 DRAG_TOL = 2e-4
 JPRIME_TOL = 3e-4
+SMALL_REFERENCE = pathlib.Path(__file__).resolve().parent / "tests" / "goldens" / "chip_pcd_ladder_refs1.npz"
+REFERENCE_THREADS = 2
 NS_ADJOINT_BUDGET = 200  # adjoint iterations of the mass-block phase (the PCD phase runs to its exit)
 # the kernels each path must launch, and the TPU kernel each replaces
 PATHS = {
@@ -127,6 +142,16 @@ REPLACES = {
 JSON_SHAPE = {name: "17^3x224" for name in REPLACES}
 JSON_SHAPE.update({"apply_w_full": "9^3x224", "apply_w_full_t": "9^3x224",
                    "apply_w_full/c1": "5^3x224", "apply_w_full_t/c1": "5^3x224"})
+# the other shapes each kernel's JSON entry gives its times at: the coarse
+# levels the paths launch it on, and the scalar kernel's scalar-width form
+BY_SHAPE = {
+    "apply_w_sym": ("9^3x224", "5^3x224", "3^3x224"),
+    "apply_w_pencil": ("9^3x224", "5^3x224", "3^3x224"),
+    "apply_w_full": ("5^3x224", "3^3x224"),
+    "apply_w_full_t": ("5^3x224", "3^3x224"),
+    "apply_w_full/c1": ("3^3x224", "5^3x222"),
+    "apply_w_full_t/c1": ("3^3x224", "5^3x222"),
+}
 
 
 def log(*a):
@@ -161,9 +186,20 @@ def median_ms(fn, reps=REPS):
     two applies of one W.  And while the card works on it the host enqueues
     fn, so a fn of one launch is timed on the device, not by the host's
     path to the launch."""
+    return _median_ms(fn, reps, flush_buffer().zero_)
+
+
+def flush_buffer():
     if not _flush:
         _flush.append(torch.empty(128 * 2**20, dtype=torch.float32, device="cuda"))
-    return _median_ms(fn, reps, _flush[0].zero_)
+    return _flush[0]
+
+
+def clean_ms(fn, reps=REPS):
+    """median_ms with the L2 emptied by reading the 512 MB buffer instead of
+    zeroing it: the L2 then holds clean lines, and fn's reads evict them
+    without writing them back."""
+    return _median_ms(fn, reps, flush_buffer().sum)
 
 
 def call_ms(fn, reps=REPS):
@@ -234,16 +270,18 @@ def bound(moved, flops, flops_per_s):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(ps, shape, seed, timed, full_only=False, device="cuda"):
-    """Each kernel against its twin on random data of one shape (only K5 and
-    K5^T, at C = 3 and C = 1, with full_only); returns per kernel a dict
-    of max_abs_err, rel_err, ms (device), call_ms (one call to an idle
-    card), plain_ms, extra_ms, bound_ms, bound_by, and per C the
-    adjointness of K5/K5^T.  Flops count 2 per multiply-add of
-    the full 15-slot stencil, per lane.  The scalar kernel and K1's lane
-    kernel must also give the same result with POISON in the W entries no
-    apply may read, and each lane of the lane kernel must equal K1 on that
-    lane's field bit for bit."""
+def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
+    """The kernels of groups (GROUPS: "full" K5 and K5^T at C = 3 and
+    C = 1, "sym" K1 on one field, "pencil" K2, "lanes" K1 on lanes,
+    "batched" K3, "df" K4) against their twins on random data of one shape;
+    returns per kernel a dict of max_abs_err, rel_err, ms (device), call_ms
+    (one call to an idle card), plain_ms, extra_ms, bound_ms, bound_by, and
+    per C the adjointness of K5/K5^T; timed, also clean_ms (L2 emptied of
+    clean lines) and warm_ms (L2 left warm).  Flops count 2 per
+    multiply-add of the full 15-slot stencil, per lane.  Every kernel with a
+    by-value table must also give the same result with POISON in the W
+    entries no apply may read, and each lane of the lane kernel must equal
+    K1 on that lane's field bit for bit."""
     lat, P = shape
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -256,10 +294,18 @@ def kernel_phase(ps, shape, seed, timed, full_only=False, device="cuda"):
         bms, bby = bound(moved, fl, rate)
         out[name] = dict(
             max_abs_err=err, rel_err=err / float(ref.abs().max()),
-            ms=median_ms(fn) if timed else nan, call_ms=call_ms(fn) if timed else nan,
+            ms=median_ms(fn) if timed else nan, clean_ms=clean_ms(fn) if timed else nan,
+            warm_ms=warm_ms(fn) if timed else nan, call_ms=call_ms(fn) if timed else nan,
             plain_ms=median_ms(plain) if timed else nan,
             extra_ms=median_ms(extra) if timed and extra else nan, bound_ms=bms, bound_by=bby,
         )
+
+    def poisoned(what, W, pairs):
+        """The same result, bit for bit, with POISON in every W entry whose
+        neighbour lies outside the lattice: pairs of (apply(W'), result)."""
+        Wp = sk.fill_unused_w(ps, W, POISON)
+        check(all(torch.equal(fn(Wp), y) for fn, y in pairs),
+              f"{what} at {lat} x {P} reads no W entry whose neighbour lies outside the lattice")
 
     def full(C):
         """K5 and K5^T on a nonsymmetric full slot-major W, as the NS
@@ -286,23 +332,20 @@ def kernel_phase(ps, shape, seed, timed, full_only=False, device="cuda"):
         a = float(torch.sum(y.double() * yt.double()))
         b = float(torch.sum(xf.double() * z.double()))
         out["adjointness" + sfx] = abs(a - b) / max(abs(a), abs(b))
-        if C == 1:
-            Wp = sk.fill_unused_w(ps, Wf, POISON)
-            check(torch.equal(sk.apply_w_full(ps, Wp, xf), y) and torch.equal(sk.apply_w_full_t(ps, Wp, yt), z),
-                  f"scalar K5 and K5^T at {lat} x {P} read no W entry whose neighbour lies outside the lattice")
-            if timed:
-                out["apply_w_full/c1"]["warm_ms"] = warm_ms(lambda: sk.apply_w_full(ps, Wf, xf))
-                out["apply_w_full_t/c1"]["warm_ms"] = warm_ms(lambda: sk.apply_w_full_t(ps, Wf, yt))
-                threads = sk.SCALAR_THREADS
-                for n in SCALAR_BLOCKS:
-                    sk.SCALAR_THREADS = n
-                    out["apply_w_full/c1"][f"ms_block_{n}"] = median_ms(lambda: sk.apply_w_full(ps, Wf, xf))
-                    out["apply_w_full_t/c1"][f"ms_block_{n}"] = median_ms(lambda: sk.apply_w_full_t(ps, Wf, yt))
-                sk.SCALAR_THREADS = threads
+        poisoned(f"K5 and K5^T at C = {C}", Wf,
+                 ((lambda Wp: sk.apply_w_full(ps, Wp, xf), y), (lambda Wp: sk.apply_w_full_t(ps, Wp, yt), z)))
+        if C == 1 and timed:
+            threads = sk.SCALAR_THREADS
+            for n in SCALAR_BLOCKS:
+                sk.SCALAR_THREADS = n
+                out["apply_w_full/c1"][f"ms_block_{n}"] = median_ms(lambda: sk.apply_w_full(ps, Wf, xf))
+                out["apply_w_full_t/c1"][f"ms_block_{n}"] = median_ms(lambda: sk.apply_w_full_t(ps, Wf, yt))
+            sk.SCALAR_THREADS = threads
 
-    full(3)
-    full(1)
-    if full_only:
+    if "full" in groups:
+        full(3)
+        full(1)
+    if not set(groups) - {"full"}:
         return out
     H = len(st.half_slots(ps))
     W = torch.randn((H, 3, 3) + lat + (P,), generator=g, device=dev)
@@ -311,62 +354,87 @@ def kernel_phase(ps, shape, seed, timed, full_only=False, device="cuda"):
     x64 = x64 * free[None].double()
     xh = x64.float()
     xl = (x64 - xh.double()).float()
-    xb = torch.randn((LANES, 3) + lat + (P,), generator=g, device=dev) * free
     W_pc = sk.to_pencil_major(ps, W, torch.bfloat16)
     flops = 2.0 * len(ps.stencil) * 9 * free.numel()  # one field
 
-    y = sk.apply_w_sym(ps, W, xh)
-    record(
-        "apply_w_sym", y, sk._apply_w_sym(ps, W, xh),
-        lambda: sk.apply_w_sym(ps, W, xh), lambda: sk._apply_w_sym(ps, W, xh),
-        nbytes(W, xh, y), flops,
-    )
-    y = sk.apply_w_pencil(ps, W_pc, xh)
-    record(
-        "apply_w_pencil", y, sk._apply_w_pencil(ps, W_pc, xh),
-        lambda: sk.apply_w_pencil(ps, W_pc, xh), lambda: sk._apply_w_pencil(ps, W_pc, xh),
-        nbytes(W_pc, xh, y), flops,
-    )
-    # K1's lane kernel: against the twin, bit for bit against K1 on each
-    # lane's field, and with POISON where it may not read
-    Wp = sk.fill_unused_w(ps, W, POISON)
-    for B in LANE_COUNTS:
-        xB = xb if B == LANES else torch.randn((B, 3) + lat + (P,), generator=g, device=dev) * free
-        y = sk.apply_w_sym(ps, W, xB)
+    if "sym" in groups:
+        y = sk.apply_w_sym(ps, W, xh)
         record(
-            "apply_w_sym/lanes" + ("" if B == LANES else f" B={B}"), y, sk._lanes(sk._apply_w_sym, ps, W, xB),
-            lambda: sk.apply_w_sym(ps, W, xB), lambda: sk._lanes(sk._apply_w_sym, ps, W, xB),
-            nbytes(W, xB, y), B * flops,
+            "apply_w_sym", y, sk._apply_w_sym(ps, W, xh),
+            lambda: sk.apply_w_sym(ps, W, xh), lambda: sk._apply_w_sym(ps, W, xh),
+            nbytes(W, xh, y), flops,
         )
-        check(all(torch.equal(y[b], sk.apply_w_sym(ps, W, xB[b])) for b in range(B)),
-              f"K1 on {B} lanes at {lat} x {P} equals K1 on each lane's field bit for bit")
-        check(torch.equal(sk.apply_w_sym(ps, Wp, xB), y),
-              f"K1 on {B} lanes at {lat} x {P} reads no W entry whose neighbour lies outside the lattice")
-    # K3 against its twin, and against LANES launches of K2 (extra_ms)
-    y = sk.apply_w_pencil_batched(ps, W_pc, xb)
-    record(
-        "apply_w_pencil_batched", y, sk._apply_w_pencil_batched(ps, W_pc, xb),
-        lambda: sk.apply_w_pencil_batched(ps, W_pc, xb),
-        lambda: sk._apply_w_pencil_batched(ps, W_pc, xb),
-        nbytes(W_pc, xb, y), LANES * flops,
-        extra=lambda: [sk.apply_w_pencil(ps, W_pc, x) for x in xb],
-    )
-    yh, yl = sk.apply_w_df_sym(ps, W, xh, xl)
-    ref64 = sk._apply_w_sym(ps, W.double(), xh.double() + xl.double())
-    record(
-        "apply_w_df_sym", yh.double() + yl.double(), ref64,
-        lambda: sk.apply_w_df_sym(ps, W, xh, xl),
-        lambda: sk._apply_w_df_full(ps, st.expand_sym_w(ps, W), xh, xl),
-        nbytes(W, xh, xl, yh, yl), flops, rate=F64_FLOPS,  # f64 accumulation
-    )
+        poisoned("K1 on one field", W, ((lambda Wp: sk.apply_w_sym(ps, Wp, xh), y),))
+    if "pencil" in groups:
+        y = sk.apply_w_pencil(ps, W_pc, xh)
+        record(
+            "apply_w_pencil", y, sk._apply_w_pencil(ps, W_pc, xh),
+            lambda: sk.apply_w_pencil(ps, W_pc, xh), lambda: sk._apply_w_pencil(ps, W_pc, xh),
+            nbytes(W_pc, xh, y), flops,
+        )
+    xb = torch.randn((LANES, 3) + lat + (P,), generator=g, device=dev) * free
+    if "lanes" in groups:
+        # K1's lane kernel: against the twin, bit for bit against K1 on each
+        # lane's field, and with POISON where it may not read
+        for B in LANE_COUNTS:
+            xB = xb if B == LANES else torch.randn((B, 3) + lat + (P,), generator=g, device=dev) * free
+            y = sk.apply_w_sym(ps, W, xB)
+            record(
+                "apply_w_sym/lanes" + ("" if B == LANES else f" B={B}"), y,
+                sk._lanes(sk._apply_w_sym, ps, W, xB),
+                lambda: sk.apply_w_sym(ps, W, xB), lambda: sk._lanes(sk._apply_w_sym, ps, W, xB),
+                nbytes(W, xB, y), B * flops,
+            )
+            check(all(torch.equal(y[b], sk.apply_w_sym(ps, W, xB[b])) for b in range(B)),
+                  f"K1 on {B} lanes at {lat} x {P} equals K1 on each lane's field bit for bit")
+            poisoned(f"K1 on {B} lanes", W, ((lambda Wp: sk.apply_w_sym(ps, Wp, xB), y),))
+    if "batched" in groups:
+        # K3 against its twin, and against LANES launches of K2 (extra_ms)
+        y = sk.apply_w_pencil_batched(ps, W_pc, xb)
+        record(
+            "apply_w_pencil_batched", y, sk._apply_w_pencil_batched(ps, W_pc, xb),
+            lambda: sk.apply_w_pencil_batched(ps, W_pc, xb),
+            lambda: sk._apply_w_pencil_batched(ps, W_pc, xb),
+            nbytes(W_pc, xb, y), LANES * flops,
+            extra=lambda: [sk.apply_w_pencil(ps, W_pc, x) for x in xb],
+        )
+    if "df" in groups:
+        yh, yl = sk.apply_w_df_sym(ps, W, xh, xl)
+        ref64 = sk._apply_w_sym(ps, W.double(), xh.double() + xl.double())
+        record(
+            "apply_w_df_sym", yh.double() + yl.double(), ref64,
+            lambda: sk.apply_w_df_sym(ps, W, xh, xl),
+            lambda: sk._apply_w_df_full(ps, st.expand_sym_w(ps, W), xh, xl),
+            nbytes(W, xh, xl, yh, yl), flops, rate=F64_FLOPS,  # f64 accumulation
+        )
     return out
 
 
-def read_launches(path):
+def read_launches(path, by_lattice):
     """Launch counts of one path's run (counts were reset just before it),
-    of the kernels that launched; each kernel of the path must have."""
+    of the kernels that launched; each kernel of the path must have.  The
+    counts by kernel and lattice go into by_lattice[path] and the log."""
     torch.cuda.synchronize()
+    by_lattice[path] = dict(sk.launches_by_lattice)
+    log_lattices(path, by_lattice[path])
     return required_launched(path, {name: n for name, n in sk.launches.items() if n})
+
+
+def log_lattices(tag, counts, phase=None):
+    """One line of launch counts by kernel and lattice: {(name, lattice): n}."""
+    per = {}
+    for (name, lat), n in sorted(counts.items()):
+        per.setdefault(name, {})[lattice_name(lat)] = n
+    log(f"[{tag}] launches by lattice{f' in the {phase} phase' if phase else ''}: {per}")
+
+
+def sum_lattices(by_phase):
+    """{(name, lattice): n} summed over the phases of a path."""
+    total = {}
+    for counts in by_phase.values():
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+    return total
 
 
 def required_launched(path, counts):
@@ -390,7 +458,7 @@ def true_rel_residual(ctx, b, res):
 
 
 def device_ms(prof):
-    """(device ms of all kernels, of apply_w_slots_kernel<3> (K5/K5^T at
+    """(device ms of all kernels, of C3_KERNEL (K5/K5^T at
     C = 3), of apply_w_scalar_kernel (at C = 1), the five kernels with
     the most device time as (name, ms, count)) in a torch.profiler run, or
     None when the trace holds no device time."""
@@ -407,7 +475,7 @@ def device_ms(prof):
         by_name.append((e.key[:60], t / 1e3, e.count))
         if "apply_w_scalar_kernel" in e.key:
             k5c1 += t
-        elif "apply_w_slots_kernel" in e.key:
+        elif C3_KERNEL in e.key:
             k5 += t
     top = sorted(by_name, key=lambda r: -r[1])[:5]
     return (total / 1e3, k5 / 1e3, k5c1 / 1e3, top) if total > 0 else None
@@ -416,8 +484,7 @@ def device_ms(prof):
 def ns_profile(tag, ctx, s, reps=10):
     """The Krylov operators of an NS path at the state s: wall and device
     time of reps x (M, then J) and of reps x (M^T, then J^T), untraced and
-    under torch.profiler, and K5's share of the device time.  Returns the
-    untraced ms of one (M, then J) and a function that measures it again."""
+    under torch.profiler, and K5's share of the device time."""
     m_args = ctx.pre_full(ctx.coords, s, ctx.visc)
     W = m_args[-1]
     MT = transpose_M(lambda r: ctx.M_fn(r, *m_args), ctx.n_state, s.dtype, s.device)
@@ -434,9 +501,8 @@ def ns_profile(tag, ctx, s, reps=10):
         sync()
         return (time.perf_counter() - t0) * 1e3
 
-    walls = {}
     for label, fn in ops.items():
-        wall = walls[label] = untraced_ms(fn)
+        wall = untraced_ms(fn)
         with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         ) as prof:
@@ -450,6 +516,7 @@ def ns_profile(tag, ctx, s, reps=10):
                 "(the trace holds no device events)")
             continue
         total, k5, k5c1, top = dev
+        check(k5 > 0, f"[{tag}] the trace of {label} holds device time of K5/K5^T at C = 3 under {C3_KERNEL}")
         log(
             f"[{tag}] {reps} x ({label}): {wall / reps:.3f} ms each untraced, {traced / reps:.3f} ms traced; "
             f"device busy {total / reps:.3f} ms each ({100 * total / wall:.1f}% of the untraced wall); "
@@ -457,17 +524,18 @@ def ns_profile(tag, ctx, s, reps=10):
             f"{k5c1 / reps:.3f} ms each ({100 * k5c1 / total:.1f}%); top kernels "
             + "; ".join(f"{n} {100 * t / total:.1f}% ({c})" for n, t, c in top)
         )
-    return walls["M then J"] / reps, lambda: untraced_ms(ops["M then J"]) / reps
 
 
-def counted(fn):
+def counted(fn, lattices):
     """fn() with the launch counts set to 0 just before and read just
-    after: (result, synchronized seconds, counts)."""
+    after: (result, synchronized seconds, counts); the counts by kernel and
+    lattice go into the dict lattices."""
     sync()
     sk.reset_launches()
     t0 = time.perf_counter()
     out = fn()
     sync()
+    lattices.update(sk.launches_by_lattice)
     return out, time.perf_counter() - t0, dict(sk.launches)
 
 
@@ -515,7 +583,7 @@ def float64_residual(ctx, s):
         nsops.ns_residual(ctx.space, ctx.coords.double(), s.double(), ctx.visc, ctx.stab)))
 
 
-def ns_phase(ctx_pcd, launches):
+def ns_phase(ctx_pcd, launches, by_lattice):
     """The NS path with the lumped-mass pressure block at refs=2, float32,
     on the tables of the PCD context: the cold-start ladder to PCD_VISC
     for the comparison with PCD, then drag, adjoint and J' at its first
@@ -526,13 +594,15 @@ def ns_phase(ctx_pcd, launches):
     ctx = dataclasses.replace(ctx_pcd, pressure_precond="mass", pcd_tabs=None, pcd_struct=None)
     log(f"[ns] refs=2 n_state={ctx.n_state}, mass pressure block, ladder {NS_VISC} -> {PCD_VISC}")
     by_phase, seconds = {}, {}
+    lat = {phase: {} for phase in ("newton", "drag", "adjoint", "jprime")}
     try:
-        lad, seconds["newton"], by_phase["newton"] = counted(lambda: ns_run.solve_ladder(ctx))
+        lad, seconds["newton"], by_phase["newton"] = counted(lambda: ns_run.solve_ladder(ctx), lat["newton"])
         rungs = lad.rungs
     except ns_run.LadderError as err:
         rungs = err.rungs
         log(f"[ns] finding: the mass block did not reach visc {PCD_VISC}: {err}")
         by_phase["newton"] = dict(sk.launches)
+        lat["newton"].update(sk.launches_by_lattice)
     lin, secs = report_rungs("ns", rungs)
     log(f"[ns] ladder: {len(rungs)} rungs attempted, {lin:.0f} linear iterations on the converged ones, "
         f"{1e3 * secs / max(lin, 1):.2f} ms each outside assembly; launches {by_phase['newton']}")
@@ -546,13 +616,15 @@ def ns_phase(ctx_pcd, launches):
     check(first.nu == NS_VISC and nw.converged and nw.res_norm <= ctx.cfg.accept_tol, "refs=2 Newton converged")
     check(r64 <= ctx.cfg.accept_tol, f"refs=2 float64 |R| {r64:.3e} <= accept_tol")
     drag, seconds["drag"], by_phase["drag"] = counted(
-        lambda: float(nsops.drag(ctx.space, ctx.coords, nw.s, NS_VISC)))
+        lambda: float(nsops.drag(ctx.space, ctx.coords, nw.s, NS_VISC)), lat["drag"])
     # adjoint_solve_stepped's budget is 4 * lin_max_iters
     cut = dataclasses.replace(ctx16, cfg=dataclasses.replace(ctx.cfg, lin_max_iters=NS_ADJOINT_BUDGET // 4))
-    adj, seconds["adjoint"], by_phase["adjoint"] = counted(lambda: ns_run.adjoint(cut, nw.s))
-    jp, seconds["jprime"], by_phase["jprime"] = counted(lambda: ns_run.jprime(ctx16, nw.s, adj.lam))
+    adj, seconds["adjoint"], by_phase["adjoint"] = counted(lambda: ns_run.adjoint(cut, nw.s), lat["adjoint"])
+    jp, seconds["jprime"], by_phase["jprime"] = counted(lambda: ns_run.jprime(ctx16, nw.s, adj.lam), lat["jprime"])
     for phase, n in by_phase.items():
         log(f"[ns] launches in the {phase} phase: {n}")
+        log_lattices("ns", lat[phase], phase)
+    by_lattice["ns"] = sum_lattices(lat)
     check(by_phase["newton"]["apply_w_full"] > 0, "K5 launched in the Newton phase")
     check(by_phase["adjoint"]["apply_w_full_t"] > 0, "K5^T launched in the adjoint phase")
     launches["ns"] = path_launches("ns", by_phase)
@@ -569,12 +641,10 @@ def ns_phase(ctx_pcd, launches):
     return rungs
 
 
-def pcd_phase(ctx, launches, mass_rungs):
+def pcd_phase(ctx, launches, by_lattice, mass_rungs):
     """The PCD path at refs=2, float32: ns_run.run with a target runs the
     cold-start ladder to PCD_VISC, then drag, adjoint and J' there; the
-    launch counts are reset before each of its phases and read after.
-    Returns ns_profile's (M, then J) time and the function that measures it
-    again."""
+    launch counts are reset before each of its phases and read after."""
     torch.cuda.reset_peak_memory_stats()
     log(
         f"[pcd] refs=2 n_state={ctx.n_state} velocity lattice {ctx.pre_ps.fine.lat_shape} x "
@@ -585,6 +655,8 @@ def pcd_phase(ctx, launches, mass_rungs):
     ctx = ctx.at_visc(PCD_VISC)
     for phase, n in out.launches.items():
         log(f"[pcd] launches in the {phase} phase: {n}")
+        log_lattices("pcd", out.launches_by_lattice[phase], phase)
+    by_lattice["pcd"] = sum_lattices(out.launches_by_lattice)
     check(out.launches["newton"]["apply_w_full/c1"] > 0, "K5 at C = 1 launched in the Newton phase")
     check(out.launches["adjoint"]["apply_w_full_t/c1"] > 0, "K5^T at C = 1 launched in the adjoint phase")
     launches["pcd"] = path_launches("pcd", out.launches)
@@ -630,22 +702,38 @@ def pcd_phase(ctx, launches, mass_rungs):
           "every planned rung of the PCD ladder converged")
     check(r64 <= ctx.cfg.accept_tol, f"refs=2 PCD float64 |R| {r64:.3e} <= accept_tol")
     check_adjoint_and_gradient("refs=2 PCD", ctx, adj, out.drag, out.jprime, ("target", "stagnation"))
-    return ns_profile("pcd", ctx, nw.s)
+    ns_profile("pcd", ctx, nw.s)
 
 
-def cpu_ladder_reference(conn):
-    """Child process: the refs=1 PCD ladder with drag, adjoint and J' in
-    float64 on the CPU with the float32 presets; sends a dict of plain
-    values, or the traceback of what went wrong."""
-    try:
-        torch.set_num_threads(2)
-        t0 = time.perf_counter()
-        cfg = ns_run.f32_presets(NewtonConfig())
-        ctx = ns_run.build(1, "cpu", torch.float64, visc=PCD_VISC, cfg=cfg, pressure_precond="pcd")
-        out = ns_run.run(ctx, target_visc=PCD_VISC)
-        conn.send(dict(small_summary(out), jprime=out.jprime.numpy(), seconds=time.perf_counter() - t0))
-    except Exception:
-        conn.send({"error": traceback.format_exc()})
+def small_reference():
+    """The refs=1 PCD ladder to PCD_VISC with drag, adjoint and J', in
+    float64 on the CPU with the float32 presets and REFERENCE_THREADS
+    threads: what pcd_small holds the card's float32 run to, as numpy
+    arrays.  tests/goldens/make_chip_reference.py runs it once (minutes on
+    the CPU) and keeps it in SMALL_REFERENCE."""
+    torch.set_num_threads(REFERENCE_THREADS)
+    cfg = ns_run.f32_presets(NewtonConfig())
+    ctx = ns_run.build(1, "cpu", torch.float64, visc=PCD_VISC, cfg=cfg, pressure_precond="pcd")
+    out = ns_run.run(ctx, target_visc=PCD_VISC)
+    rungs = small_summary(out)["rungs"]
+    return dict(
+        nu=np.array([r[0] for r in rungs]), converged=np.array([r[1] for r in rungs]),
+        newton=np.array([r[2] for r in rungs]), lin=np.concatenate([r[3] for r in rungs]),
+        lin_len=np.array([len(r[3]) for r in rungs]), res=np.array([r[4] for r in rungs]),
+        drag=np.array(out.drag), adjoint_iters=np.array(out.adjoint.iters),
+        adjoint_exit=np.array(out.adjoint.exit), jprime_norm=np.array(out.jprime_norm),
+        jprime=out.jprime.numpy(), threads=np.array(REFERENCE_THREADS),
+    )
+
+
+def load_small_reference():
+    """SMALL_REFERENCE as small_summary's dict, with J' as a numpy array."""
+    z = np.load(SMALL_REFERENCE)
+    lin = np.split(z["lin"], np.cumsum(z["lin_len"])[:-1])
+    rungs = [(float(nu), bool(c), int(n), [int(v) for v in li], float(r))
+             for nu, c, n, li, r in zip(z["nu"], z["converged"], z["newton"], lin, z["res"])]
+    return dict(rungs=rungs, drag=float(z["drag"]), adjoint=(int(z["adjoint_iters"]), str(z["adjoint_exit"])),
+                jprime_norm=float(z["jprime_norm"]), jprime=z["jprime"], threads=int(z["threads"]))
 
 
 def small_summary(out):
@@ -656,10 +744,10 @@ def small_summary(out):
     )
 
 
-def pcd_small(proc, conn):
+def pcd_small():
     """refs=1 PCD ladder to PCD_VISC with drag, adjoint and J', card
-    float32 against the port's CPU float64 (the child process started at
-    the beginning), both with the float32 presets.  The Newton |R| history
+    float32 against the port's CPU float64 run kept in SMALL_REFERENCE,
+    both with the float32 presets.  The Newton |R| history
     amplifies rounding (tests/test_torch_ns_slice_newton.py) and |R| lands
     near accept_tol, so which iteration first accepts, and with it the state
     the next rung starts from, differs with the last bits: two float64 CPU
@@ -678,12 +766,8 @@ def pcd_small(proc, conn):
                      target_visc=PCD_VISC)
     g = small_summary(out)
     log(f"[small] refs=1 PCD ladder on the card, float32: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    while not conn.poll(2.0):
-        check(proc.is_alive(), "the CPU reference process ended without a result")
-    c = conn.recv()
-    check("error" not in c, f"the CPU reference failed:\n{c.get('error')}")
-    log(f"[small] CPU float64 reference: {c['seconds']:.1f} s in its process, waited {time.perf_counter() - t0:.1f} s for it")
+    c = load_small_reference()
+    log(f"[small] CPU float64 reference: {SMALL_REFERENCE.name}, {c['threads']} threads")
     for (nu, gc, gi, gl, gr), (nu_c, cc, ci, cl, cr) in zip(g["rungs"], c["rungs"]):
         log(f"[small] rung nu={nu:.5g} GPU f32 vs nu={nu_c:.5g} CPU f64: converged {gc} vs {cc}, Newton {gi} vs {ci}, "
             f"linear {gl} vs {cl}, |R| {gr:.3e} vs {cr:.3e}")
@@ -700,12 +784,17 @@ def pcd_small(proc, conn):
     check(ddrag <= DRAG_TOL and djp <= JPRIME_TOL, "refs=1 GPU drag and J' agree with the f64 CPU run")
 
 
-def kernel_table(phases, floor_ms, launches):
+def lattice_name(lattice):
+    n0, n1, n2, P = lattice
+    return f"{n0}^3x{P}" if n0 == n1 == n2 else f"{n0}x{n1}x{n2}x{P}"
+
+
+def kernel_table(phases, floor_ms, launches, by_lattice):
     """The entries of the kernels line: per kernel its times at the main
-    path's fine shape (and at 17^3 x 224 where that is another), its bound,
-    the launch floor and its launches per path.  library_ms is null for
-    every kernel: no single PyTorch call computes a per-site variable
-    stencil."""
+    path's fine shape (and at 17^3 x 224 where that is another, and at the
+    shapes of BY_SHAPE), its bound, the launch floor and its launches per
+    path, and per path and lattice.  library_ms is null for every kernel:
+    no single PyTorch call computes a per-site variable stencil."""
     kernels = []
     for name, replaces in REPLACES.items():
         shape = JSON_SHAPE[name]
@@ -714,6 +803,10 @@ def kernel_table(phases, floor_ms, launches):
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": sum(n.get(name, 0) for n in launches.values()),
             "launches_by_path": {path: n[name] for path, n in launches.items() if name in n},
+            "launches_by_lattice": {
+                path: {lattice_name(lat): c for (nm, lat), c in n.items() if nm == name}
+                for path, n in by_lattice.items() if any(nm == name for nm, _ in n)
+            },
             "max_abs_err": t["max_abs_err"], "rel_err": t["rel_err"], "ms": t["ms"], "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "floor_ms": floor_ms, "library_ms": None, "shape": shape,
@@ -726,11 +819,15 @@ def kernel_table(phases, floor_ms, launches):
                     entry[f"lanes_{B}"] = {k: ln[k] for k in ("max_abs_err", "ms", "call_ms", "bound_ms")}
         if name == "apply_w_pencil_batched":
             entry.update(lanes=LANES, k2_x_lanes_ms=t["extra_ms"])
-        entry.update({k: v for k, v in t.items() if k.startswith("ms_block_") or k == "warm_ms"})
+        entry.update({k: v for k, v in t.items() if k.startswith("ms_block_") or k in ("clean_ms", "warm_ms")})
         if shape != "17^3x224":
             f = phases["17^3x224"][name]
             entry.update(ms_17=f["ms"], call_ms_17=f["call_ms"], plain_ms_17=f["plain_ms"],
                          bound_ms_17=f["bound_ms"], max_abs_err_17=f["max_abs_err"])
+        entry["by_shape"] = {
+            label: {k: v for k, v in phases[label][name].items() if k != "extra_ms"}
+            for label in BY_SHAPE.get(name, ())
+        }
         kernels.append(entry)
     return kernels
 
@@ -743,23 +840,10 @@ def main(kernels_only=False):
     smi = nvidia_smi()
     log(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    if kernels_only:
-        run_phases(kind, None, None, kernels_only)
-        return
-    # the float64 CPU reference of phase 8 takes minutes: it runs in a child
-    # process (two threads) beside the GPU phases, which keep one core busy
-    mp = multiprocessing.get_context("spawn")
-    conn, child_conn = mp.Pipe(duplex=False)
-    proc = mp.Process(target=cpu_ladder_reference, args=(child_conn,), daemon=True)
-    proc.start()
-    try:
-        run_phases(kind, proc, conn, kernels_only)
-    finally:
-        proc.kill()
-        proc.join()
+    run_phases(kind, kernels_only)
 
 
-def run_phases(kind, proc, conn, kernels_only=False):
+def run_phases(kind, kernels_only=False):
 
     # 2. build
     t0 = time.perf_counter()
@@ -776,9 +860,9 @@ def run_phases(kind, proc, conn, kernels_only=False):
     phases = {
         "17^3x224": kernel_phase(ps_k, FINE_SHAPE, seed=1, timed=True),
         "9^3x224": kernel_phase(ps_k, NS_SHAPE, seed=3, timed=True),
-        "5^3x224": kernel_phase(ps_k, PCD_SHAPE, seed=4, timed=True, full_only=True),
-        "3^3x224": kernel_phase(ps_k, PCD_COARSE_SHAPE, seed=5, timed=True, full_only=True),
-        "5^3x222": kernel_phase(ps_k, ODD_P_SHAPE, seed=6, timed=False, full_only=True),
+        "5^3x224": kernel_phase(ps_k, PCD_SHAPE, seed=4, timed=True, groups=COARSE_GROUPS),
+        "3^3x224": kernel_phase(ps_k, PCD_COARSE_SHAPE, seed=5, timed=True, groups=COARSE_GROUPS),
+        "5^3x222": kernel_phase(ps_k, ODD_P_SHAPE, seed=6, timed=True, groups=("full",)),
         "3^3x5": kernel_phase(ps_k, SMALL_SHAPE, seed=2, timed=False),
     }
     floor_ms = median_ms(lambda: sk.launch_empty("cuda"))
@@ -798,23 +882,23 @@ def run_phases(kind, proc, conn, kernels_only=False):
                 f"{t['call_ms']:.4f} ms) twin {t['plain_ms']:.4f} ms bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
                 f"floor {floor_ms:.4f} ms"
                 + (f" {LANES} x K2 {t['extra_ms']:.4f} ms" if name == "apply_w_pencil_batched" else "")
-                + (f" L2 warm {t['warm_ms']:.4f} ms" if "warm_ms" in t else "")
+                + f" L2 emptied of clean lines {t['clean_ms']:.4f} ms, L2 warm {t['warm_ms']:.4f} ms"
                 + "".join(f" block {n}: {t[f'ms_block_{n}']:.4f} ms" for n in SCALAR_BLOCKS if f"ms_block_{n}" in t)
             )
             check(t["rel_err"] <= limit, f"{name} at {label}: rel err {t['rel_err']:.3e} > {limit:.0e}")
     if kernels_only:
-        print(json.dumps({"kernels": kernel_table(phases, floor_ms, {})}))
+        print(json.dumps({"kernels": kernel_table(phases, floor_ms, {}, {})}))
         print(nvidia_smi())
         log("[kernel] --kernels-only: the paths were not driven, so this run proves nothing about them")
         return
 
     # 4. the solve path: build + solve at refs=4; counts from 0
-    launches = {}
+    launches, by_lattice = {}, {}
     sk.reset_launches()
     ctx = xupdate_solve.build(4, "cuda", torch.float32)
     b = xupdate_solve.random_rhs(ctx, seed=0)
     res = xupdate_solve.solve(ctx, b)
-    launches["solve"] = read_launches("solve")
+    launches["solve"] = read_launches("solve", by_lattice)
     log(
         f"[slice] refs=4 dofs={ctx.n_dofs} P={ctx.ps.P} lat={ctx.ps.fine.lat_shape}: "
         f"host setup {ctx.host_seconds:.2f} s, assembly {ctx.assembly_seconds:.2f} s, "
@@ -859,7 +943,7 @@ def run_phases(kind, proc, conn, kernels_only=False):
     torch.cuda.reset_peak_memory_stats()
     sk.reset_launches()
     run = admm_run.run(ctx)
-    launches["admm"] = read_launches("admm")
+    launches["admm"] = read_launches("admm", by_lattice)
     st = run.state
     check(bool(torch.isfinite(st.u).all()) and bool(torch.isfinite(st.Lambda).all()),
           "refs=4 ADMM: finite u and Lambda")
@@ -884,12 +968,11 @@ def run_phases(kind, proc, conn, kernels_only=False):
     # 6. the NS path at refs=2 with the mass block: the ladder, then drag,
     # adjoint and J' at visc 0.16; the PCD context's tables serve both
     ctx_pcd = ns_run.build(2, visc=PCD_VISC, pressure_precond="pcd")
-    mass_rungs = ns_phase(ctx_pcd, launches)
+    mass_rungs = ns_phase(ctx_pcd, launches, by_lattice)
     torch.cuda.empty_cache()
 
     # 7. the PCD path at refs=2: ladder to visc 0.02, drag, adjoint, J'
-    beside = proc.is_alive()
-    mj_ms, mj_again = pcd_phase(ctx_pcd, launches, mass_rungs)
+    pcd_phase(ctx_pcd, launches, by_lattice, mass_rungs)
     del ctx_pcd, mass_rungs
     torch.cuda.empty_cache()
 
@@ -919,13 +1002,9 @@ def run_phases(kind, proc, conn, kernels_only=False):
     )
     check((ag.admm_it, ag.total_newton) == (ac.admm_it, ac.total_newton) and du <= 1e-2,
           "refs=1 GPU ADMM agrees with the f64 CPU ADMM")
-    pcd_small(proc, conn)
-    # what the CPU reference process beside the GPU phases cost the host-bound operators
-    log(f"[pcd] one (M then J) with the CPU reference process ended: {mj_again():.3f} ms; in the [pcd] phase "
-        f"{mj_ms:.3f} ms, with that process {'running' if beside else 'already ended'}")
-    del mj_again
+    pcd_small()
 
-    print(json.dumps({"kernels": kernel_table(phases, floor_ms, launches)}))
+    print(json.dumps({"kernels": kernel_table(phases, floor_ms, launches, by_lattice)}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

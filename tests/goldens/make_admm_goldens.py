@@ -1,16 +1,20 @@
-"""Make tests/goldens/admm_3d_refs1.npz, the JAX package's ADMM results
-that tests/test_torch_admm.py holds the port to.
+"""Make the JAX package's ADMM results that tests/test_torch_admm.py holds
+the port to: tests/goldens/admm_3d_refs1.npz and admm_3d_refs1_relaxed.npz.
 
 On the 3D refs=1 fixture of tests/torch_admm_problems.py, in float64 on
 the CPU, it records the JAX package's admm_inner_ops
   * "bicgstab": with the fixture's ADMMConfig, admm_steps=2,
   * "cg": with bench.py's solver settings (BENCH_SOLVER),
 and "next": one ADMM iteration (z-update, newton_xupdate_ops with zero
-warm starts, dual ascent) from the final "bicgstab" state.  The JAX side
-compiles for about three minutes on one CPU core, too long for the test
-lane, hence the goldens.  Run from the repository root:
+warm starts, dual ascent) from the final "bicgstab" state, into the first
+file; into the second
+  * "relaxed": relax_alpha = 1.5 and lin_accept_rel = 1e-4 (RELAXED),
+and the counts and flags of the same run without the acceptance
+(STRICT) as "strict_*".  The JAX side compiles for about three minutes on
+one CPU core, too long for the test lane, hence the goldens.  Run from the
+repository root, naming the files to make (all of them by default):
 
-    python tests/goldens/make_admm_goldens.py
+    python tests/goldens/make_admm_goldens.py [admm_3d_refs1.npz] [admm_3d_refs1_relaxed.npz]
 """
 import dataclasses
 import os
@@ -31,13 +35,13 @@ HERE = pathlib.Path(__file__).resolve().parent
 sys.path[:0] = [str(HERE.parent), str(HERE.parents[1])]
 
 from admm_optim_tpu.optim import admm as jadmm  # noqa: E402
-from torch_admm_problems import RUNS, SCALING, SIGMA, jax_problem  # noqa: E402
+from torch_admm_problems import GOLDEN_FILES, RUNS, SCALING, SIGMA, STRICT, jax_problem  # noqa: E402
 
-OUT = HERE / "admm_3d_refs1.npz"
 STATE_FIELDS = (
     "u", "lam", "q_proj", "Lambda", "scaling", "admm_it", "total_newton", "total_lin_iters",
     "solver_iters", "converged", "failed", "u_diff_norm", "lam_inc_norm", "max_grad_norm", "stats",
 )
+COUNT_FIELDS = ("admm_it", "total_newton", "total_lin_iters", "solver_iters", "converged", "failed")
 
 
 def next_iteration(cfg, p, st):
@@ -57,22 +61,36 @@ def next_iteration(cfg, p, st):
     )
 
 
-def main():
+def run(p, name, over):
+    cfg = dataclasses.replace(p.cfg, **over)
+    st = jadmm.admm_inner_ops(cfg, p.ops, p.Jp, SIGMA, SCALING, p.ref_vol, p.ref_bary)
+    print(name, *(np.asarray(getattr(st, f)) for f in COUNT_FIELDS), flush=True)
+    return cfg, st
+
+
+def main(files):
     p = jax_problem(3, 1)
-    out = {}
-    for name, over in RUNS.items():
-        cfg = dataclasses.replace(p.cfg, **over)
-        st = jadmm.admm_inner_ops(cfg, p.ops, p.Jp, SIGMA, SCALING, p.ref_vol, p.ref_bary)
-        for f in STATE_FIELDS:
-            out[f"{name}_{f}"] = np.asarray(getattr(st, f))
-        print(name, int(st.admm_it), int(st.total_newton), int(st.total_lin_iters),
-              np.asarray(st.solver_iters), bool(st.converged), bool(st.failed), flush=True)
-        if name == "bicgstab":
-            for k, v in next_iteration(cfg, p, st).items():
-                out[f"next_{k}"] = np.asarray(v)
-    np.savez_compressed(OUT, **out)
-    print(f"wrote {OUT} ({OUT.stat().st_size} bytes)")
+    for fname in files:
+        out = {}
+        for name in GOLDEN_FILES[fname]:
+            cfg, st = run(p, name, RUNS[name])
+            for f in STATE_FIELDS:
+                out[f"{name}_{f}"] = np.asarray(getattr(st, f))
+            if name == "bicgstab":
+                for k, v in next_iteration(cfg, p, st).items():
+                    out[f"next_{k}"] = np.asarray(v)
+            if name == "relaxed":
+                _, strict = run(p, "strict", STRICT)
+                for f in COUNT_FIELDS:
+                    out[f"strict_{f}"] = np.asarray(getattr(strict, f))
+        path = HERE / fname
+        np.savez_compressed(path, **out)
+        print(f"wrote {path} ({path.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":
-    main()
+    names = sys.argv[1:] or list(GOLDEN_FILES)
+    unknown = set(names) - set(GOLDEN_FILES)
+    if unknown:
+        raise SystemExit(f"unknown golden files {sorted(unknown)}; known: {list(GOLDEN_FILES)}")
+    main(names)

@@ -4,12 +4,13 @@ the JAX package's admm_inner_ops on the 3D refs=1 fixture, float64, with
 the fixture's config (BiCGStab) and with bench.py's solver settings (CG).
 
 The JAX loop compiles for minutes on one CPU core, so its results are
-goldens (tests/goldens/admm_3d_refs1.npz, made by
-tests/goldens/make_admm_goldens.py from the JAX package); the port builds
-its own operator from the same mesh.  The BiCGStab run is cut to
+goldens (tests/goldens/admm_3d_refs1.npz and admm_3d_refs1_relaxed.npz,
+made by tests/goldens/make_admm_goldens.py from the JAX package); the port
+builds its own operator from the same mesh.  The BiCGStab run is cut to
 admm_steps=2 (torch_admm_problems.RUNS): over the fixture's full run the
 per-lane Krylov counts move by a few iterations with a one-ulp change of
-the operator, in the JAX package as in the port."""
+the operator, in the JAX package as in the port.  The "relaxed" run holds
+relax_alpha != 1 and lin_accept_rel > 0, which f32_presets turns on."""
 import dataclasses
 import pathlib
 import types
@@ -21,11 +22,11 @@ import torch
 from admm_optim_tpu.optim import admm as jadmm
 from admm_optim_tpu_torch import admm_run, convert, xupdate_solve
 from admm_optim_tpu_torch.optim import admm
-from torch_admm_problems import FIXTURE_CFG, RUNS, SCALING, SIGMA, jax_targets, port_problem
+from torch_admm_problems import FIXTURE_CFG, GOLDEN_FILES, RUNS, SCALING, SIGMA, STRICT, jax_targets, port_problem
 
 torch.set_num_threads(1)
 
-GOLD = np.load(pathlib.Path(__file__).parent / "goldens" / "admm_3d_refs1.npz")
+GOLD = {k: v for f in GOLDEN_FILES for k, v in np.load(pathlib.Path(__file__).parent / "goldens" / f).items()}
 CFGS = {name: dataclasses.replace(jadmm.ADMMConfig(**FIXTURE_CFG), **over) for name, over in RUNS.items()}
 
 
@@ -43,10 +44,11 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
 
 
-@pytest.mark.parametrize("name", ["bicgstab", "cg"])
+@pytest.mark.parametrize("name", ["bicgstab", "cg", "relaxed"])
 def test_admm_inner_matches_jax(problem, name):
     cfg = convert.admm_config(CFGS[name])
-    assert cfg.x_solver == name
+    for f in ("x_solver", "relax_alpha", "lin_accept_rel", "lin_max_iters"):
+        assert getattr(cfg, f) == getattr(CFGS[name], f), f
     g = {k[len(name) + 1:]: v for k, v in GOLD.items() if k.startswith(name + "_")}
     ks, rows, hist, dbg = [], [], [], {}
     st = admm.admm_inner(
@@ -72,6 +74,23 @@ def test_admm_inner_matches_jax(problem, name):
     assert 1 <= len(hist) <= cfg.ns_max_its and all(len(r) == 4 + 1 + 4 for r in hist)
     assert set(dbg) == {"Lu", "rhs_large", "du"} and dbg["du"].shape == st.u.shape
     assert st.wh_seconds > 0.0 and st.krylov_seconds > 0.0
+
+
+def test_relaxed_run_needs_its_acceptance(problem):
+    """The "relaxed" run without lin_accept_rel (STRICT): the port fails at
+    its first solve with the JAX package's counts, where the JAX record of
+    the relaxed run went on, so the acceptance branch took effect there."""
+    g = {k[len("strict_"):]: v for k, v in GOLD.items() if k.startswith("strict_")}
+    assert bool(g["failed"]) and int(g["admm_it"]) < int(GOLD["relaxed_admm_it"])
+    assert int(g["total_newton"]) < int(GOLD["relaxed_total_newton"])
+    cfg = convert.admm_config(dataclasses.replace(jadmm.ADMMConfig(**FIXTURE_CFG), **STRICT))
+    assert cfg.lin_accept_rel == 0.0 and cfg.relax_alpha == STRICT["relax_alpha"]
+    st = admm.admm_inner(cfg, problem.ops, problem.Jp, SIGMA, SCALING, problem.ref_vol, problem.ref_bary)
+    assert (st.admm_it, st.total_newton, st.total_lin_iters) == tuple(
+        int(g[f]) for f in ("admm_it", "total_newton", "total_lin_iters")
+    )
+    assert st.solver_iters == g["solver_iters"].tolist()
+    assert (st.converged, st.failed) == (bool(g["converged"]), bool(g["failed"]))
 
 
 def test_next_iterate_from_converted_jax_state(problem):

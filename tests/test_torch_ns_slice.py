@@ -63,7 +63,8 @@ def test_slice_2d_refs1_matches_jax():
     off = (ctx.obstacle_vmask == 0)[None].expand_as(jp)
     assert float(jp[off].abs().max()) == 0.0 and out.jprime_norm > 0
     assert all(sum(n.values()) == 0 for n in out.launches.values())
-    assert set(out.seconds) == {"newton", "drag", "adjoint", "jprime"}
+    assert set(out.seconds) == set(out.launches_by_lattice) == {"newton", "drag", "adjoint", "jprime"}
+    assert not any(out.launches_by_lattice.values())
 
 
 @pytest.mark.parametrize("case,dim", [("2d_refs1", 2), ("3d_refs1", 3)])

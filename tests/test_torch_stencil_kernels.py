@@ -473,13 +473,16 @@ def test_by_value_table_refuses_another_slot_count():
 
 
 @pytest.mark.parametrize("case", ["no lanes", "nine lanes", "strided field", "strided W", "2^31 sites on lanes",
-                                  "2^31 sites on a scalar field", "2^31 sites on the scalar transpose"])
+                                  "2^31 sites on a scalar field", "2^31 sites on the scalar transpose",
+                                  "2^31 sites on one field of K1", "2^31 sites on K5 at C = 3",
+                                  "2^31 sites on K5^T at C = 3"])
 def test_new_kernels_refusals_on_meta_tensors(problem, case):
-    """What the wrappers of K1's lane kernel and of the scalar kernel
-    refuse, on meta tensors (no memory behind them): a lane axis of 0 or 9
-    lanes, a field or W that is not contiguous, and a lattice of 2^31 sites
-    or more, which the kernels' 32-bit site indices cannot hold.  Each is
-    refused for that reason, ahead of the refusal of the meta device."""
+    """What the wrappers of the kernels with a by-value table (K1 on lanes
+    and on one field, the scalar kernel, K5 and K5^T at C = 3) refuse, on
+    meta tensors (no memory behind them): a lane axis of 0 or 9 lanes, a
+    field or W that is not contiguous, and a lattice of 2^31 sites or more,
+    which the kernels' 32-bit site indices cannot hold.  Each is refused
+    for that reason, ahead of the refusal of the meta device."""
     _, tps, _ = problem
     lat, P = tps.fine.lat_shape, tps.P
     H, O = len(st.half_slots(tps)), len(tps.stencil)
@@ -505,6 +508,14 @@ def test_new_kernels_refusals_on_meta_tensors(problem, case):
         call = lambda: sk.apply_w_sym(tps, torch.empty((H, 3, 3) + big, **meta),  # noqa: E731
                                       torch.empty((2, 3) + big, **meta))
         match = "indexes lattice sites in 32 bits"
+    elif case == "2^31 sites on one field of K1":
+        call = lambda: sk.apply_w_sym(tps, torch.empty((H, 3, 3) + big, **meta),  # noqa: E731
+                                      torch.empty((3,) + big, **meta))
+        match = "indexes lattice sites in 32 bits"
+    elif case.endswith("C = 3"):
+        fn = sk.apply_w_full_t if "K5^T" in case else sk.apply_w_full
+        call = lambda: fn(tps, torch.empty((O, 3, 3) + big, **meta), torch.empty((3,) + big, **meta))  # noqa: E731
+        match = "indexes lattice sites in 32 bits"
     else:
         fn = sk.apply_w_full if case.endswith("field") else sk.apply_w_full_t
         call = lambda: fn(tps, torch.empty((O, 1, 1) + big, **meta), torch.empty((1,) + big, **meta))  # noqa: E731
@@ -514,17 +525,64 @@ def test_new_kernels_refusals_on_meta_tensors(problem, case):
 
 
 def test_kernels_with_64_bit_indices_take_2_31_sites(problem):
-    """One field on K1 and C = 3 on K5 keep their 64-bit kernel: 2^31 sites
-    pass every check and are refused only for the meta device."""
+    """The kernels that read their slot table from device memory keep 64-bit
+    site indices: on K2, K3 and K4, 2^31 sites pass every check and are
+    refused only for the meta device."""
     _, tps, _ = problem
     H, O = len(st.half_slots(tps)), len(tps.stencil)
     big = (2, 1024, 1024, 1024)
-    for W, x, fn in (
-        (torch.empty((H, 3, 3) + big, device="meta"), torch.empty((1, 3) + big, device="meta"), sk.apply_w_sym),
-        (torch.empty((O, 3, 3) + big, device="meta"), torch.empty((3,) + big, device="meta"), sk.apply_w_full),
+    W_pc = torch.empty((2, 1024, O, 3, 3, 1024, 1024), dtype=torch.bfloat16, device="meta")
+    W = torch.empty((H, 3, 3) + big, device="meta")
+    x = torch.empty((3,) + big, device="meta")
+    for call in (
+        lambda: sk.apply_w_pencil(tps, W_pc, x),
+        lambda: sk.apply_w_pencil_batched(tps, W_pc, torch.empty((2, 3) + big, device="meta")),
+        lambda: sk.apply_w_df_sym(tps, W, x, x),
     ):
         with pytest.raises(ValueError, match="must be on the CPU or a CUDA device"):
-            fn(tps, W, x)
+            call()
+
+
+@pytest.mark.parametrize("kind", ["sym", "sym on one lane", "full", "full_t"])
+def test_c3_field_kernels_take_the_packed_table_of_their_kind(problem, monkeypatch, kind):
+    """K1 on one field (or on a lane axis of one lane), K5 and K5^T at C = 3
+    launch the C = 3 entry point with the packed by-value table of their
+    kind, under their own launch counter names: recorded by a stand-in for
+    the launch, on meta tensors, so no card is needed."""
+    _, tps, _ = problem
+    lat, P = tps.fine.lat_shape, tps.P
+    H, O = len(st.half_slots(tps)), len(tps.stencil)
+    calls = []
+    monkeypatch.setattr(sk, "_launch", lambda name, fn, lattice, *args, device: calls.append(
+        (name, fn, lattice, args, device)))
+    x = torch.empty(((1,) if kind == "sym on one lane" else ()) + (3,) + lat + (P,), device="meta")
+    if kind.startswith("sym"):
+        y = sk.apply_w_sym(tps, torch.empty((H, 3, 3) + lat + (P,), device="meta"), x)
+        table, name = "sym", "apply_w_sym"
+    else:
+        fn = sk.apply_w_full if kind == "full" else sk.apply_w_full_t
+        y = fn(tps, torch.empty((O, 3, 3) + lat + (P,), device="meta"), x)
+        table, name = kind, fn.__name__
+    assert y.shape == x.shape and y.device == x.device
+    ((got_name, entry, lattice, args, device),) = calls
+    assert (got_name, entry, device) == (name, "apply_w_c3_f32", x.device)
+    assert lattice == tuple(lat) + (P,)
+    assert args[3] is sk.stencil_tables(tps).packed(table)
+    assert args[4:] == lattice
+
+
+def test_launch_counts_by_lattice_are_reset_with_the_counts(problem):
+    """reset_launches clears the counts by kernel and lattice beside the
+    counts by kernel, and a launch off a CUDA device is refused before it
+    counts anywhere."""
+    _, tps, _ = problem
+    sk.launches["apply_w_full"] = 3
+    sk.launches_by_lattice[("apply_w_full", (5, 5, 5, 224))] = 3
+    sk.reset_launches()
+    assert sum(sk.launches.values()) == 0 and sk.launches_by_lattice == {}
+    with pytest.raises(ValueError, match="must be on the CPU or a CUDA device"):
+        sk._launch("apply_w_full", "apply_w_c3_f32", (5, 5, 5, 224), device=torch.device("meta"))
+    assert sum(sk.launches.values()) == 0 and sk.launches_by_lattice == {}
 
 
 @pytest.mark.parametrize("lanes", [2, 5, 8])

@@ -50,7 +50,21 @@ SIGMA, SCALING = 0.3, 1.0
 # iterations, 53 Newton, ~1070 Krylov iterations) the per-lane Krylov
 # counts move by a few iterations with a one-ulp change of the operator,
 # in the JAX package as in the port (ROADMAP.md section 3)
-RUNS = {"bicgstab": dict(admm_steps=2), "cg": BENCH_SOLVER}
+#
+# "relaxed" runs the over-relaxed z-step (relax_alpha = 1.5) and the loose
+# Krylov acceptance that f32_presets turns on (lin_accept_rel = 1e-4), with
+# CG given no tolerance (a strict solve never converges) and cut at 10
+# iterations, where every solve of the run is below 1e-4 of |b|.  Accepted,
+# the run goes on for two ADMM iterations of 13 Newton iterates, every
+# solve 10 iterations long (so no count hangs on a rounding at a tolerance);
+# STRICT, the same run without the acceptance, fails at its first solve
+RELAXED = dict(x_solver="cg", lin_max_iters=10, lin_abs_tol=0.0, lin_rel_tol=0.0, admm_steps=2,
+               relax_alpha=1.5, lin_accept_rel=1e-4)
+STRICT = dict(RELAXED, lin_accept_rel=0.0)
+RUNS = {"bicgstab": dict(admm_steps=2), "cg": BENCH_SOLVER, "relaxed": RELAXED}
+# the golden file of each run (tests/goldens/, made by make_admm_goldens.py);
+# the relaxed file also holds STRICT's counts as "strict_*"
+GOLDEN_FILES = {"admm_3d_refs1.npz": ("bicgstab", "cg"), "admm_3d_refs1_relaxed.npz": ("relaxed",)}
 
 
 def _levels(gen, ref, dim, refs):
