@@ -13,7 +13,6 @@ as bench.py makes it.
 """
 from __future__ import annotations
 
-import math
 import time
 from typing import NamedTuple
 
@@ -21,6 +20,8 @@ import numpy as np
 import torch
 
 from .ops import patchstencil as st
+from .ops.deformation import barycenter
+from .ops.geometry import elem_geometry
 from .optim import admm
 from .optim.spaces import PatchOps
 from .xupdate_solve import DIRICHLET, SolveContext
@@ -40,13 +41,12 @@ class ADMMRun(NamedTuple):
 
 
 def reference_targets(hier):
-    """Volume and unnormalized barycenter of the undeformed fine mesh, in
-    float64 numpy (bench.py keeps them off the device)."""
-    fine = hier.fine
-    X = np.asarray(fine.coords, np.float64)
-    E = np.asarray(fine.elems)
-    vol = np.abs(np.linalg.det(X[E[:, 1:]] - X[E[:, :1]])) / math.factorial(hier.dim)
-    return vol.sum(), (vol[:, None] * X[E].mean(axis=1)).sum(0)
+    """Volume and unnormalized barycenter of the undeformed fine mesh
+    (the constraint targets, models/obstacle.py:291-294), float64 on the
+    host (bench.py keeps them off the device): a 0-d and a (d,) tensor."""
+    X = torch.as_tensor(hier.fine.coords, dtype=torch.float64)
+    E = torch.as_tensor(hier.fine.elems.astype(np.int64))
+    return elem_geometry(X, E)[3].sum(), barycenter(X, E, torch.zeros_like(X.T))
 
 
 def shape_gradient(ctx: SolveContext, seed: int = 1) -> torch.Tensor:

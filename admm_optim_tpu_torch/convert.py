@@ -4,7 +4,8 @@ Turns the JAX package's state, given as numpy arrays (e.g.
 ``jax.tree_util.tree_map(np.asarray, data)``), into the port's on a torch
 device: the assembled multigrid state (``PatchMGData`` and its
 ``LevelTables``), the ADMM configuration and state, the Newton
-configuration, the packed NS state and the PCD Schur data.  Only
+configuration, the packed NS state, the PCD Schur data, the problem
+configuration of the optimization step and its resume state.  Only
 attributes are read, so this module imports nothing of JAX.
 """
 from __future__ import annotations
@@ -90,6 +91,29 @@ def newton_config(cfg):
     from .solvers.ns_solver import NewtonConfig
 
     return NewtonConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(NewtonConfig)})
+
+
+def problem_config(cfg):
+    """JAX ProblemConfig -> port ProblemConfig, field by field, with its
+    ADMM and Newton configurations through admm_config and newton_config."""
+    from .models.obstacle import ProblemConfig
+
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ProblemConfig)}
+    out.update(admm=admm_config(cfg.admm), ns=newton_config(cfg.ns))
+    return ProblemConfig(**out)
+
+
+def resume_state(d, device, dtype=None) -> dict:
+    """A JAX checkpoint dict (io.checkpoint.load_checkpoint: numpy arrays)
+    -> the port's ObstacleShapeOpt.run(resume=...): X (V, d) and the packed
+    state s as tensors on the device, sigma, drag_old and drag_init as
+    floats, step as an int (drag_init defaults to drag_old)."""
+    out = dict(
+        X=tensor(d["X"], device, dtype).contiguous(), s=ns_state(d["s"], device, dtype),
+        sigma=float(d["sigma"]), step=int(d["step"]), drag_old=float(d["drag_old"]),
+    )
+    out["drag_init"] = float(d["drag_init"]) if "drag_init" in d else out["drag_old"]
+    return out
 
 
 def ns_state(s, device, dtype=None) -> torch.Tensor:

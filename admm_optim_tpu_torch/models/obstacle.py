@@ -1,0 +1,409 @@
+"""The optimization step: drag-minimizing obstacle shape optimization in
+steady incompressible Navier-Stokes channel flow on the patch backend (port
+of admm_optim_tpu/models/obstacle.py, the reference's 2d_admm.lua /
+3d_admm.lua outer loop).
+
+    cfg = f32_presets(ProblemConfig(dim=3, num_refs=2, visc=0.02))
+    prob = ObstacleShapeOpt(cfg)               # on the card, float32
+    hist = prob.run(num_steps=1)               # ladder, then one step
+    hist[0].drag, prob.step_log[0]["seconds"]
+
+    ObstacleShapeOpt(cfg, device="cpu", dtype=torch.float64)   # the plain forms
+
+Per step (obstacle.py:1248-1495): the adjoint (warm from the last step's
+lambda and GCRO-DR space), the masked shape gradient J', then attempts
+until one is accepted: the deformation multigrid assembled at X, the ADMM
+inner loop on the patch lattice, X_new = X + u, the tangle test, the NS
+re-solve at X_new (warm, its recycle space carried across rungs and
+steps), and the descent test.  A failed ADMM halves sigma in 2D and the J'
+scaling in 3D (admm_failure_control "auto"); a tangled mesh, a diverged
+re-solve or no descent halve sigma.
+
+The port has only the host-stepped drivers, so the JAX package's
+``num_elems > 20000`` switches between monolithic and stepped drivers are
+gone.  What is not ported raises NotImplementedError naming the ROADMAP
+item that brings it: the global (ELL) backend, b2nd_order and grid_path
+(item 9), telemetry, checkpoints, the profiler and the debug outputs (item
+8b).  The assembled NS Jacobian is the only NS operator: above
+ns_jac_mem_cap the constructor raises instead of falling back to the
+matrix-free jvp (item 9).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .. import ns_run, resolve_device, xupdate_solve
+from ..core.mesh import Hierarchy
+from ..ops import navier_stokes as nsops
+from ..ops import ns_patchjac as nsjac
+from ..ops import patchstencil as st
+from ..ops import stencil_kernels as sk
+from ..ops.deformation import barycenter
+from ..ops.geometry import elem_geometry
+from ..optim import admm
+from ..optim.spaces import PatchOps
+from ..solvers import ns_solver
+
+
+@dataclasses.dataclass(frozen=True)
+class ProblemConfig:
+    """All reference CLI knobs (2d_admm.lua:43-87) in one place: the JAX
+    package's ProblemConfig, every field and default unchanged (see its
+    comments for the measurements behind them)."""
+
+    dim: int = 2
+    num_refs: int = 3  # -numRefs
+    num_steps: int = 400  # -numSteps
+    visc: float = 0.02  # -visc
+    stab: float = 0.0  # -stab
+    sigma_threshold: float = 0.3  # -sigma_threshold
+    scaling: float = 1.0  # -scaling
+    line_search_param: float = 1e-5  # -line_search
+    do_nothing: bool = True  # -bDoNothing
+    vorder: int = 2  # velocity order (reference: constant vorder=2)
+    b2nd_order: bool = False  # -b2ndOrder (2d:86): J'' term in the x-update
+    high_order_scaling: float = 1.0  # -hscaling (2d:51)
+    diameter: float = 6.0
+    max_attempts_per_step: int = 12  # bound on the reference's while(true)
+    grid_path: str | None = None  # load a .ugx instead of generating
+    pressure_precond: str = "mass"  # NS pressure block: "mass" | "pcd"
+    vel_inner: int = 1  # V-cycle-preconditioned Richardson steps of the velocity block
+    backend: str = "auto"  # "patch" | "global" | "auto" (patch when the mesh has bricks)
+    ns_assembled_jac: str = "auto"  # "auto" | "on" | "off"
+    ns_jac_mem_cap: float = 6e9  # bytes of W above which "auto" refuses
+    # step-size control on ADMM failure: "auto" halves sigma in 2D
+    # (2d_admm.lua:1269) and the J' scaling in 3D (3d_admm.lua:1322)
+    admm_failure_control: str = "auto"  # "auto" | "sigma" | "scaling"
+    newton_output: bool = False  # -bNewtonOutput
+    debug_output: bool = False  # -bDebugOutput
+    debug_nodal_positions: bool = False  # -bDebugNodalPositions
+    debug_nans: bool = False  # -debugNans
+    admm: admm.ADMMConfig = dataclasses.field(default_factory=admm.ADMMConfig)
+    ns: ns_solver.NewtonConfig = dataclasses.field(default_factory=ns_solver.NewtonConfig)
+
+
+def f32_presets(cfg: ProblemConfig) -> ProblemConfig:
+    """Solver tolerances reachable in float32 (obstacle.py:121-163).  The
+    3D x-update stop thresholds sit above the measured float32 floors of
+    the constraint sums (|g| ~4e-5, |DeltaLambda| ~7e-4 at refs=1): with
+    tighter ones every ADMM call "fails" and the step-size control halves
+    scaling to dust.  2D keeps the tighter values."""
+    ns_tol_f, g_tol_f = (2e-3, 2e-4) if cfg.dim == 3 else (1e-4, 1e-5)
+    a, n = cfg.admm, cfg.ns
+    return dataclasses.replace(
+        cfg,
+        admm=dataclasses.replace(
+            a, ns_tol=max(a.ns_tol, ns_tol_f),
+            ns_abs_tol=max(a.ns_abs_tol, 1e-5),
+            ns_abs_llambda_tol=max(a.ns_abs_llambda_tol, g_tol_f),
+            lin_abs_tol=max(a.lin_abs_tol, 1e-7),
+            lin_rel_tol=max(a.lin_rel_tol, 1e-7),
+            # the float32 Krylov floor grows with the mesh: accept a
+            # stagnated solve at <= 1e-4 relative
+            lin_accept_rel=max(a.lin_accept_rel, 1e-4),
+        ),
+        ns=dataclasses.replace(
+            n, accept_tol=max(n.accept_tol, 1e-4),
+            abs_tol=max(n.abs_tol, 1e-6),
+            lin_rel_tol=max(n.lin_rel_tol, 1e-4),
+            lin_abs_tol=max(n.lin_abs_tol, 1e-6),
+            adj_rel_tol=max(n.adj_rel_tol, 1e-6),
+        ),
+    )
+
+
+@dataclasses.dataclass
+class StepRecord:
+    step: int
+    drag: float
+    drag_diff: float
+    shape_derivative: float
+    sigma: float
+    scaling: float
+    admm_iters: int
+    newton_iters: int
+    lin_iters: int
+    attempts: int
+    wall_time: float
+    # per-solve-slot Krylov iteration sums (rhs, B_vol, B_x, B_y(, B_z)) -
+    # the reference's sum_rhssolver/sum_b*solver counters (2d:1379-1381)
+    solver_iters: tuple = ()
+
+
+def _refuse(cfg: ProblemConfig, hier: Hierarchy):
+    """NotImplementedError for what the port does not have yet, naming
+    the ROADMAP item that brings it; ValueError for unknown settings."""
+    if cfg.backend not in ("auto", "patch", "global"):
+        raise ValueError(f"backend must be 'auto', 'patch' or 'global', got {cfg.backend!r}")
+    if cfg.admm_failure_control not in ("auto", "sigma", "scaling"):
+        raise ValueError(f"admm_failure_control must be 'auto', 'sigma' or 'scaling', got {cfg.admm_failure_control!r}")
+    if cfg.ns_assembled_jac not in ("auto", "on", "off"):
+        raise ValueError(f"ns_assembled_jac must be 'auto', 'on' or 'off', got {cfg.ns_assembled_jac!r}")
+    item9 = {
+        "backend='global'": cfg.backend == "global",
+        "b2nd_order=True": cfg.b2nd_order,
+        "grid_path": cfg.grid_path is not None,
+        "vorder=1": cfg.vorder != 2,
+        "ns_assembled_jac='off' (the matrix-free NS jvp)": cfg.ns_assembled_jac == "off",
+        "a mesh without brick metadata": hier is not None and hier.levels[0].bricks is None,
+    }
+    for what, on in item9.items():
+        if on:
+            raise NotImplementedError(f"{what}: the global (ELL) backend comes with ROADMAP item 9")
+    for name in ("newton_output", "debug_output", "debug_nodal_positions", "debug_nans"):
+        if getattr(cfg, name):
+            raise NotImplementedError(f"{name}=True: telemetry and debug output come with ROADMAP item 8b")
+
+
+class _Phases:
+    """Synchronized seconds and kernel launches per phase of one step,
+    summed over its attempts.  Launches are differences of the counters in
+    ops.stencil_kernels, which are never reset here."""
+
+    def __init__(self, device):
+        self.device = device
+        self.seconds, self.launches, self.by_lattice = {}, {}, {}
+
+    def __call__(self, name, fn):
+        ns_run._sync(self.device)
+        before, before_lat = dict(sk.launches), dict(sk.launches_by_lattice)
+        t0 = time.perf_counter()
+        out = fn()
+        ns_run._sync(self.device)
+        self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        for counts, old, tot in ((sk.launches, before, self.launches.setdefault(name, {})),
+                                 (sk.launches_by_lattice, before_lat, self.by_lattice.setdefault(name, {}))):
+            for key, n in counts.items():
+                if n != old.get(key, 0):
+                    tot[key] = tot.get(key, 0) + n - old.get(key, 0)
+        return out
+
+
+class ObstacleShapeOpt:
+    """End-to-end shape optimization on the geomgen channel/obstacle mesh,
+    patch backend for the x-update and the NS solves."""
+
+    def __init__(self, cfg: ProblemConfig, hier: Hierarchy | None = None, device=None,
+                 dtype=torch.float32):
+        _refuse(cfg, hier)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        if hier is None:
+            hier = ns_run.channel(cfg.num_refs, cfg.dim)
+        if hier.dim != cfg.dim:
+            raise ValueError(f"the mesh is {hier.dim}D, the configuration {cfg.dim}D")
+        self.hier = hier
+        a = cfg.admm
+        # the x-update: deformation operator with the loop's coefficients
+        # (c_grad = tau) and PatchMGStructure's default V(3,3) Chebyshev
+        # cycle (obstacle.py:318-340); assembled at X on every attempt
+        self.xu = xupdate_solve.prepare(hier, self.device, dtype, a.c_eps, a.tau, a.c_mass, smoothing={})
+        # the NS side shares the level-k patchset and its fine tables
+        # (obstacle.py:349-352, :398-405)
+        self.ns = ns_run.build(
+            device=self.device, dtype=dtype, visc=cfg.visc, cfg=cfg.ns, stab=cfg.stab,
+            pressure_precond=cfg.pressure_precond, vel_inner=cfg.vel_inner, hier=hier, ps=self.xu.ps,
+            tab_c=self.xu.tabs[-1], do_nothing=cfg.do_nothing, diameter=cfg.diameter,
+        )
+        need = nsjac.jac_memory_bytes(self.xu.ps, self.ns.wiring, torch.finfo(dtype).bits // 8)
+        if cfg.ns_assembled_jac == "auto" and need > cfg.ns_jac_mem_cap:
+            raise NotImplementedError(
+                f"the assembled NS Jacobian needs {need:.3e} bytes, above ns_jac_mem_cap "
+                f"{cfg.ns_jac_mem_cap:.3e}: the matrix-free jvp comes with ROADMAP item 9"
+            )
+        fine = hier.fine
+        self.X0 = self.ns.coords
+        self.elems = torch.as_tensor(fine.elems.astype(np.int64), device=self.device)
+        _, det0, _, vol = elem_geometry(self.X0, self.elems)
+        self.ref_volume = vol.sum()
+        self.ref_barycenter = barycenter(self.X0, self.elems, torch.zeros_like(self.X0.T))
+        # element inversion is judged against the undeformed orientation
+        # (brick/Kuhn meshes carry mixed signed orientations)
+        self._sign0 = torch.sign(det0)
+        self.obstacle_vmask = self.ns.obstacle_vmask
+        # warm starts carried across steps: the adjoint's lambda and its
+        # GCRO-DR space, the forward solves' recycle space (across the
+        # ladder's rungs too)
+        self._cur_lam_adj = self._cur_Jp = None
+        self._adj_recycle = {}
+        self._ns_recycle = {}
+        self.ladder = None  # ns_run.LadderResult of the cold start
+        self.step_log = []  # per step: seconds, launches and attempts (see run)
+
+    def initial_state(self, X):
+        return ns_run.initial_state(self.ns, X)
+
+    def _min_det(self, X):
+        return float(torch.min(self._sign0 * elem_geometry(X, self.elems)[1]))
+
+    def _drag(self, X, s):
+        return float(nsops.drag(self.ns.space, X, s, self.cfg.visc))
+
+    def _admm(self, mgdata, X, Jp, sigma, scaling, iter_cb=None):
+        """admm_inner on the patch lattice at X (obstacle.py:1000-1019):
+        X and J' to patch layout, u back to global (d, V) by owner."""
+        ps = self.xu.ps
+
+        def to_global(up):
+            return st.from_patch(ps.fine, up, X.shape[0], mode="owner")
+
+        ops_ = PatchOps(self.xu.struct, mgdata, st.to_patch(ps.fine, X.T))
+        res = admm.admm_inner(
+            self.cfg.admm, ops_, st.to_patch(ps.fine, Jp), sigma, scaling, self.ref_volume,
+            self.ref_barycenter, iter_cb=None if iter_cb is None else (lambda k, up: iter_cb(k, to_global(up))),
+        )
+        return dataclasses.replace(res, u=to_global(res.u))
+
+    def _ladder(self, verbose):
+        """The cold-start viscosity continuation (obstacle.py:1174-1214)."""
+        ns_run._sync(self.device)
+        t0 = time.perf_counter()
+        self.ladder = ns_run.solve_ladder(self.ns)
+        ns_run._sync(self.device)
+        self._ns_recycle = self.ladder.recycle
+        if verbose:
+            for r in self.ladder.rungs:
+                print(f"continuation: nu={r.nu:.4f} newton={r.newton.iters} |R|={r.newton.res_norm:.2e} "
+                      f"converged={r.newton.converged}")
+            print(f"continuation: {time.perf_counter() - t0:.1f} s", flush=True)
+        return self.ladder.s
+
+    def run(
+        self,
+        num_steps: int | None = None,
+        telemetry=None,
+        callback: Callable | None = None,
+        verbose: bool = False,
+        resume: dict | None = None,
+        checkpoint_path: str | None = None,
+        profiler=None,
+        admm_iter_cb: Callable | None = None,
+    ) -> list[StepRecord]:
+        """The optimization loop; returns the accepted steps' records.
+
+        resume: {"X" (V, d), "s", "sigma", "step", "drag_old"[, "drag_init"]}
+        (convert.resume_state makes it from a JAX checkpoint): the loop
+        starts at step + 1 from that state instead of the cold-start ladder.
+        callback(step, X, s, rec) after every accepted step;
+        admm_iter_cb(step, attempt, k, u) with every ADMM iterate's global
+        u (d, V) (-bOutputIntermediateUp, 2d:84).
+
+        self.step_log gets one entry per step: "seconds", "launches" and
+        "by_lattice" per phase (adjoint, jprime, assemble, admm, min_det,
+        ns_solve, drag), "adjoint" (iterations, exit), "ns" per re-solve
+        (Newton and linear counts) and "attempts" (per attempt its outcome
+        and what it halved)."""
+        for name, v in (("telemetry", telemetry), ("checkpoint_path", checkpoint_path), ("profiler", profiler)):
+            if v is not None:
+                raise NotImplementedError(f"run({name}=...): comes with ROADMAP item 8b")
+        cfg = self.cfg
+        num_steps = cfg.num_steps if num_steps is None else num_steps
+        history: list[StepRecord] = []
+        if resume is not None:
+            X = torch.as_tensor(resume["X"], dtype=self.dtype, device=self.device).contiguous()
+            s = torch.as_tensor(resume["s"], dtype=self.dtype, device=self.device)
+            sigma = float(resume["sigma"])
+            drag_old = float(resume["drag_old"])
+            start_step = int(resume["step"]) + 1
+            self.drag_init = float(resume.get("drag_init", drag_old))
+        else:
+            X = self.X0
+            s = self._ladder(verbose)
+            drag_old = self._drag(X, s)
+            sigma = cfg.sigma_threshold
+            start_step = 0
+            self.drag_init = drag_old  # the normalizer of the drag telemetry
+        fc = cfg.admm_failure_control
+        if fc == "auto":
+            fc = "scaling" if cfg.dim == 3 else "sigma"
+
+        for step in range(start_step, num_steps):
+            t0 = time.perf_counter()
+            ph = _Phases(self.device)
+            log = dict(step=step, seconds=ph.seconds, launches=ph.launches, by_lattice=ph.by_lattice,
+                       attempts=[], ns=[])
+            self.step_log.append(log)
+            adj = ph("adjoint", lambda: ns_run.adjoint(
+                self.ns, s, X=X, lam0=self._cur_lam_adj, recycle=self._adj_recycle))
+            log["adjoint"] = dict(iters=adj.iters, exit=adj.exit, res_norm=adj.res_norm, target=adj.target)
+            if verbose:
+                print(f"  adjoint: {adj.iters} its |r|={adj.res_norm:.2e} ({adj.exit})", flush=True)
+            Jp = ph("jprime", lambda: ns_run.jprime(self.ns, s, adj.lam, X=X))
+            self._cur_lam_adj, self._cur_Jp = adj.lam, Jp
+            scaling = cfg.scaling  # reset each step (reference 2d:807)
+            accepted = False
+            attempts = 0
+            while not accepted and attempts < cfg.max_attempts_per_step:
+                attempts += 1
+                rec_a = dict(attempt=attempts, sigma=sigma, scaling=scaling, halved=None)
+                log["attempts"].append(rec_a)
+                mgdata = ph("assemble", lambda: xupdate_solve.assemble(self.xu, X))
+                icb = None if admm_iter_cb is None else (
+                    lambda k, u, _s=step, _a=attempts: admm_iter_cb(_s, _a, k, u))
+                res = ph("admm", lambda: self._admm(mgdata, X, Jp, sigma, scaling, iter_cb=icb))
+                rec_a.update(admm_it=res.admm_it, newton=res.total_newton, krylov=res.total_lin_iters)
+                if res.failed:
+                    # 2d:1269 halves sigma; 3d:1322 halves scaling instead
+                    rec_a.update(outcome="ADMM failed", halved=fc)
+                    if fc == "scaling":
+                        scaling *= 0.5
+                    else:
+                        sigma *= 0.5
+                    if verbose:
+                        print(f"step {step}: ADMM failed, {fc} -> {scaling if fc == 'scaling' else sigma}")
+                    continue
+                X_new = (X + res.u.T).contiguous()
+                if ph("min_det", lambda: self._min_det(X_new)) <= 0.0:
+                    sigma *= 0.5
+                    rec_a.update(outcome="tangled", halved="sigma")
+                    if verbose:
+                        print(f"step {step}: mesh tangled, sigma -> {sigma}")
+                    continue
+                nres, _ = ph("ns_solve", lambda: ns_run.newton(self.ns, s, recycle=self._ns_recycle, X=X_new))
+                log["ns"].append(dict(iters=nres.iters, lin_iters=list(nres.lin_iters), res_norm=nres.res_norm,
+                                      converged=nres.converged))
+                if not nres.converged:
+                    sigma *= 0.5
+                    rec_a.update(outcome="NS diverged", halved="sigma")
+                    if verbose:
+                        print(f"step {step}: NS diverged ({nres.res_norm:.2e}), sigma -> {sigma}")
+                    continue
+                drag_new = ph("drag", lambda: self._drag(X_new, nres.s))
+                shape_deriv = float(res.scaling * torch.sum(Jp * res.u))
+                ddiff = drag_new - drag_old
+                rec_a.update(drag=drag_new, drag_diff=ddiff, shape_derivative=shape_deriv)
+                # descent test (reference 2d:1300-1306)
+                if ddiff > 0.0 or ddiff > cfg.line_search_param * shape_deriv:
+                    sigma *= 0.5  # revert is implicit: X unchanged
+                    rec_a.update(outcome="not a descent", halved="sigma")
+                    if verbose:
+                        print(f"step {step}: not a descent ({ddiff:+.3e}), sigma -> {sigma}")
+                    continue
+                X, s, drag_old = X_new, nres.s, drag_new
+                accepted = True
+                rec_a["outcome"] = "accepted"
+                rec = StepRecord(
+                    step=step, drag=drag_new, drag_diff=abs(ddiff), shape_derivative=shape_deriv,
+                    sigma=sigma, scaling=float(res.scaling), admm_iters=res.admm_it,
+                    newton_iters=res.total_newton, lin_iters=res.total_lin_iters, attempts=attempts,
+                    wall_time=time.perf_counter() - t0, solver_iters=tuple(int(v) for v in res.solver_iters),
+                )
+                history.append(rec)
+                if verbose:
+                    print(f"step {step}: drag {drag_new:.6f} ({ddiff:+.2e}) admm={rec.admm_iters} "
+                          f"newton={rec.newton_iters} sigma={sigma} [{rec.wall_time:.2f}s]", flush=True)
+                if callback is not None:
+                    callback(step, X, s, rec)
+            if not accepted:
+                if verbose:
+                    print(f"step {step}: no acceptable step found, stopping")
+                break
+        self.X_final = X
+        self.s_final = s
+        return history

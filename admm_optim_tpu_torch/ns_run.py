@@ -49,22 +49,17 @@ from .ops.convdiff import convdiff_elem_mats
 from .solvers import ns_solver, patch_mg
 from .solvers.ns_solver import NewtonConfig
 
-NS_DIR = ("inlet", "wall", "obstacle_surface")  # velocity Dirichlet, do-nothing outlet
+NS_DIR = ("inlet", "wall", "obstacle_surface")  # velocity Dirichlet with the do-nothing outlet
 DEF_DIR = ("inlet", "wall", "outlet")  # deformation Dirichlet: masks J'
 PCD_DIR = ("inlet",)  # Dirichlet rows of the PCD Ap and Fp: where the flow enters
 
 
 def f32_presets(cfg: NewtonConfig) -> NewtonConfig:
-    """The NS part of the JAX package's f32_presets (obstacle.py:153-162):
-    tolerances a float32 run can reach."""
-    return dataclasses.replace(
-        cfg,
-        accept_tol=max(cfg.accept_tol, 1e-4),
-        abs_tol=max(cfg.abs_tol, 1e-6),
-        lin_rel_tol=max(cfg.lin_rel_tol, 1e-4),
-        lin_abs_tol=max(cfg.lin_abs_tol, 1e-6),
-        adj_rel_tol=max(cfg.adj_rel_tol, 1e-6),
-    )
+    """The NS part of models.obstacle.f32_presets: tolerances a float32 run
+    can reach."""
+    from .models.obstacle import ProblemConfig, f32_presets as presets
+
+    return presets(ProblemConfig(ns=cfg)).ns
 
 
 def continuation_ladder(visc: float, start: float = 0.16):
@@ -202,40 +197,54 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def build(num_refs: int, device=None, dtype=torch.float32, visc: float = 0.16, dim: int = 3,
+def channel(num_refs: int, dim: int = 3) -> Hierarchy:
+    """The geomgen channel (3D, or 2D with fixed diagonals, which carries
+    the brick metadata of the patch backend) refined num_refs times."""
+    levels = [geomgen.channel_3d() if dim == 3 else geomgen.channel_2d(diag="fixed")]
+    for _ in range(num_refs):
+        levels.append(refine(levels[-1]))
+    return Hierarchy(levels)
+
+
+def build(num_refs: int | None = None, device=None, dtype=torch.float32, visc: float = 0.16, dim: int = 3,
           cfg: NewtonConfig | None = None, stab: float = 0.0, pressure_precond: str = "mass",
-          vel_inner: int = 1) -> NSContext:
+          vel_inner: int = 1, *, hier: Hierarchy | None = None, ps: PatchSet | None = None,
+          tab_c: st.LevelTables | None = None, do_nothing: bool = True, diameter: float = 6.0) -> NSContext:
     """Host hierarchy, NS space, the level-k and once-refined patchsets
     with their device tables, and the level-0 wiring of the dense base
     solves.  device defaults to the card (an error without one); cfg
     defaults to NewtonConfig(), with f32_presets for float32.
     pressure_precond "pcd" adds the scalar pressure tables and V-cycle
     structure of the PCD Schur block; vel_inner > 1 runs that many
-    V-cycle-preconditioned Richardson steps in the velocity block."""
+    V-cycle-preconditioned Richardson steps in the velocity block.
+    hier replaces channel(num_refs, dim); ps and tab_c, the level-k
+    patchset with the deformation's Dirichlet set and its fine tables,
+    share the x-update's (models/obstacle.py:349-352, :398-405).
+    do_nothing=False adds the outlet to the velocity's Dirichlet set."""
     if pressure_precond not in ("mass", "pcd"):
         raise ValueError(f"pressure_precond must be 'mass' or 'pcd', got {pressure_precond!r}")
     device = resolve_device(device)
     t0 = time.perf_counter()
-    base = geomgen.channel_3d() if dim == 3 else geomgen.channel_2d(diag="fixed")
-    levels = [base]
-    for _ in range(num_refs):
-        levels.append(refine(levels[-1]))
-    hier = Hierarchy(levels)
+    if hier is None:
+        hier = channel(num_refs, dim)
+    dim = hier.dim
+    ns_dir = NS_DIR + (() if do_nothing else ("outlet",))
     lvl = hier.fine
-    space = nsops.NSSpace.build(lvl, vorder=2)
+    space = nsops.NSSpace.build(lvl, vorder=2, do_nothing=do_nothing, diameter=diameter)
     fine_pre = refine(lvl)
-    pre_ps = build_patchset(Hierarchy(hier.levels + [fine_pre]), dirichlet=NS_DIR)
+    pre_ps = build_patchset(Hierarchy(hier.levels + [fine_pre]), dirichlet=ns_dir)
     pre_struct = patch_mg.PatchMGStructure(
         pre_ps, pre_smooth=2, post_smooth=2, smoother="jacobi", smoother_w="f32"
     )
     pre_tabs = patch_mg.make_level_tables(pre_ps, dtype, device)
-    ps = build_patchset(hier)
-    tab_c = st.make_tables(ps.fine, dtype, device)
+    if ps is None:
+        ps = build_patchset(hier)
+        tab_c = st.make_tables(ps.fine, dtype, device)
     lvl0 = hier.levels[0]
     base0 = dict(
         elems=torch.as_tensor(lvl0.elems.astype(np.int64), device=device),
         pat_v=sparsity.build_pattern(lvl0.elems, lvl0.num_vertices, dim),
-        fixed_v=torch.as_tensor(np.repeat(lvl0.vertex_mask(NS_DIR)[None], dim, axis=0), device=device),
+        fixed_v=torch.as_tensor(np.repeat(lvl0.vertex_mask(ns_dir)[None], dim, axis=0), device=device),
     )
     pcd_tabs = pcd_struct = None
     if pressure_precond == "pcd":
@@ -264,21 +273,23 @@ def build(num_refs: int, device=None, dtype=torch.float32, visc: float = 0.16, d
     return ctx
 
 
-def initial_state(ctx: NSContext):
+def initial_state(ctx: NSContext, X=None):
     """Inlet data on the velocity, zero elsewhere and in the pressure
-    (obstacle.py initial_state)."""
-    g = nsops.inlet_values(ctx.space, ctx.coords)
-    return ctx.space.pack(g, ctx.coords.new_zeros((ctx.space.n_pressure,)))
+    (obstacle.py initial_state), on the mesh X (default ctx.coords)."""
+    X = ctx.coords if X is None else X
+    g = nsops.inlet_values(ctx.space, X)
+    return ctx.space.pack(g, X.new_zeros((ctx.space.n_pressure,)))
 
 
-def newton(ctx: NSContext, s0=None, visc: float | None = None, recycle: dict | None = None):
-    """The forward Newton solve at visc (default ctx.visc) from s0
-    (default: the cold start).  recycle carries the GCRO-DR space across
-    calls (newton_solve_stepped).  Returns (NewtonResult, assembly seconds:
-    per Newton iterate a dict {"velocity", "pcd" with PCD, "jacobian"})."""
-    X = ctx.coords
+def newton(ctx: NSContext, s0=None, visc: float | None = None, recycle: dict | None = None, X=None):
+    """The forward Newton solve on the mesh X (default ctx.coords; (V, d),
+    contiguous) at visc (default ctx.visc) from s0 (default: the cold
+    start).  recycle carries the GCRO-DR space across calls
+    (newton_solve_stepped).  Returns (NewtonResult, assembly seconds: per
+    Newton iterate a dict {"velocity", "pcd" with PCD, "jacobian"})."""
+    X = ctx.coords if X is None else X
     nu = ctx.visc if visc is None else float(visc)
-    s0 = initial_state(ctx) if s0 is None else s0
+    s0 = initial_state(ctx, X) if s0 is None else s0
     assembly = []
 
     def pre_fn(s):
@@ -351,25 +362,27 @@ def solve_ladder(ctx: NSContext, visc: float | None = None, start: float = 0.16)
     return LadderResult(s, rungs, recycle)
 
 
-def adjoint(ctx: NSContext, s):
-    """The adjoint at the state s and at ctx.visc with the exact transpose
-    of the forward preconditioner built at s (obstacle.py
-    _adjoint_stepped)."""
-    X = ctx.coords
+def adjoint(ctx: NSContext, s, X=None, lam0=None, recycle: dict | None = None):
+    """The adjoint on the mesh X (default ctx.coords) at the state s and at
+    ctx.visc with the exact transpose of the forward preconditioner built
+    at s (obstacle.py _adjoint_stepped); lam0 and recycle are its warm
+    start (ns_solver.adjoint_solve_stepped)."""
+    X = ctx.coords if X is None else X
     m_args = ctx.pre_full(X, s, ctx.visc)
     W = m_args[-1]
     MT = ns_solver.transpose_M(lambda r: ctx.M_fn(r, *m_args), ctx.n_state, X.dtype, X.device)
     return ns_solver.adjoint_solve_stepped(
-        ctx.space, X, s, ctx.visc, lambda v: ctx.jtv(v, W), MT, ctx.cfg,
+        ctx.space, X, s, ctx.visc, lambda v: ctx.jtv(v, W), MT, ctx.cfg, lam0=lam0, recycle=recycle,
     )
 
 
-def jprime(ctx: NSContext, s, lam):
-    """The shape gradient (d, V): masked to the obstacle surface and by the
-    deformation's free mask (obstacle.py _jprime)."""
-    X = ctx.coords
+def jprime(ctx: NSContext, s, lam, X=None):
+    """The shape gradient (d, V) on the mesh X (default ctx.coords): masked
+    to the obstacle surface and by the deformation's free mask (obstacle.py
+    _jprime)."""
+    X = ctx.coords if X is None else X
     g = ns_solver.shape_gradient(ctx.space, X, s, lam, ctx.visc, ctx.stab, ctx.obstacle_vmask)
-    return g.T * ctx.free_def
+    return (g.T * ctx.free_def).contiguous()
 
 
 class NSRun(NamedTuple):
@@ -385,13 +398,17 @@ class NSRun(NamedTuple):
     rungs: list | None = None  # the ladder's Rung records when a target was given
 
 
-def run(ctx: NSContext, target_visc: float | None = None) -> NSRun:
+def run(ctx: NSContext, target_visc: float | None = None, adjoint_iters: int | None = None) -> NSRun:
     """Without a target: cold start, Newton at ctx.visc, drag, adjoint, J'.
     With one: the cold-start ladder down to target_visc (solve_ladder),
-    then drag, adjoint and J' at the target.  The kernel launch counts are
-    reset before each phase and read after it."""
+    then drag, adjoint and J' at the target.  adjoint_iters cuts the
+    adjoint's budget (4 * lin_max_iters) to about that many iterations.
+    The kernel launch counts are reset before each phase and read after
+    it."""
     if target_visc is not None:
         ctx = ctx.at_visc(target_visc)
+    actx = ctx if adjoint_iters is None else dataclasses.replace(
+        ctx, cfg=dataclasses.replace(ctx.cfg, lin_max_iters=adjoint_iters // 4))
     dev = ctx.coords.device
     seconds, launches, by_lattice = {}, {}, {}
 
@@ -414,6 +431,6 @@ def run(ctx: NSContext, target_visc: float | None = None) -> NSRun:
         rungs = lad.rungs
         nres, assembly = rungs[-1].newton, rungs[-1].assembly_seconds
     drag = phase("drag", lambda: float(nsops.drag(ctx.space, ctx.coords, nres.s, ctx.visc)))
-    ares = phase("adjoint", lambda: adjoint(ctx, nres.s))
+    ares = phase("adjoint", lambda: adjoint(actx, nres.s))
     jp = phase("jprime", lambda: jprime(ctx, nres.s, ares.lam))
     return NSRun(nres, assembly, drag, ares, jp, float(torch.linalg.vector_norm(jp)), seconds, launches, by_lattice, rungs)

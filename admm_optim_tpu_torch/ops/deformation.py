@@ -1,9 +1,10 @@
 """Deformation (x-update) element operators: the constant SPD part
 a(u,w) + tau*(grad u, grad w) of the extension bilinear form.
 
-Port of admm_optim_tpu/ops/deformation.py:44-125 (element matrices) and
-:281-322 (the z-update projections); the global-representation constraint
-functionals come with the ELL backend.
+Port of admm_optim_tpu/ops/deformation.py:44-125 (element matrices),
+:148-159 (the barycenter, the constraint target of the optimization step)
+and :281-322 (the z-update projections); the other global-representation
+constraint functionals come with the ELL backend.
 Element matrices are ``(C, C, nl, nl, ...)`` with ``A[c, d, i, j]``
 coupling test dof (i, c) with trial dof (j, d).
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .geometry import corner_geometry, elem_geometry, p1_phys_grads
+from .geometry import corner_geometry, elem_geometry, gather_elem, p1_phys_grads, sdet
 
 
 def _mass_factors(nl, d, like):
@@ -93,6 +94,25 @@ def deformation_elem_mats(coords, elems, c_eps, c_grad, c_mass):
 # ---------------------------------------------------------------------------
 # z-update prox (exact elementwise)
 # ---------------------------------------------------------------------------
+
+def elem_grads_of(coords, elems, u):
+    """Per-element gradient of a P1 vector field u (C, V): (G (d, d, E)
+    with G[c, d] = d_d u_c, vol (E,))."""
+    _, _, Jinv, vol = elem_geometry(coords, elems)
+    g = p1_phys_grads(Jinv)  # (nl, d, E)
+    G = torch.einsum("ide,cie->cde", g, u[:, elems.T])
+    return G, vol
+
+
+def barycenter(coords, elems, u):
+    """b_i(u) = int (x_i + u_i) det(I + grad u) dx (unnormalized, (d,));
+    BarycenterDefect (2d_admm.lua:1123)."""
+    G, vol = elem_grads_of(coords, elems, u)
+    d = coords.shape[1]
+    det = sdet(torch.eye(d, dtype=coords.dtype, device=coords.device)[:, :, None] + G)
+    centroid = (gather_elem(coords, elems) + u[:, elems.T]).mean(dim=1)  # (d, E), exact for linear integrands
+    return torch.einsum("e,ce->c", vol * det, centroid)
+
 
 def project_frobenius(Q, sigma):
     """Project (d, d, ...) tensors onto the Frobenius ball of radius sigma.

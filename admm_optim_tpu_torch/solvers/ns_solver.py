@@ -237,6 +237,7 @@ class AdjointResult(NamedTuple):
 
 def adjoint_solve_stepped(
     space, coords, s, visc, Jt: Callable, MT: Callable, cfg: NewtonConfig = NewtonConfig(),
+    lam0=None, recycle: dict | None = None,
 ) -> AdjointResult:
     """J^T lambda = -dJ_drag/ds by host-stepped FGMRES with GCRO-DR (the
     JAX package's models/obstacle.py _adjoint_stepped).
@@ -245,9 +246,12 @@ def adjoint_solve_stepped(
     the budgeted _restart_len(mult=2) rounded down to whole adj_exec_restart
     chunks; the budget is 4 * lin_max_iters.  A cycle whose starting
     residual does not drop below (1 - 1e-6) times the previous one stops
-    the loop (the float32 stagnation exit).  It starts cold, from lambda =
-    0 with no recycle space: the warm start across optimization steps
-    belongs to the optimization driver."""
+    the loop (the float32 stagnation exit).  The warm start across
+    optimization steps: lam0 is the first iterate (default 0), and
+    recycle is the caller's dict that carries the recycle space: a "U" of
+    the full rank adj_recycle_k is re-imaged against this Jt first (k
+    applies, charged to the budget), and the space the solve leaves is put
+    back under "U"."""
     gJ = drag_gradient(space, coords, s, visc)
     b = -gJ
     target = max(cfg.lin_abs_tol, cfg.adj_rel_tol * float(_norm(gJ)))
@@ -255,13 +259,18 @@ def adjoint_solve_stepped(
     rl_full = _restart_len(cfg, s.numel(), s.element_size(), mult=2)
     rl = max(ch, (rl_full // ch) * ch)
     budget = 4 * cfg.lin_max_iters
-    x = torch.zeros_like(s)
+    x = torch.zeros_like(s) if lam0 is None else lam0
     total, cycles = 0, 0
     beta_prev = None
     k_r = max(0, int(cfg.adj_recycle_k))
     if rl < 8 * k_r:
+        # harmonic Ritz directions of short cycles are noise
         k_r = 0
     U = C = None
+    U_carry = recycle.get("U") if recycle is not None else None
+    if k_r > 0 and U_carry is not None and U_carry.shape[0] == k_r:
+        U, C = krylov.gcro_prepare(Jt, U_carry)
+        total += k_r
     exit_ = "budget"
     while True:
         if U is not None:
@@ -298,6 +307,8 @@ def adjoint_solve_stepped(
             if Un.shape[0] == k_r:
                 U, C = Un, Cn
         del V, Z, H, B
+    if recycle is not None and k_r > 0 and U is not None:
+        recycle["U"] = U
     return AdjointResult(x, bf, total, exit_, target, cycles)
 
 

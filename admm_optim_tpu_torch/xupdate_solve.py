@@ -5,6 +5,9 @@ bench.py's ``get_mesh`` + ``assemble_ctx`` + ``run_size``.
     b = random_rhs(ctx, seed=0)             # free-masked right-hand side
     res = solve(ctx, b)                     # cg_ir_p to a 1e-8 true residual
 
+    ctx = prepare(hier, c_grad=2.0)         # the same without the assembly, any hierarchy
+    data = assemble(ctx, X)                 # multigrid data on the mesh X (V, d)
+
 The mesh is the 3D geomgen channel refined ``num_refs`` times (refs=4 is
 bench.py's headline size: 947,970 vertices, 2,843,910 DoF, fine lattice
 17^3 x 224 patches).  The operator is the deformation extension form with
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -33,6 +37,8 @@ DIRICHLET = ("inlet", "wall", "outlet")
 # bench.py run_size: cg_ir_p(rel_tol=1e-8, max_rounds=8, inner_rel=1e-5,
 # inner_iters=80)
 SOLVE_SETTINGS = dict(rel_tol=1e-8, max_rounds=8, inner_rel=1e-5, inner_iters=80)
+# bench.py's V-cycle: Chebyshev V(2,2) with cheb_lower = 0.2
+BENCH_SMOOTHING = dict(pre_smooth=2, post_smooth=2, cheb_lower=0.2)
 
 
 @dataclasses.dataclass
@@ -40,7 +46,10 @@ class SolveContext:
     hier: Hierarchy
     ps: PatchSet
     struct: patch_mg.PatchMGStructure
-    data: patch_mg.PatchMGData
+    tabs: list  # per level: st.LevelTables
+    corner_fn: Callable  # the block protocol of the element matrices
+    base_dense_fn: Callable  # (V0, d) level-0 coordinates -> dense base inverse
+    data: patch_mg.PatchMGData | None  # assembled at coords by build; None after prepare
     coords: torch.Tensor  # (V, d) fine-mesh coordinates on the device
     host_seconds: float  # mesh hierarchy + patchset + level tables
     assembly_seconds: float  # assemble_patch_mg, synchronized
@@ -55,17 +64,16 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def build(num_refs: int, device=None, dtype=torch.float32) -> SolveContext:
-    """Host hierarchy + patchset of the 3D geomgen channel, level-0 wiring
-    of the dense base solve, and the device assembly of every level.
-    device defaults to the card (an error without one); "cpu" takes the
-    plain forms."""
+def prepare(hier: Hierarchy, device=None, dtype=torch.float32, c_eps: float = 1.0, c_grad: float = 1.0,
+            c_mass: float = 1.0, smoothing: dict = BENCH_SMOOTHING) -> SolveContext:
+    """Everything of the solve that does not depend on the mesh's
+    coordinates: the patchset of hier, its level tables, the V-cycle
+    structure (PatchMGStructure with the arguments in smoothing, bench.py's
+    by default), the level-0 wiring of the dense base solve, and the
+    operator c_eps eps(u):eps(w) + c_grad grad(u):grad(w) + c_mass u.w.
+    data stays None: assemble() makes it at any coordinates."""
     device = resolve_device(device)
     t0 = time.perf_counter()
-    levels = [geomgen.channel_3d()]
-    for _ in range(num_refs):
-        levels.append(refine(levels[-1]))
-    hier = Hierarchy(levels)
     ps = build_patchset(hier)
     tabs = patch_mg.make_level_tables(ps, dtype, device)
     # level-0-only wiring of the base solve
@@ -76,26 +84,46 @@ def build(num_refs: int, device=None, dtype=torch.float32) -> SolveContext:
     )
     elems0 = torch.as_tensor(lvl0.elems.astype(np.int64), device=device)
     coords = torch.as_tensor(hier.fine.coords, dtype=dtype, device=device)
-    _sync(device)
-    host_seconds = time.perf_counter() - t0
 
     def base_dense_fn(coords0):
-        em0 = deformation_elem_mats(coords0, elems0, 1.0, 1.0, 1.0)
+        em0 = deformation_elem_mats(coords0, elems0, c_eps, c_grad, c_mass)
         v0 = sparsity.assemble_values(pat0, em0)
         v0 = sparsity.bake_dirichlet(pat0, v0, fixed0)
         # outside any kernel, as the JAX package leaves it to XLA
         return torch.linalg.inv(sparsity.to_dense(pat0, v0))
 
-    struct = patch_mg.PatchMGStructure(ps, pre_smooth=2, post_smooth=2, cheb_lower=0.2)
-    t0 = time.perf_counter()
-    data = patch_mg.assemble_patch_mg(
-        ps, struct, coords, deformation_corner_block_fn(1.0, 1.0, 1.0),
-        base_dense_fn, tabs=tabs, sym=True,
-    )
+    struct = patch_mg.PatchMGStructure(ps, **smoothing)
     _sync(device)
     return SolveContext(
-        hier, ps, struct, data, coords, host_seconds, time.perf_counter() - t0
+        hier, ps, struct, tabs, deformation_corner_block_fn(c_eps, c_grad, c_mass), base_dense_fn,
+        None, coords, time.perf_counter() - t0, 0.0,
     )
+
+
+def assemble(ctx: SolveContext, X: torch.Tensor) -> patch_mg.PatchMGData:
+    """The multigrid data (symmetric half stencils on every level, dense
+    base inverse) of ctx's operator on the mesh X (V, d)."""
+    return patch_mg.assemble_patch_mg(
+        ctx.ps, ctx.struct, X.contiguous(), ctx.corner_fn, ctx.base_dense_fn, tabs=ctx.tabs, sym=True,
+    )
+
+
+def build(num_refs: int, device=None, dtype=torch.float32) -> SolveContext:
+    """Host hierarchy + patchset of the 3D geomgen channel, level-0 wiring
+    of the dense base solve, and the device assembly of every level, at
+    bench.py's settings.  device defaults to the card (an error without
+    one); "cpu" takes the plain forms."""
+    t0 = time.perf_counter()
+    levels = [geomgen.channel_3d()]
+    for _ in range(num_refs):
+        levels.append(refine(levels[-1]))
+    ctx = prepare(Hierarchy(levels), device, dtype)
+    ctx.host_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx.data = assemble(ctx, ctx.coords)
+    _sync(ctx.coords.device)
+    ctx.assembly_seconds = time.perf_counter() - t0
+    return ctx
 
 
 def random_rhs(ctx: SolveContext, seed: int = 0) -> torch.Tensor:

@@ -2,7 +2,13 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only    (phases 1-3, then stop)
+    python3 chip_smoke.py --phase NAME[,NAME]   (build and kernels, then these phases)
+    python3 chip_smoke.py --kernels-only        (= --phase kernels: phases 1-3, then stop)
+
+NAME is one of kernels, slice, admm, ns, step, pcd, small (admm brings
+slice, whose refs=4 context it runs on); the default runs them all, and
+only the full run prints the {"ok": true, ...} line.  Run alone, step
+climbs its own viscosity ladder.
 
 Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
   1. device: the card's name and power limit;
@@ -42,19 +48,33 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      then at the first rung's state (visc 0.16) the drag, the adjoint with
      the vjp-transposed preconditioner (K5^T) under a cut iteration budget,
      and the masked shape gradient J';
-  7. pcd: ns_run.run(ctx, target_visc=0.02) at refs=2, float32, with the
+  7. step: one optimization step of models.obstacle.ObstacleShapeOpt at
+     3D refs=2, visc 0.02, float32 with f32_presets and the mass block,
+     started from the 0.02 state the ns phase's ladder reached (the JAX
+     package's "step -1" state; alone, the phase runs its own ladder):
+     seconds, launches and launches by lattice per phase (adjoint, J',
+     assemble, ADMM, tangle test, NS re-solve, drag), the StepRecord, every
+     attempt and what it halved; gates: accepted within
+     max_attempts_per_step, drag fell, min det > 0, the re-solved |R|
+     rechecked in float64 <= accept_tol, volume and barycenter of the new
+     mesh (float64, on the host) within 10 x ns_abs_llambda_tol of the
+     undeformed mesh's; then one step at refs=1 from the cold start held
+     against the port's float64 CPU run kept in
+     tests/goldens/chip_step_refs1.npz;
+  8. pcd: ns_run.run(ctx, target_visc=0.02) at refs=2, float32, with the
      PCD pressure block: the ladder (per rung: Newton and linear counts,
      |R|, assembly seconds of the velocity data, the PCD data and the
      Jacobian, seconds per linear iteration; the last |R| rechecked in
-     float64 with the plain residual), drag, adjoint and J' at visc 0.02,
+     float64 with the plain residual), drag, adjoint (cut to 200
+     iterations) and J' at visc 0.02,
      launches per phase, peak memory, and a profiled window of the Krylov
      operators for the card's busy share and K5's share of device time;
-  8. small: refs=1 solve, ADMM run and PCD ladder to visc 0.02 (with
+  9. small: refs=1 solve, ADMM run and PCD ladder to visc 0.02 (with
      drag, adjoint and J') held against the port's float64 CPU runs: the
      solve and the ADMM run here, the ladder as kept in
      tests/goldens/chip_pcd_ladder_refs1.npz (made on the CPU, in minutes,
-     by tests/goldens/make_chip_reference.py).
-Each path (solve, ADMM, NS, PCD) is driven with the launch counts set to 0
+     by tests/goldens/make_chip_reference.py, which also makes the step's).
+Each path (solve, ADMM, NS, step, PCD) is driven with the launch counts set to 0
 just before it (the NS paths reset them before each of their phases) and
 read just after; each of its kernels must have launched.  The counts are
 printed per kernel and per kernel and lattice.
@@ -80,9 +100,13 @@ from admm_optim_tpu_torch import _build, admm_run, ns_run, xupdate_solve
 from admm_optim_tpu_torch.core import geomgen
 from admm_optim_tpu_torch.core.mesh import Hierarchy, refine
 from admm_optim_tpu_torch.core.patches import build_patchset
+from admm_optim_tpu_torch.models.obstacle import ObstacleShapeOpt, ProblemConfig, f32_presets
 from admm_optim_tpu_torch.ops import navier_stokes as nsops
 from admm_optim_tpu_torch.ops import patchstencil as st
 from admm_optim_tpu_torch.ops import stencil_kernels as sk
+from admm_optim_tpu_torch.ops.deformation import barycenter
+from admm_optim_tpu_torch.ops.geometry import elem_geometry
+from admm_optim_tpu_torch.optim.admm import ADMMConfig
 from admm_optim_tpu_torch.solvers.ns_solver import NewtonConfig, transpose_M
 
 SOURCE = "admm_optim_tpu_torch/csrc/stencil.cu"
@@ -116,13 +140,28 @@ DRAG_TOL = 2e-4
 JPRIME_TOL = 3e-4
 SMALL_REFERENCE = pathlib.Path(__file__).resolve().parent / "tests" / "goldens" / "chip_pcd_ladder_refs1.npz"
 REFERENCE_THREADS = 2
-NS_ADJOINT_BUDGET = 200  # adjoint iterations of the mass-block phase (the PCD phase runs to its exit)
+# adjoint iterations of the mass-block and PCD phases at refs=2 (the step
+# phase runs its adjoint at visc 0.02 to the exit)
+NS_ADJOINT_BUDGET = 200
+PHASES = ("kernels", "slice", "admm", "ns", "step", "pcd", "small")
+STEP_VISC = PCD_VISC  # 3d_admm.lua's default viscosity
+# the refs=1 step, card against CPU, at the ladder's first rung: one Newton
+# solve from the cold start, so the float64 CPU reference takes minutes
+STEP_SMALL_VISC = NS_VISC
+# the x-update of the JAX package's 3D reference run
+# (scripts/run_reference_3d.py:88-92): CG x-solves on the symmetric KKT Hessian
+STEP_ADMM = dict(admm_steps=40, ns_max_its=8, tau=2.0, lin_max_iters=250, x_solver="cg")
+STEP_REFERENCE = pathlib.Path(__file__).resolve().parent / "tests" / "goldens" / "chip_step_refs1.npz"
+# the refs=1 step: card drag after the step within this share of the CPU step's drag decrease
+STEP_DRAG_SHARE = 0.1
 # the kernels each path must launch, and the TPU kernel each replaces
 PATHS = {
     "solve": ("apply_w_sym", "apply_w_pencil", "apply_w_df_sym"),
     "admm": ("apply_w_sym/lanes", "apply_w_pencil_batched"),
     "ns": ("apply_w_full", "apply_w_full_t"),
     "pcd": ("apply_w_full", "apply_w_full_t", "apply_w_full/c1", "apply_w_full_t/c1"),
+    # K1 on lanes in the x-update's batched CG, K5 in the NS re-solve, K5^T in the adjoint
+    "step": ("apply_w_sym/lanes", "apply_w_full", "apply_w_full_t"),
 }
 REPLACES = {
     "apply_w_sym": f"{PALLAS}:213",
@@ -147,6 +186,7 @@ JSON_SHAPE.update({"apply_w_full": "9^3x224", "apply_w_full_t": "9^3x224",
 BY_SHAPE = {
     "apply_w_sym": ("9^3x224", "5^3x224", "3^3x224"),
     "apply_w_pencil": ("9^3x224", "5^3x224", "3^3x224"),
+    "apply_w_pencil_batched": ("9^3x224",),
     "apply_w_full": ("5^3x224", "3^3x224"),
     "apply_w_full_t": ("5^3x224", "3^3x224"),
     "apply_w_full/c1": ("3^3x224", "5^3x222"),
@@ -578,9 +618,12 @@ def check_adjoint_and_gradient(tag, ctx, adj, drag, jp, exits):
     check(float(jp[off].abs().max()) == 0.0 and float(jp.abs().max()) > 0, f"{tag}: J' nonzero only on the obstacle")
 
 
-def float64_residual(ctx, s):
+def float64_residual(ctx, s, X=None):
+    """|R| of the state s on the mesh X (default ctx.coords), in float64
+    with the plain residual."""
+    X = ctx.coords if X is None else X
     return float(torch.linalg.vector_norm(
-        nsops.ns_residual(ctx.space, ctx.coords.double(), s.double(), ctx.visc, ctx.stab)))
+        nsops.ns_residual(ctx.space, X.double(), s.double(), ctx.visc, ctx.stab)))
 
 
 def ns_phase(ctx_pcd, launches, by_lattice):
@@ -641,6 +684,152 @@ def ns_phase(ctx_pcd, launches, by_lattice):
     return rungs
 
 
+def step_config(num_refs, visc):
+    """3D channel, the x-update of STEP_ADMM, float32 presets (the card's
+    run and its float64 CPU reference use the same tolerances)."""
+    return f32_presets(ProblemConfig(dim=3, num_refs=num_refs, visc=visc, admm=ADMMConfig(**STEP_ADMM)))
+
+
+def host_constraints(prob, X):
+    """Volume and unnormalized barycenter of the mesh X, float64 on the
+    host."""
+    X64 = X.detach().double().cpu()
+    E = prob.elems.cpu()
+    return float(elem_geometry(X64, E)[3].sum()), barycenter(X64, E, torch.zeros_like(X64.T)).numpy()
+
+
+def log_step(tag, prob, hist):
+    """The step's record, its attempts and per phase its seconds, launches
+    and launches by lattice."""
+    log_ = prob.step_log[-1]
+    for a in log_["attempts"]:
+        log(f"[{tag}] attempt {a['attempt']}: sigma {a['sigma']:g}, scaling {a['scaling']:g}, {a['outcome']}"
+            + (f", halved {a['halved']}" if a["halved"] else "")
+            + f"; ADMM {a['admm_it']} iterations, {a['newton']} Newton, {a['krylov']} Krylov"
+            + (f"; drag {a['drag']:.10g} ({a['drag_diff']:+.4e}), <J', u> scaled {a['shape_derivative']:+.4e}"
+               if "drag" in a else ""))
+    adj = log_["adjoint"]
+    log(f"[{tag}] adjoint: {adj['iters']} iterations, exit {adj['exit']}, |r| {adj['res_norm']:.3e}, "
+        f"target {adj['target']:.3e}; NS re-solves: "
+        + "; ".join(f"{n['iters']} Newton, linear {n['lin_iters']}, |R| {n['res_norm']:.3e}" for n in log_["ns"]))
+    for r in hist:
+        log(f"[{tag}] {r}")
+    total = sum(log_["seconds"].values())
+    log(f"[{tag}] seconds per phase: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in log_["seconds"].items())
+        + f"; {total:.3f} s in the phases, wall {hist[-1].wall_time if hist else float('nan'):.3f} s")
+    for phase, n in log_["launches"].items():
+        log(f"[{tag}] launches in the {phase} phase: {n}")
+        log_lattices(tag, log_["by_lattice"][phase], phase)
+
+
+def step_phase(launches, by_lattice, ladder_s=None):
+    """One optimization step at 3D refs=2, visc STEP_VISC, float32, mass
+    block, through ObstacleShapeOpt.run.  ladder_s, the state the ns
+    phase's ladder reached at STEP_VISC, is handed to run as the JAX
+    package's "step -1" state; without it run climbs its own ladder.  The
+    launch counts are set to 0 just before run and read just after; the
+    step path's are those of the step's own phases (the ladder's are not)."""
+    t0 = time.perf_counter()
+    cfg = step_config(2, STEP_VISC)
+    prob = ObstacleShapeOpt(cfg)
+    sync()
+    log(f"[step] refs=2 n_state={prob.ns.n_state}, deformation lattice {prob.xu.ps.fine.lat_shape} x "
+        f"{prob.xu.ps.P}, velocity lattice {prob.ns.pre_ps.fine.lat_shape} x {prob.ns.pre_ps.P}, visc {STEP_VISC}, "
+        f"x-update {STEP_ADMM}, set-up {time.perf_counter() - t0:.2f} s")
+    resume = None
+    if ladder_s is not None:
+        resume = dict(X=prob.X0, s=ladder_s, sigma=cfg.sigma_threshold, step=-1,
+                      drag_old=float(nsops.drag(prob.ns.space, prob.X0, ladder_s, STEP_VISC)))
+        log(f"[step] resumed from the ns phase's ladder state at visc {STEP_VISC}: drag {resume['drag_old']:.10g}")
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    hist = prob.run(num_steps=1, resume=resume)
+    sync()
+    seconds = time.perf_counter() - t0
+    if prob.ladder is not None:
+        report_rungs("step", prob.ladder.rungs)
+    log_step("step", prob, hist)
+    log_ = prob.step_log[-1]
+    counts = {name: sum(n.get(name, 0) for n in log_["launches"].values()) for name in sk.launches}
+    by_lattice["step"] = sum_lattices(log_["by_lattice"])
+    launches["step"] = required_launched("step", {name: n for name, n in counts.items() if n})
+    check(len(hist) == 1 and hist[0].attempts <= cfg.max_attempts_per_step,
+          f"refs=2 step accepted within {cfg.max_attempts_per_step} attempts")
+    rec, drag_old = hist[0], prob.drag_init  # the drag the step started from
+    X, s = prob.X_final, prob.s_final
+    r64 = float64_residual(prob.ns, s, X)
+    vol, bary = host_constraints(prob, X)
+    vol0, bary0 = host_constraints(prob, prob.X0)
+    dvol, dbary = abs(vol - vol0), float(np.abs(bary - bary0).max())
+    limit = 10 * cfg.admm.ns_abs_llambda_tol
+    min_det = prob._min_det(X)
+    log(f"[step] drag {drag_old:.10g} -> {rec.drag:.10g} ({-rec.drag_diff:+.4e}, {-rec.drag_diff / drag_old:+.3e} "
+        f"relative), {rec.attempts} attempt(s); min det {min_det:.4e}; re-solved |R| {log_['ns'][-1]['res_norm']:.3e} "
+        f"(float64 recheck {r64:.3e}, accept_tol {cfg.ns.accept_tol:g}); volume {vol:.10g} vs {vol0:.10g} "
+        f"(|diff| {dvol:.3e}), barycenter max |diff| {dbary:.3e} (limit {limit:g}); run {seconds:.3f} s, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(rec.drag < drag_old, "refs=2 step: the drag fell")
+    check(min_det > 0, f"refs=2 step: min det {min_det:.3e} > 0")
+    check(r64 <= cfg.ns.accept_tol, f"refs=2 step: float64 |R| {r64:.3e} <= accept_tol")
+    check(dvol <= limit and dbary <= limit, f"refs=2 step: volume and barycenter within {limit:g}")
+    del prob
+    torch.cuda.empty_cache()
+    step_small()
+
+
+def step_small_run(device, dtype):
+    """One step at 3D refs=1 from the cold start (a one-rung ladder at
+    STEP_SMALL_VISC): (problem, history)."""
+    prob = ObstacleShapeOpt(step_config(1, STEP_SMALL_VISC), device=device, dtype=dtype)
+    return prob, prob.run(num_steps=1)
+
+
+def step_summary(prob, hist):
+    """What step_small holds the card's refs=1 step to, as numpy arrays."""
+    log_ = prob.step_log[-1]
+    return dict(
+        accepted=np.array(len(hist) == 1), attempts=np.array(len(log_["attempts"])),
+        outcomes=np.array([a["outcome"] for a in log_["attempts"]]),
+        drag_init=np.array(prob.drag_init), drag=np.array(hist[0].drag if hist else np.nan),
+        drag_diff=np.array(hist[0].drag_diff if hist else np.nan),
+        admm_iters=np.array([a["admm_it"] for a in log_["attempts"]]),
+        newton=np.array([a["newton"] for a in log_["attempts"]]),
+        adjoint_iters=np.array(log_["adjoint"]["iters"]),
+    )
+
+
+def step_reference():
+    """step_small_run in float64 on the CPU with REFERENCE_THREADS threads:
+    tests/goldens/make_chip_reference.py keeps it in STEP_REFERENCE."""
+    torch.set_num_threads(REFERENCE_THREADS)
+    return dict(step_summary(*step_small_run("cpu", torch.float64)), threads=np.array(REFERENCE_THREADS))
+
+
+def step_small():
+    """The refs=1 step on the card in float32 against the port's float64
+    CPU run kept in STEP_REFERENCE: both accept on the same attempt, and
+    the drags after the step lie within STEP_DRAG_SHARE of the CPU step's
+    drag decrease."""
+    t0 = time.perf_counter()
+    prob, hist = step_small_run("cuda", torch.float32)
+    log(f"[step] refs=1 step on the card, float32, from the cold start at visc {STEP_SMALL_VISC}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    log_step("step refs=1", prob, hist)
+    g, c = step_summary(prob, hist), np.load(STEP_REFERENCE)
+    gap = abs(float(g["drag"]) - float(c["drag"]))
+    log(f"[step] refs=1 card f32 vs CPU f64 ({STEP_REFERENCE.name}, {int(c['threads'])} threads): attempts "
+        f"{g['outcomes'].tolist()} vs {c['outcomes'].tolist()}, ADMM {g['admm_iters'].tolist()} vs "
+        f"{c['admm_iters'].tolist()}, Newton {g['newton'].tolist()} vs {c['newton'].tolist()}, adjoint "
+        f"{int(g['adjoint_iters'])} vs {int(c['adjoint_iters'])}, drag {float(g['drag_init']):.10g} -> "
+        f"{float(g['drag']):.10g} vs {float(c['drag_init']):.10g} -> {float(c['drag']):.10g}: the drags after the "
+        f"step {gap:.3e} apart, {gap / float(c['drag_diff']):.3e} of the CPU step's decrease (limit {STEP_DRAG_SHARE:g})")
+    check(bool(g["accepted"]) and bool(c["accepted"]) and int(g["attempts"]) == int(c["attempts"]),
+          "refs=1 step: card and CPU accept on the same attempt")
+    check(gap <= STEP_DRAG_SHARE * float(c["drag_diff"]), "refs=1 step: the card's drag agrees with the CPU's")
+
+
 def pcd_phase(ctx, launches, by_lattice, mass_rungs):
     """The PCD path at refs=2, float32: ns_run.run with a target runs the
     cold-start ladder to PCD_VISC, then drag, adjoint and J' there; the
@@ -651,7 +840,7 @@ def pcd_phase(ctx, launches, by_lattice, mass_rungs):
         f"{ctx.pre_ps.P}, pressure lattice {ctx.ps.fine.lat_shape} x {ctx.ps.P}, host set-up "
         f"{ctx.host_seconds:.2f} s, target visc {PCD_VISC}, accept_tol {ctx.cfg.accept_tol:g}"
     )
-    out = ns_run.run(ctx, target_visc=PCD_VISC)
+    out = ns_run.run(ctx, target_visc=PCD_VISC, adjoint_iters=NS_ADJOINT_BUDGET)
     ctx = ctx.at_visc(PCD_VISC)
     for phase, n in out.launches.items():
         log(f"[pcd] launches in the {phase} phase: {n}")
@@ -685,7 +874,7 @@ def pcd_phase(ctx, launches, by_lattice, mass_rungs):
     log(f"[pcd] visc {PCD_VISC}: |R| history {[f'{v:.3e}' for v in nw.res_history]}, final |R| "
         f"{nw.res_norm:.3e} (float64 recheck {r64:.3e})")
     log(
-        f"[pcd] adjoint at visc {PCD_VISC}: exit {adj.exit}, {adj.iters} iterations in {adj.cycles} cycles, "
+        f"[pcd] adjoint at visc {PCD_VISC}, budget cut to {NS_ADJOINT_BUDGET} iterations: exit {adj.exit}, {adj.iters} iterations in {adj.cycles} cycles, "
         f"|r| {adj.res_norm:.3e}, target {adj.target:.3e}, {out.seconds['adjoint']:.3f} s "
         f"({1e3 * out.seconds['adjoint'] / max(adj.iters, 1):.2f} ms per iteration), K5^T launches per "
         f"iteration {out.launches['adjoint']['apply_w_full_t'] / max(adj.iters, 1):.2f} at C = 3, "
@@ -701,7 +890,7 @@ def pcd_phase(ctx, launches, by_lattice, mass_rungs):
     check(set(ns_run.continuation_ladder(PCD_VISC)) <= {r.nu for r in out.rungs if r.newton.converged},
           "every planned rung of the PCD ladder converged")
     check(r64 <= ctx.cfg.accept_tol, f"refs=2 PCD float64 |R| {r64:.3e} <= accept_tol")
-    check_adjoint_and_gradient("refs=2 PCD", ctx, adj, out.drag, out.jprime, ("target", "stagnation"))
+    check_adjoint_and_gradient("refs=2 PCD", ctx, adj, out.drag, out.jprime, ("target", "stagnation", "budget"))
     ns_profile("pcd", ctx, nw.s)
 
 
@@ -832,7 +1021,7 @@ def kernel_table(phases, floor_ms, launches, by_lattice):
     return kernels
 
 
-def main(kernels_only=False):
+def main(phases_run=PHASES):
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU")
@@ -840,10 +1029,10 @@ def main(kernels_only=False):
     smi = nvidia_smi()
     log(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    run_phases(kind, kernels_only)
+    run_phases(kind, phases_run)
 
 
-def run_phases(kind, kernels_only=False):
+def run_phases(kind, phases_run):
 
     # 2. build
     t0 = time.perf_counter()
@@ -886,14 +1075,58 @@ def run_phases(kind, kernels_only=False):
                 + "".join(f" block {n}: {t[f'ms_block_{n}']:.4f} ms" for n in SCALAR_BLOCKS if f"ms_block_{n}" in t)
             )
             check(t["rel_err"] <= limit, f"{name} at {label}: rel err {t['rel_err']:.3e} > {limit:.0e}")
-    if kernels_only:
+    if phases_run == ("kernels",):
         print(json.dumps({"kernels": kernel_table(phases, floor_ms, {}, {})}))
         print(nvidia_smi())
-        log("[kernel] --kernels-only: the paths were not driven, so this run proves nothing about them")
+        log("[kernel] --phase kernels: the paths were not driven, so this run proves nothing about them")
         return
-
-    # 4. the solve path: build + solve at refs=4; counts from 0
     launches, by_lattice = {}, {}
+
+    # 4-5. the solve path and the ADMM path on one refs=4 context
+    ctx = None
+    if "slice" in phases_run:
+        ctx = solve_phase(launches, by_lattice)
+    if "admm" in phases_run:
+        admm_phase(ctx, launches, by_lattice)
+    del ctx
+    torch.cuda.empty_cache()
+
+    # 6. the NS path at refs=2 with the mass block: the ladder, then drag,
+    # adjoint and J' at visc 0.16; the PCD context's tables serve both
+    ctx_pcd = ns_run.build(2, visc=PCD_VISC, pressure_precond="pcd") if {"ns", "pcd"} & set(phases_run) else None
+    mass_rungs = ns_phase(ctx_pcd, launches, by_lattice) if "ns" in phases_run else []
+    torch.cuda.empty_cache()
+
+    # 7. the optimization step at refs=2, from the mass ladder's state at STEP_VISC
+    if "step" in phases_run:
+        at = [r.newton.s for r in mass_rungs if r.nu == STEP_VISC and r.newton.converged]
+        step_phase(launches, by_lattice, at[-1] if at else None)
+        del at
+        torch.cuda.empty_cache()
+
+    # 8. the PCD path at refs=2: ladder to visc 0.02, drag, adjoint, J'
+    if "pcd" in phases_run:
+        pcd_phase(ctx_pcd, launches, by_lattice, mass_rungs)
+    del ctx_pcd, mass_rungs
+    torch.cuda.empty_cache()
+
+    # 9. small-input agreement: GPU float32 vs the port's float64 CPU runs
+    if "small" in phases_run:
+        small_phase()
+
+    print(json.dumps({"kernels": kernel_table(phases, floor_ms, launches, by_lattice)}))
+    print(nvidia_smi())
+    if phases_run != PHASES:
+        log(f"[phase] ran {', '.join(phases_run)} of {', '.join(PHASES)}: no ok line")
+        return
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    sys.stdout.flush()
+
+
+def solve_phase(launches, by_lattice):
+    """xupdate_solve.build(4) + solve on the card, counts from 0; returns
+    the refs=4 context."""
     sk.reset_launches()
     ctx = xupdate_solve.build(4, "cuda", torch.float32)
     b = xupdate_solve.random_rhs(ctx, seed=0)
@@ -937,9 +1170,12 @@ def run_phases(kind, kernels_only=False):
     log(f"[slice] V-cycle cost table at the H100 SXM's published {H100_SXM_GBPS:.0f} GB/s:")
     log(xupdate_solve.patch_mg.vcycle_cost_table(ctx.struct, data, H100_SXM_GBPS))
     del tensors, res, r, x, b
+    return ctx
 
-    # 5. the ADMM path on the resident refs=4 stencils; counts from 0.  A
-    # second run from the same inputs is timed warm.
+
+def admm_phase(ctx, launches, by_lattice):
+    """admm_run.run on the resident refs=4 stencils, counts from 0; a
+    second run from the same inputs is timed warm."""
     torch.cuda.reset_peak_memory_stats()
     sk.reset_launches()
     run = admm_run.run(ctx)
@@ -962,22 +1198,12 @@ def run_phases(kind, kernels_only=False):
         f"[admm] launches {launches['admm']}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
-    del ctx, data, run, warm, st
-    torch.cuda.empty_cache()
 
-    # 6. the NS path at refs=2 with the mass block: the ladder, then drag,
-    # adjoint and J' at visc 0.16; the PCD context's tables serve both
-    ctx_pcd = ns_run.build(2, visc=PCD_VISC, pressure_precond="pcd")
-    mass_rungs = ns_phase(ctx_pcd, launches, by_lattice)
-    torch.cuda.empty_cache()
 
-    # 7. the PCD path at refs=2: ladder to visc 0.02, drag, adjoint, J'
-    pcd_phase(ctx_pcd, launches, by_lattice, mass_rungs)
-    del ctx_pcd, mass_rungs
-    torch.cuda.empty_cache()
-
-    # 8. small-input agreement: GPU float32 vs the port's float64 CPU runs
-    # at refs=1.  The solves converge to 1e-8 of their own operator (the
+def small_phase():
+    """refs=1 solve, ADMM run and PCD ladder, card float32 against the
+    port's float64 CPU runs."""
+    # The solves converge to 1e-8 of their own operator (the
     # float32 rounding of the operator moves x by ~eps * cond).  The bench
     # ADMM stops its Newton after two iterations, short of ns_tol, so u
     # keeps the float32 rounding of the constraint defects (sums of ~5e4
@@ -1004,14 +1230,22 @@ def run_phases(kind, kernels_only=False):
           "refs=1 GPU ADMM agrees with the f64 CPU ADMM")
     pcd_small()
 
-    print(json.dumps({"kernels": kernel_table(phases, floor_ms, launches, by_lattice)}))
-    print(nvidia_smi())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    sys.stdout.flush()
+
+def parse_phases(argv):
+    """The phases an argument list selects, in PHASES order: none selects
+    all; --phase NAME[,NAME] (--kernels-only is --phase kernels) selects
+    kernels and the named ones, and admm brings slice, whose refs=4
+    context it runs on."""
+    if not argv:
+        return PHASES
+    if argv == ["--kernels-only"]:
+        argv = ["--phase", "kernels"]
+    names = set(argv[1].split(",")) if len(argv) == 2 and argv[0] == "--phase" else {""}
+    if not names <= set(PHASES):
+        raise SystemExit(__doc__)
+    names |= {"kernels"} | ({"slice"} if "admm" in names else set())
+    return tuple(p for p in PHASES if p in names)
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] not in ([], ["--kernels-only"]):
-        raise SystemExit(__doc__)
-    main(kernels_only=bool(sys.argv[1:]))
+    main(parse_phases(sys.argv[1:]))

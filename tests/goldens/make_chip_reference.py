@@ -1,10 +1,15 @@
-"""Make tests/goldens/chip_pcd_ladder_refs1.npz, the reference that
-chip_smoke.py holds the card's refs=1 PCD ladder to: the port's own refs=1
-PCD ladder to visc 0.02 with drag, adjoint and J', float64 on the CPU with
-the float32 presets (chip_smoke.small_reference).  Needs no card and no
-JAX; takes minutes on the CPU.  Run from the repository root:
+"""Make the references that chip_smoke.py holds the card's refs=1 runs to,
+from the port itself in float64 on the CPU with the float32 presets:
 
-    python tests/goldens/make_chip_reference.py
+  * pcd: tests/goldens/chip_pcd_ladder_refs1.npz, the refs=1 PCD ladder
+    to visc 0.02 with drag, adjoint and J' (chip_smoke.small_reference);
+  * step: tests/goldens/chip_step_refs1.npz, one optimization step at 3D
+    refs=1 from the cold start (chip_smoke.step_reference).
+
+Needs no card and no JAX; each takes minutes on the CPU.  Run from the
+repository root:
+
+    python tests/goldens/make_chip_reference.py [pcd] [step]
 """
 import pathlib
 import sys
@@ -17,7 +22,7 @@ import numpy as np  # noqa: E402
 import chip_smoke  # noqa: E402
 
 
-def main():
+def pcd():
     t0 = time.perf_counter()
     ref = chip_smoke.small_reference()
     np.savez_compressed(chip_smoke.SMALL_REFERENCE, **ref)
@@ -26,5 +31,18 @@ def main():
           f"adjoint {int(ref['adjoint_iters'])} ({ref['adjoint_exit']}), |J'| {float(ref['jprime_norm']):.6e}")
 
 
+def step():
+    t0 = time.perf_counter()
+    ref = chip_smoke.step_reference()
+    np.savez_compressed(chip_smoke.STEP_REFERENCE, **ref)
+    print(f"wrote {chip_smoke.STEP_REFERENCE} in {time.perf_counter() - t0:.1f} s: attempts "
+          f"{ref['outcomes'].tolist()}, ADMM {ref['admm_iters'].tolist()}, Newton {ref['newton'].tolist()}, "
+          f"adjoint {int(ref['adjoint_iters'])}, drag {float(ref['drag_init']):.10g} -> {float(ref['drag']):.10g}")
+
+
 if __name__ == "__main__":
-    main()
+    which = sys.argv[1:] or ["pcd", "step"]
+    if not set(which) <= {"pcd", "step"}:
+        raise SystemExit(__doc__)
+    for name in which:
+        {"pcd": pcd, "step": step}[name]()

@@ -1,0 +1,181 @@
+"""Make the goldens of the port's optimization step, from the JAX package
+on the CPU in float64:
+
+  * tests/goldens/e2e_steps.npz, held by tests/test_torch_obstacle.py: two
+    optimization steps of ObstacleShapeOpt.run at 2D refs=1 and at 3D
+    refs=0 with the settings of tests/test_e2e_2d.py and
+    tests/test_e2e_3d.py (both marked slow, hence goldens).  The JAX side
+    runs its host-stepped drivers (``_ns_stepped`` and ``_admm_stepped_on``
+    set after construction; they are read at call time), whose chunk-unit
+    counts the port reproduces.  Kept per step: the StepRecord, the
+    adjoint's iteration count and the linear counts of every Newton
+    iteration of the NS re-solves (parsed from the verbose lines); the
+    final mesh, the constraint targets, the state the ladder reached (the
+    "step -1" state a run resumes from to take step 0) and the post-step-0
+    state (X, s, sigma, step, drag_old, drag_init) for a resumed step 1.
+  * tests/goldens/adjoint_warm.npz, held by
+    tests/test_torch_adjoint_warm.py: the stepped adjoint warm-started
+    (obstacle.py _adjoint_stepped with lam0 and a recycle space U) at the
+    JAX package's converged visc 0.16 states of tests/goldens/ns_slice.npz
+    (2D and 3D refs=1), with a recycle space of k = 8.  A cold adjoint
+    leaves lambda_1 and U; the warm one starts from lam0 = lambda_1 / 2
+    with that U.
+
+The JAX stepped kernels compile for minutes on one CPU core.  Run from the
+repository root:
+
+    python tests/goldens/make_e2e_goldens.py [e2e] [adjoint]
+"""
+import contextlib
+import io
+import os
+import pathlib
+import re
+import sys
+
+os.environ["JAX_PLATFORMS"] = "cpu"
+os.environ["JAX_ENABLE_X64"] = "1"
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+HERE = pathlib.Path(__file__).resolve().parent
+sys.path[:0] = [str(HERE.parents[1])]
+
+from admm_optim_tpu.models.obstacle import ObstacleShapeOpt, ProblemConfig  # noqa: E402
+from admm_optim_tpu.optim import admm  # noqa: E402
+from admm_optim_tpu.solvers import ns_solver  # noqa: E402
+
+E2E_OUT = HERE / "e2e_steps.npz"
+ADJ_OUT = HERE / "adjoint_warm.npz"
+NUM_STEPS = 2
+# tests/test_e2e_2d.py:20-28 and tests/test_e2e_3d.py:22-33
+CONFIGS = {
+    "2d": dict(dim=2, num_refs=1, visc=0.05, sigma_threshold=0.3,
+               admm=dict(admm_steps=40, ns_max_its=8, tau=2.0, lin_max_iters=120)),
+    "3d": dict(dim=3, num_refs=0, visc=0.1, sigma_threshold=0.3,
+               admm=dict(admm_steps=60, ns_max_its=10, tau=2.0, lin_max_iters=400),
+               ns=dict(lin_max_iters=1200, lin_restart=100)),
+}
+RECORD = ("drag", "drag_diff", "shape_derivative", "sigma", "scaling", "admm_iters", "newton_iters",
+          "lin_iters", "attempts", "solver_iters")
+ADJ_CASES = {"2d_refs1": (2, 1), "3d_refs1": (3, 1)}
+ADJ_VISC = 0.16
+# U is k x n_state float64 (9.8 MB at 3D refs=1 with the default k = 24)
+ADJ_RECYCLE_K = 8
+
+
+def problem_config(kw):
+    kw = dict(kw)
+    admm_kw, ns_kw = kw.pop("admm", {}), kw.pop("ns", {})
+    return ProblemConfig(**kw, admm=admm.ADMMConfig(**admm_kw), ns=ns_solver.NewtonConfig(**ns_kw))
+
+
+class Tee(io.StringIO):
+    def write(self, s):
+        sys.__stdout__.write(s)
+        return super().write(s)
+
+
+def parse_verbose(text):
+    """Per step: the adjoint's iterations and, per NS re-solve, the linear
+    iterations of each Newton iteration (a re-solve starts at "newton 0")."""
+    steps, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"adjoint: (\d+) its", line)
+        if m:
+            cur = dict(adjoint=int(m.group(1)), ns=[])
+            steps.append(cur)
+            continue
+        m = re.search(r"newton (\d+): .*\((\d+) lin\)", line)
+        if m and cur is not None:
+            if int(m.group(1)) == 0:
+                cur["ns"].append([])
+            cur["ns"][-1].append(int(m.group(2)))
+    return steps
+
+
+def run_e2e(name, kw):
+    cfg = problem_config(kw)
+    prob = ObstacleShapeOpt(cfg)
+    assert prob.use_patch and prob.use_patch_ns and prob.use_ns_jac
+    prob._ns_stepped = True
+    prob._admm_stepped_on = True
+    after0, ladder = {}, {}
+
+    def callback(step, X, s, rec):
+        if step == 0:
+            after0.update(X=np.asarray(X), s=np.asarray(s), sigma=rec.sigma, step=0, drag_old=rec.drag)
+            # the state the step started from: the ladder's at visc (run
+            # sets _cur_s at the start of a step and leaves it)
+            ladder["s"] = np.asarray(prob._cur_s)
+
+    buf = Tee()
+    with contextlib.redirect_stdout(buf):
+        hist = prob.run(num_steps=NUM_STEPS, verbose=True, callback=callback)
+    parsed = parse_verbose(buf.getvalue())
+    assert len(hist) == NUM_STEPS and len(parsed) == NUM_STEPS, (len(hist), parsed)
+    # the drag after the ladder: drag_init of the resumed run
+    drag_init = hist[0].drag + hist[0].drag_diff
+    out = {f"{name}_{f}": np.asarray([getattr(r, f) for r in hist]) for f in RECORD}
+    out.update({
+        f"{name}_adjoint_iters": np.asarray([p["adjoint"] for p in parsed]),
+        f"{name}_ns_lin": np.concatenate([np.concatenate([np.asarray(n) for n in p["ns"]]) for p in parsed]),
+        f"{name}_ns_lin_len": np.asarray([len(n) for p in parsed for n in p["ns"]]),
+        f"{name}_ns_solves": np.asarray([len(p["ns"]) for p in parsed]),
+        f"{name}_X_final": np.asarray(prob.X_final),
+        f"{name}_ref_volume": np.asarray(prob.ref_volume),
+        f"{name}_ref_barycenter": np.asarray(prob.ref_barycenter),
+        f"{name}_drag_init": np.asarray(drag_init),
+        f"{name}_ladder_s": ladder["s"],
+    })
+    out.update({f"{name}_after0_{k}": np.asarray(v) for k, v in after0.items()})
+    print(f"{name}: drags {[r.drag for r in hist]} attempts {[r.attempts for r in hist]} "
+          f"admm {[r.admm_iters for r in hist]} newton {[r.newton_iters for r in hist]} "
+          f"parsed {parsed}", flush=True)
+    return out
+
+
+def run_adjoint(name, dim, refs, gold):
+    ns = ns_solver.NewtonConfig(adj_recycle_k=ADJ_RECYCLE_K)
+    prob = ObstacleShapeOpt(ProblemConfig(dim=dim, num_refs=refs, visc=ADJ_VISC, ns=ns))
+    prob._ns_stepped = True
+    X = prob.X0
+    s = jnp.asarray(gold[f"{name}_s"])
+    lam1, _, it1 = prob._adjoint_stepped_fn(X, s, jnp.zeros_like(s))
+    U = prob._cur_adj_U
+    assert U is not None and U.shape[0] == ADJ_RECYCLE_K
+    lam0 = 0.5 * lam1
+    lam2, rn2, it2 = prob._adjoint_stepped_fn(X, s, lam0)
+    target = max(prob.cfg.ns.lin_abs_tol, prob.cfg.ns.adj_rel_tol * float(prob._adj_gj_norm(X, s)))
+    print(f"{name}: cold {int(it1)} its, warm {int(it2)} its |r| {float(rn2):.3e} target {target:.3e}", flush=True)
+    return {
+        f"{name}_U": np.asarray(U), f"{name}_lam0": np.asarray(lam0), f"{name}_lam": np.asarray(lam2),
+        f"{name}_iters": np.asarray(int(it2)), f"{name}_res": np.asarray(float(rn2)),
+        f"{name}_target": np.asarray(target), f"{name}_recycle_k": np.asarray(ADJ_RECYCLE_K),
+    }
+
+
+def main(which):
+    if "e2e" in which:
+        out = {}
+        for name, kw in CONFIGS.items():
+            out.update(run_e2e(name, kw))
+        np.savez_compressed(E2E_OUT, **out)
+        print(f"wrote {E2E_OUT} ({E2E_OUT.stat().st_size} bytes)", flush=True)
+    if "adjoint" in which:
+        gold = np.load(HERE / "ns_slice.npz")
+        out = {}
+        for name, (dim, refs) in ADJ_CASES.items():
+            out.update(run_adjoint(name, dim, refs, gold))
+        np.savez_compressed(ADJ_OUT, **out)
+        print(f"wrote {ADJ_OUT} ({ADJ_OUT.stat().st_size} bytes)", flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:] or ["e2e", "adjoint"])

@@ -90,7 +90,7 @@ def test_port_imports_without_jax():
         "assert 'admm_optim_tpu_torch.solvers.patch_mg' in names\n"
         "assert 'admm_optim_tpu_torch.xupdate_solve' in names\n"
         "for n in ('core.quadrature', 'core.spaces', 'ops.convdiff', 'ops.navier_stokes',\n"
-        "          'ops.ns_patchjac', 'solvers.ns_solver', 'ns_run'):\n"
+        "          'ops.ns_patchjac', 'solvers.ns_solver', 'ns_run', 'models.obstacle'):\n"
         "    assert 'admm_optim_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
