@@ -77,11 +77,11 @@ def lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, n_ptr, n_int in (
         # pointers (the last one the slot table on the device), n_slots,
-        # n0, n1, n2, P, [lanes,] device, stream
-        ("apply_w_pencil_bf16", 4, 7),
+        # n0, n1, n2, P, device, stream
         ("apply_w_df_sym_f32", 6, 6),
         # pointers (the last one the slot table in host memory, 15 x 4
         # ints), n0, n1, n2, P, [lanes | threads,] device, stream
+        ("apply_w_pencil_bf16", 4, 6),
         ("apply_w_sym_lanes_f32", 4, 6),
         ("apply_w_scalar_f32", 4, 6),
         ("apply_w_c3_f32", 4, 5),

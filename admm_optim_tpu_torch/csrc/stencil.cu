@@ -29,9 +29,9 @@
 // K5's table reads every slot directly, and K5^T's table reads every slot
 // transposed at the opposite offset: K5^T is a gather (no atomics), and
 // each W element is still read once per launch, from the site that stores
-// it, by the thread of the site it acts on.  K2, K3 and K4 read the table
-// (`stab`) from device memory; K1, K5 and K5^T take it by value
-// (SlotTable, the same rows, in the kernel's parameters).
+// it, by the thread of the site it acts on.  K4 reads the table (`stab`)
+// from device memory; K1, K2, K3, K5 and K5^T take it by value (SlotTable,
+// the same rows, in the kernel's parameters).
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -39,6 +39,8 @@
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -363,68 +365,197 @@ __global__ void empty_kernel() {}
 
 // K2 and K3: full 15-slot apply from pencil-major bf16 W for B lanes that
 // share W.  B = 1 is K2, replacing pallas_stencil.py _kernel_pc /
-// _apply_w_pallas_3d_pc (:280-304, :369-396); B = 2..8 is K3, replacing
-// _kernel_pc_b / _apply_w_pallas_3d_pc_batched (:307-366), the V-cycle
-// smoother of the ADMM x-update's 1+m simultaneous solves.  Weights are
-// widened in registers, x and the sums stay f32.
+// _apply_w_pallas_3d_pc (:280-304, :369-396), the V-cycle smoother of the
+// deformation solve; B = 2..8 is K3, replacing _kernel_pc_b /
+// _apply_w_pallas_3d_pc_batched (:307-366), the smoother of the ADMM
+// x-update's 1+m simultaneous solves:
+//   y_b[c, s] = sum_q sum_d W[i, j, q, c, d, k, p] x_b[d, s + o_q],
+// bf16 W widened exactly to f32, f32 x and f32 sums.
 //
-// Bound: device-memory bandwidth at ~1 flop per byte.  W is the dominant
-// stream (297 MB of bf16 at the refs=4 fine shape 17^3 x 224, against
-// 2 x 13 MB of f32 x and y per lane), so B launches of K2 would move
-// ~B x 323 MB.  The TPU kernel keeps a pencil's W block resident in VMEM
-// while its grid walks the lanes; here one thread per site loads each
-// W[q, c, d] once and applies it to every lane's x at the neighbour, with
-// B x 3 f32 accumulators in registers (the kernel is templated on B so
-// they stay registers).  One launch moves W once plus B x (x + y): ~427 MB
-// at B = 5.  The per-lane sum order is K2's, so each lane equals K2 on
-// that lane's field.
-template <int B>
-__global__ void apply_w_pencil_bf16_kernel(const __nv_bfloat16* __restrict__ W,
-                                           const float* __restrict__ x,
-                                           float* __restrict__ y,
-                                           const int* __restrict__ stab,
-                                           int n_slots, int n0, int n1, int n2,
-                                           int P) {
-  constexpr int C = 3;
-  const long long sp = static_cast<long long>(n0) * n1 * n2 * P;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= sp) return;
-  const Site s = site_of(t, n1, n2, P);
-  const long long cd_stride = static_cast<long long>(n2) * P;  // one (c, d) block
-  const long long pencil =
-      (static_cast<long long>(s.i) * n1 + s.j) * n_slots * C * C * cd_stride +
-      static_cast<long long>(s.k) * P + s.p;
-  const long long lane = C * sp;
-  float acc[B][C];
+// Bound: device memory.  A site reads 135 bf16 weights (270 bytes) and
+// 12 bytes of x and writes 12 of y per lane, for 135 multiply-adds per
+// lane: about one operation per byte of W, far below the ~295 per byte at
+// which the tensor cores (wgmma) would pay, so none are used.  One launch
+// reads W once for all B lanes and moves W plus B x (x + y).
+//
+// Design.  The grid is the pencil-row grid of the other by-value kernels
+// (no index division), with the slot table by value (the 15 slots unroll)
+// and clamp and drop at the lattice edge.  A block of kPcThreads threads
+// owns kPcThreads columns of one (i, j) pencil row, and the pencil-major
+// layout makes its W 135 contiguous runs, one per (q, c, d).  V = float4
+// takes 4 consecutive p per thread: an 8-byte load of 4 bf16 weights,
+// float4 x and y (P % 8 == 0 and 16-byte aligned bases, so that every run
+// is 16-byte aligned; else V = float, one site per thread, whose W and x
+// loads go straight to registers: a 2-byte element fits no asynchronous
+// copy).  With float4 the slots go through a double-buffered stage in
+// shared memory (27 KB a block) in kPcGroups groups of kPcGroup slots: the
+// Pallas kernel's one contiguous DMA per pencil, in Hopper's form.  27
+// threads of warp 0 issue one cp.async.bulk each, a run of kPcThreads x 8
+// bytes, completing on the buffer's mbarrier, so group g + 1 is in flight
+// while group g is summed.  After the sum of group g every thread fences
+// its reads of the buffer (generic proxy) against the bulk copy that will
+// overwrite it (async proxy), and a __syncthreads frees the buffer for
+// group g + 2: a thread past the row's end stays to the end, on the row's
+// last site, and stores nothing.  x comes through registers and L1: each x
+// is read by 15 sites, and staging it for 5 lanes would take ~117 KB a
+// block.  Each 3x3 block of W is widened once and applied to every lane,
+// with the B x 3 sums in registers (B is a template parameter so that they
+// stay there).  The sum order per lane and component is q ascending, d
+// ascending, one fmaf each, so lane b of K3 equals K2 on lane b bit for
+// bit, and a dropped neighbour adds fmaf(0, x, acc) = acc.
+//
+// Measured on the H100 (PERF.md): per-thread cp.async copies of the same
+// stage were 5-10% slower at 9^3 and 17^3 x 224; a third buffer, 128 or
+// 256 columns a block and other shared-memory carveouts moved neither K2
+// nor K3 by more than 3%.  K2 is bound by its W stream; K3 at B = 5 by x:
+// 15 reads of each x from L2 per lane, 3.3x W's bytes.
+constexpr int kPcThreads = 64;
+constexpr int kPcGroup = 3;  // slots per stage group
+constexpr int kPcGroups = kSlots / kPcGroup;
+constexpr int kBlock = 9;  // (c, d) entries of a slot's 3x3 block
+constexpr int kPcRuns = kPcGroup * kBlock;  // W runs of a group
+
+// bf16 to f32 is exact: the bf16 bits are the f32's high half
+__device__ __forceinline__ float widen(__nv_bfloat16 w) { return __bfloat162float(w); }
+__device__ __forceinline__ float4 widen(uint2 w) {  // four bf16, p ascending
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
+
+// One slot into the B x 3 sums: the 3x3 block w, entry (c, d) at
+// w[(c * 3 + d) * ws], dropped unless ok, applied to every lane's x at the
+// neighbour, component d of lane b at x[b * xl + d * xd].
+template <int B, typename V, typename WV>
+__device__ __forceinline__ void pencil_slot(V (&acc)[B][3], const WV* w, int ws, bool ok,
+                                            const V* x, size_t xl, size_t xd) {
+  V wv[kBlock];
 #pragma unroll
-  for (int b = 0; b < B; ++b)
+  for (int cd = 0; cd < kBlock; ++cd) wv[cd] = keep_if(ok, widen(w[cd * ws]));
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[b][c] = 0.f;
-  for (int q = 0; q < n_slots; ++q) {
-    const int* e = stab + 4 * q;
-    const long long nb = neighbour(s, e, n0, n1, n2, P);
-    if (nb < 0) continue;
-    const __nv_bfloat16* w = W + pencil + static_cast<long long>(q) * C * C * cd_stride;
-    float wv[C][C];
+  for (int b = 0; b < B; ++b) {
+    V xv[3];
 #pragma unroll
-    for (int c = 0; c < C; ++c)
+    for (int d = 0; d < 3; ++d) xv[d] = x[b * xl + d * xd];
 #pragma unroll
-      for (int d = 0; d < C; ++d) wv[c][d] = __bfloat162float(w[(c * C + d) * cd_stride]);
+    for (int c = 0; c < 3; ++c)
 #pragma unroll
-    for (int b = 0; b < B; ++b) {
-      float xv[C];
-#pragma unroll
-      for (int d = 0; d < C; ++d) xv[d] = x[b * lane + d * sp + nb];
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-#pragma unroll
-        for (int d = 0; d < C; ++d) acc[b][c] += wv[c][d] * xv[d];
-    }
+      for (int d = 0; d < 3; ++d) fma_into(acc[b][c], wv[c * 3 + d], xv[d]);
   }
+}
+
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier of one arrival a phase: its arrival also announces the bytes
+// the phase's bulk copies will bring.
+__device__ __forceinline__ void mbarrier_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_addr(bar)), "r"(1u) : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(shared_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(shared_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          shared_addr(dst)),
+      "l"(src), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+}
+
+template <int B, typename V>
+__global__ void __launch_bounds__(kPcThreads)
+apply_w_pencil_kernel(const __nv_bfloat16* __restrict__ W, const V* __restrict__ x,
+                      V* __restrict__ y, const SlotTable tab, int n0, int n1, int n2,
+                      int P) {  // P in units of V
+  constexpr bool vec = std::is_same<V, float4>::value;
+  using WV = typename std::conditional<vec, uint2, __nv_bfloat16>::type;  // 4 or 1 weights
+  constexpr int T = kPcThreads;
+  // the stage, static so that ptxas reports its size
+  __shared__ __align__(16) uint2 wst[vec ? 2 * kPcRuns * T : 1];  // [2][kPcGroup][9][T]
+  __shared__ unsigned long long bar[2];
+  const int row = n2 * P;
+  const int r0 = blockIdx.x * T;
+  const int r = r0 + threadIdx.x;
+  if (!vec && r >= row) return;  // only the float4 form has a block-wide barrier
+  const int rc = min(r, row - 1);
+  const int j = blockIdx.y, i = blockIdx.z;
+  const int t = (i * n1 + j) * row + rc;
+  const size_t sp = static_cast<size_t>(n0) * n1 * row;
+  // the pencil's W: run (q, c, d) at (q * 9 + c * 3 + d) * row
+  const WV* wp = reinterpret_cast<const WV*>(W) + static_cast<size_t>(i * n1 + j) * kSlots * kBlock * row;
+  const int live = min(T, row - r0);  // the block's columns inside the row
+  if constexpr (vec) {
+    if (threadIdx.x == 0) {
+      mbarrier_init(&bar[0]);
+      mbarrier_init(&bar[1]);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+  }
+  // group g's slots into buffer g % 2: run (g * kPcGroup + k, c, d) is the
+  // buffer's run k * 9 + c * 3 + d
+  auto stage_group = [&](int g) {
+    if (vec && threadIdx.x < kPcRuns) {
+      const unsigned bytes = live * sizeof(WV);
+      if (threadIdx.x == 0) mbarrier_expect(&bar[g % 2], kPcRuns * bytes);
+      bulk_copy(wst + ((g % 2) * kPcRuns + threadIdx.x) * T,
+                wp + static_cast<size_t>(g * kPcRuns + threadIdx.x) * row + r0, bytes, &bar[g % 2]);
+    }
+  };
+  V acc[B][3];
 #pragma unroll
   for (int b = 0; b < B; ++b)
 #pragma unroll
-    for (int c = 0; c < C; ++c) y[b * lane + c * sp + t] = acc[b][c];
+    for (int c = 0; c < 3; ++c) acc[b][c] = zero_like(V());
+  stage_group(0);
+#pragma unroll
+  for (int g = 0; g < kPcGroups; ++g) {
+    if (g + 1 < kPcGroups) stage_group(g + 1);
+    if constexpr (vec) mbarrier_wait(&bar[g % 2], (g / 2) & 1);
+#pragma unroll
+    for (int k = 0; k < kPcGroup; ++k) {
+      const int q = g * kPcGroup + k;
+      const Neighbour nb = neighbour_of(tab.row[q][0], tab.row[q][1], tab.row[q][2], i, j, rc, t,
+                                        n0, n1, row, P);
+      if constexpr (vec)
+        pencil_slot<B>(acc, wst + ((g % 2) * kPcRuns + k * kBlock) * T + threadIdx.x, T, nb.ok,
+                       x + nb.at, 3 * sp, sp);
+      else
+        pencil_slot<B>(acc, wp + static_cast<size_t>(q * kBlock) * row + r, row, nb.ok, x + nb.at,
+                       3 * sp, sp);
+    }
+    if constexpr (vec)
+      if (g + 2 < kPcGroups) {
+        // buffer g % 2 is free for group g + 2: every thread's reads of it
+        // (generic proxy) ordered before the bulk copy (async proxy)
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncthreads();
+      }
+  }
+  if (r < row)
+#pragma unroll
+    for (int b = 0; b < B; ++b)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) y[b * 3 * sp + c * sp + t] = acc[b][c];
 }
 
 // K4, replaces pallas_stencil.py _kernel_sym_df / _apply_w_df_pallas_3d_sym
@@ -485,22 +616,6 @@ __global__ void apply_w_df_sym_kernel(const float* __restrict__ W,
 unsigned int blocks_for(int n0, int n1, int n2, int P) {
   const long long sp = static_cast<long long>(n0) * n1 * n2 * P;
   return static_cast<unsigned int>((sp + kThreads - 1) / kThreads);
-}
-
-struct Pencil {
-  const __nv_bfloat16* W;
-  const float* x;
-  float* y;
-  const int* stab;
-  int n_slots, n0, n1, n2, P;
-  unsigned int blocks;
-  cudaStream_t stream;
-};
-
-template <int B>
-void launch_pencil(const Pencil& a) {
-  apply_w_pencil_bf16_kernel<B><<<a.blocks, kThreads, 0, a.stream>>>(
-      a.W, a.x, a.y, a.stab, a.n_slots, a.n0, a.n1, a.n2, a.P);
 }
 
 // What the kernels with a by-value table take: the table's 15 x 4 ints in
@@ -575,6 +690,19 @@ cudaError_t launch_c3(const V* W, const V* x, V* y, const RowGrid& g, int n0, in
   return cudaGetLastError();
 }
 
+// K2/K3 on B lanes, the float4 form where vec, else the float form.
+template <int B>
+void launch_pencil(const void* W, const void* x, void* y, const RowGrid& g, int n0, int n1, int n2,
+                   int Pv, bool vec, cudaStream_t s) {
+  const auto* w = static_cast<const __nv_bfloat16*>(W);
+  if (vec)
+    apply_w_pencil_kernel<B, float4><<<g.grid, kPcThreads, 0, s>>>(
+        w, static_cast<const float4*>(x), static_cast<float4*>(y), g.tab, n0, n1, n2, Pv);
+  else
+    apply_w_pencil_kernel<B, float><<<g.grid, kPcThreads, 0, s>>>(
+        w, static_cast<const float*>(x), static_cast<float*>(y), g.tab, n0, n1, n2, Pv);
+}
+
 }  // namespace
 
 extern "C" {
@@ -625,25 +753,29 @@ int apply_w_sym_lanes_f32(const void* W, const void* x, void* y, const int* slot
   return static_cast<int>(cudaGetLastError());
 }
 
-// lanes = 1 is K2, 2..8 K3; any other count is refused
-int apply_w_pencil_bf16(const void* W, const void* x, void* y, const void* stab,
-                        int n_slots, int n0, int n1, int n2, int P, int lanes,
-                        int device, void* stream) {
-  const unsigned int blocks = blocks_for(n0, n1, n2, P);
-  if (blocks == 0) return 0;
+// K2 (lanes = 1) and K3 (lanes = 2..8); slots is K5's direct table (15 x 4
+// ints, host memory), of which the kernel reads the offsets.  float4 along
+// p where P % 8 == 0 and the bases are 16-byte aligned.  Any other lane
+// count, or a lattice of 2^31 sites or more, is refused.
+int apply_w_pencil_bf16(const void* W, const void* x, void* y, const int* slots, int n0, int n1,
+                        int n2, int P, int lanes, int device, void* stream) {
+  if (static_cast<long long>(n0) * n1 * n2 * P == 0) return 0;
+  const bool vec = P % 8 == 0 && aligned16(W) && aligned16(x) && aligned16(y);
+  const int Pv = vec ? P / 4 : P;
+  const RowGrid g = row_grid(slots, n0, n1, n2, Pv, kPcThreads);
+  if (!g.ok || static_cast<long long>(n0) * n1 * n2 * P >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaSetDevice(device);
-  const Pencil args{static_cast<const __nv_bfloat16*>(W), static_cast<const float*>(x),
-                    static_cast<float*>(y), static_cast<const int*>(stab),
-                    n_slots, n0, n1, n2, P, blocks, static_cast<cudaStream_t>(stream)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (lanes) {
-    case 1: launch_pencil<1>(args); break;
-    case 2: launch_pencil<2>(args); break;
-    case 3: launch_pencil<3>(args); break;
-    case 4: launch_pencil<4>(args); break;
-    case 5: launch_pencil<5>(args); break;
-    case 6: launch_pencil<6>(args); break;
-    case 7: launch_pencil<7>(args); break;
-    case 8: launch_pencil<8>(args); break;
+    case 1: launch_pencil<1>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
+    case 2: launch_pencil<2>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
+    case 3: launch_pencil<3>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
+    case 4: launch_pencil<4>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
+    case 5: launch_pencil<5>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
+    case 6: launch_pencil<6>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
+    case 7: launch_pencil<7>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
+    case 8: launch_pencil<8>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -420,16 +420,17 @@ def apply_w_sym(ps, W, x):
 
 
 def _pencil(name, ps, W_pc, x, lane_axis):
-    """Launch the bf16 pencil kernel (K2 for a field, K3 for a lane axis)."""
-    B, _, n0, n1, n2, P = _check(name, ps, x, (W_pc, x), torch.bfloat16, lane_axis)
+    """Launch the bf16 pencil kernel (K2 for a field, K3 for a lane axis),
+    K5's direct table by value (the kernel reads its offsets)."""
+    B, _, n0, n1, n2, P = _check(name, ps, x, (W_pc, x), torch.bfloat16, lane_axis, max_sites=MAX_SITES)
     tabs = stencil_tables(ps)
     if W_pc.shape != (n0, n1, tabs.n_slots, 3, 3, n2, P):
         raise ValueError(f"{name}: W_pc shape {tuple(W_pc.shape)} does not match x")
+    lattice = (n0, n1, n2, P)
     y = torch.empty_like(x)
     _launch(
-        name, "apply_w_pencil_bf16", (n0, n1, n2, P),
-        W_pc.data_ptr(), x.data_ptr(), y.data_ptr(), tabs.on_device("full", x.device).data_ptr(),
-        tabs.n_slots, n0, n1, n2, P, B, device=x.device,
+        name, "apply_w_pencil_bf16", lattice, W_pc.data_ptr(), x.data_ptr(), y.data_ptr(),
+        tabs.packed("full"), *lattice, B, device=x.device,
     )
     return y
 

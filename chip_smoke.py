@@ -12,35 +12,40 @@ climbs its own viscosity ladder.
 
 Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
   1. device: the card's name and power limit;
-  2. build: compiles the stencil kernels from admm_optim_tpu_torch/csrc;
+  2. build: compiles the stencil kernels from admm_optim_tpu_torch/csrc,
+     prints ptxas's registers, shared memory and spills per kernel and
+     instantiation (K2/K3's with the blocks an SM holds; it must not
+     spill);
   3. kernels: each kernel against its plain PyTorch twin at the refs=4
      fine shape (17^3 x 224), at the NS V-cycle's refs=2 fine shape
      (9^3 x 224) and at a small shape with boundary pencils (3^3 x 5),
-     random W with a Dirichlet mask, K3 with B = 5 lanes, K1 on a lane axis
-     with B = 2, 5 and 8 (each lane also bitwise equal to K1 on that
-     field); K5 and K5^T with C = 3 and with C = 1 (the scalar pressure
-     operators of the PCD Schur block), K1 on one field and K2 also at the
-     coarse 3D levels of the NS velocity V-cycle, which are the refs=2
-     pressure lattices too (5^3 and 3^3 x 224), and K5 and K5^T at a P that
-     is no multiple of 4 (5^3 x 222); errors, median device times (L2
-     emptied before each launch), the time of one call made on an idle
-     card, each kernel's bound (bytes over 3.35 TB/s or flops over the
+     random W with a Dirichlet mask, K3 and K1 on a lane axis with B = 2, 5
+     and 8 (each lane also bitwise equal to K2, or K1, on that field); K5
+     and K5^T with C = 3 and with C = 1 (the scalar pressure operators of
+     the PCD Schur block), K1 on one field, K2 and K3 also at the coarse 3D
+     levels of the NS velocity V-cycle, which are the refs=2 pressure
+     lattices too (5^3 and 3^3 x 224), and K5, K5^T, K2 and K3 at a P that
+     is no multiple of 4 (5^3 x 222; K2 and K3 timed at 3^3 x 5 too);
+     errors, median device times (L2 emptied before each launch), the
+     time of one call made on an idle card, each kernel's bound (bytes over 3.35 TB/s or flops over the
      published peak, whichever is larger) and the launch floor (the device
      time of an empty kernel), for K3 the time of five K2 launches on the
      same lanes, for K5 and K5^T the adjointness <A x, y> = <x, A^T y> on
      the card, for every kernel with a by-value table (K1 on a field and
-     on lanes, K5 and K5^T at C = 3 and C = 1) the same result with 1e30 in
-     every W entry whose neighbour lies outside the lattice, each timed
-     kernel's time also with the L2 emptied of clean lines (by reading, not
+     on lanes, K2, K3, K5 and K5^T at C = 3 and C = 1) the same result with
+     1e30 in every W entry whose neighbour lies outside the lattice, each
+     timed kernel's time also with the L2 emptied of clean lines (by reading, not
      zeroing, the 512 MB buffer: no write-back of the buffer's lines) and
      with the L2 left warm, and the scalar kernel's time at block sizes 64,
      128 and 256;
   4. slice: xupdate_solve.build(4) + solve on the GPU (2,843,910 DoF), its
      convergence to a true relative residual <= 1e-8 (evaluated once in
-     f64 with the plain apply), the kernel launch counts of that run;
+     f64 with the plain apply), the kernel launch counts of that run, its
+     counts beside those recorded in PERF.md (SOLVE_COUNTS);
   5. admm: admm_run.run on the same refs=4 context (bench.py's
      admm_throughput: 5 ADMM iterations at most, 1+m = 5 lanes per
-     x-update solve), its counters, time split and launch counts;
+     x-update solve), its counters (beside ADMM_COUNTS), time split and
+     launch counts;
   6. ns: the NS path at refs=2 (383,400 NS unknowns), float32, with the
      lumped-mass pressure block: the cold-start viscosity ladder
      0.16 -> 0.02 (linear counts and seconds per linear iteration per
@@ -120,17 +125,28 @@ SMALL_SHAPE = ((3, 3, 3), 5)
 # the kernel groups of kernel_phase: all at 17^3, 9^3 and 3^3 x 5; what the
 # coarse levels and the PCD path run at 5^3 and 3^3 x 224
 GROUPS = ("full", "sym", "pencil", "lanes", "batched", "df")
-COARSE_GROUPS = ("full", "sym", "pencil")
+COARSE_GROUPS = ("full", "sym", "pencil", "batched")
+PENCIL_GROUPS = ("pencil", "batched")  # K2 and K3, also timed at the scalar-width shapes
 # the device kernel of K1, K5 and K5^T on a field of C = 3, as the profiler names it
 C3_KERNEL = "apply_w_c3_kernel"
 REPS = 20
 LANES = 5  # 1 + m lanes of the 3D x-update
-LANE_COUNTS = (2, LANES, 8)  # K1's lane kernel is checked at these
+LANE_COUNTS = (2, LANES, 8)  # K1's lane kernel and K3 are checked at these
 SCALAR_BLOCKS = (64, 128, 256)  # block sizes the scalar kernel is timed at
 POISON = 1e30  # put into W where no apply may read it
 # published H100 SXM rates (NVIDIA data sheet): HBM3 bandwidth, and the
 # float32 and float64 rates outside the tensor cores, for the bounds
 H100_SXM_GBPS = 3350.0
+# what one H100 SM holds (CUDA occupancy rules, compute capability 9.0):
+# registers, shared memory with the largest carveout, blocks, warps
+SM_REGISTERS, SM_SHARED, SM_BLOCKS, SM_WARPS = 65536, 233472, 32, 64
+PENCIL_KERNEL = "apply_w_pencil_kernel"  # K2 and K3's device kernel
+PENCIL_THREADS = 64  # its block size, kPcThreads in csrc/stencil.cu
+# the counts of the refs=4 paths recorded in PERF.md before K2 and K3's
+# redesign, printed beside this run's: solve (inner CG iterations, IR
+# rounds), ADMM (iterations, Newton, Krylov)
+SOLVE_COUNTS = (19, 2)
+ADMM_COUNTS = (1, 2, 98)
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12
 NS_VISC = 0.16  # the first rung of the JAX package's cold-start ladder
@@ -185,8 +201,8 @@ JSON_SHAPE.update({"apply_w_full": "9^3x224", "apply_w_full_t": "9^3x224",
 # levels the paths launch it on, and the scalar kernel's scalar-width form
 BY_SHAPE = {
     "apply_w_sym": ("9^3x224", "5^3x224", "3^3x224"),
-    "apply_w_pencil": ("9^3x224", "5^3x224", "3^3x224"),
-    "apply_w_pencil_batched": ("9^3x224",),
+    "apply_w_pencil": ("9^3x224", "5^3x224", "3^3x224", "5^3x222", "3^3x5"),
+    "apply_w_pencil_batched": ("9^3x224", "5^3x224", "3^3x224", "5^3x222", "3^3x5"),
     "apply_w_full": ("5^3x224", "3^3x224"),
     "apply_w_full_t": ("5^3x224", "3^3x224"),
     "apply_w_full/c1": ("3^3x224", "5^3x222"),
@@ -265,21 +281,54 @@ def _median_ms(fn, reps, before):
     return statistics.median(times)
 
 
+def template_args(mangled):
+    """The template arguments at the head of mangled, an Itanium I...E list
+    (Li5E an int, f float, 6float4 a named type), as strings."""
+    args, k = [], 1
+    while k < len(mangled) and mangled[k] != "E":
+        if mangled.startswith("Li", k):
+            end = mangled.index("E", k)
+            args.append(mangled[k + 2:end])
+            k = end + 1
+        elif mangled[k] == "f":
+            args.append("float")
+            k += 1
+        else:
+            n = re.match(r"\d+", mangled[k:]).group()
+            k += len(n)
+            args.append(mangled[k:k + int(n)])
+            k += int(n)
+    return args
+
+
 def ptxas_report(nvcc_log):
-    """(kernel<template argument>, registers and spills) per entry function
-    of nvcc's -Xptxas -v output."""
+    """(kernel<template arguments>, registers, shared memory and spills)
+    per entry function of nvcc's -Xptxas -v output."""
     out, kernel, spills = [], None, ""
     for line in nvcc_log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d+((?:apply_w|empty)\w*?_kernel)(?:I(?:Li(\d+)|(f)|\d+(float4))E)?", line)
+        m = re.search(r"Compiling entry function '\w*?\d+((?:apply_w|empty)\w*?_kernel)(I\w+)?", line)
         if m:
-            arg = m.group(2) or m.group(4) or ("float" if m.group(3) else None)
-            kernel = m.group(1) + (f"<{arg}>" if arg else "")
+            args = template_args(m.group(2)) if m.group(2) else []
+            kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line and kernel:
             out.append((kernel, f"{line.split(':', 1)[1].strip()}; {spills}"))
             kernel = None
     return out
+
+
+def blocks_per_sm(used, threads):
+    """Blocks of threads threads that one SM holds, from the registers and
+    static shared memory in ptxas's report used: registers are allocated
+    per warp in units of 256, and each block takes 1 KB of shared memory
+    besides its own, in units of 128 bytes."""
+    regs = int(re.search(r"Used (\d+) registers", used).group(1))
+    smem = re.search(r"(\d+) bytes smem", used)
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    shared = -(-(int(smem.group(1)) if smem else 0) // 128) * 128 + 1024
+    return min(SM_BLOCKS, SM_WARPS // warps, SM_REGISTERS // (per_warp * warps), SM_SHARED // shared)
 
 
 def warm_ms(fn, reps=REPS):
@@ -316,28 +365,30 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
     "batched" K3, "df" K4) against their twins on random data of one shape;
     returns per kernel a dict of max_abs_err, rel_err, ms (device), call_ms
     (one call to an idle card), plain_ms, extra_ms, bound_ms, bound_by, and
-    per C the adjointness of K5/K5^T; timed, also clean_ms (L2 emptied of
-    clean lines) and warm_ms (L2 left warm).  Flops count 2 per
-    multiply-add of the full 15-slot stencil, per lane.  Every kernel with a
-    by-value table must also give the same result with POISON in the W
-    entries no apply may read, and each lane of the lane kernel must equal
-    K1 on that lane's field bit for bit."""
+    per C the adjointness of K5/K5^T; for the groups timed names (True:
+    all), also clean_ms (L2 emptied of clean lines) and warm_ms (L2 left
+    warm).  Flops count 2 per multiply-add of the full 15-slot stencil, per
+    lane.  Every kernel with a by-value table must also give the same result
+    with POISON in the W entries no apply may read, and each lane of the
+    lane kernels must equal the one-field kernel on that lane's field bit
+    for bit."""
     lat, P = shape
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     free = (torch.rand(lat + (P,), generator=g, device=dev) > 0.2).float()
     out = {}
 
-    def record(name, got, ref, fn, plain, moved, fl, extra=None, rate=F32_FLOPS):
+    def record(group, name, got, ref, fn, plain, moved, fl, extra=None, rate=F32_FLOPS):
         err = float((got - ref).abs().max())
         nan = float("nan")
+        on = timed is True or group in timed
         bms, bby = bound(moved, fl, rate)
         out[name] = dict(
             max_abs_err=err, rel_err=err / float(ref.abs().max()),
-            ms=median_ms(fn) if timed else nan, clean_ms=clean_ms(fn) if timed else nan,
-            warm_ms=warm_ms(fn) if timed else nan, call_ms=call_ms(fn) if timed else nan,
-            plain_ms=median_ms(plain) if timed else nan,
-            extra_ms=median_ms(extra) if timed and extra else nan, bound_ms=bms, bound_by=bby,
+            ms=median_ms(fn) if on else nan, clean_ms=clean_ms(fn) if on else nan,
+            warm_ms=warm_ms(fn) if on else nan, call_ms=call_ms(fn) if on else nan,
+            plain_ms=median_ms(plain) if on else nan,
+            extra_ms=median_ms(extra) if on and extra else nan, bound_ms=bms, bound_by=bby,
         )
 
     def poisoned(what, W, pairs):
@@ -359,13 +410,13 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
         fl = 2.0 * len(ps.stencil) * C * C * free.numel()
         y = sk.apply_w_full(ps, Wf, xf)
         record(
-            "apply_w_full" + sfx, y, sk._apply_w_full(ps, Wf, xf),
+            "full", "apply_w_full" + sfx, y, sk._apply_w_full(ps, Wf, xf),
             lambda: sk.apply_w_full(ps, Wf, xf), lambda: sk._apply_w_full(ps, Wf, xf),
             nbytes(Wf, xf, y), fl,
         )
         z = sk.apply_w_full_t(ps, Wf, yt)
         record(
-            "apply_w_full_t" + sfx, z, sk._apply_w_full_t(ps, Wf, yt),
+            "full", "apply_w_full_t" + sfx, z, sk._apply_w_full_t(ps, Wf, yt),
             lambda: sk.apply_w_full_t(ps, Wf, yt), lambda: sk._apply_w_full_t(ps, Wf, yt),
             nbytes(Wf, yt, z), fl,
         )
@@ -374,7 +425,7 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
         out["adjointness" + sfx] = abs(a - b) / max(abs(a), abs(b))
         poisoned(f"K5 and K5^T at C = {C}", Wf,
                  ((lambda Wp: sk.apply_w_full(ps, Wp, xf), y), (lambda Wp: sk.apply_w_full_t(ps, Wp, yt), z)))
-        if C == 1 and timed:
+        if C == 1 and (timed is True or "full" in timed):
             threads = sk.SCALAR_THREADS
             for n in SCALAR_BLOCKS:
                 sk.SCALAR_THREADS = n
@@ -400,18 +451,26 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
     if "sym" in groups:
         y = sk.apply_w_sym(ps, W, xh)
         record(
-            "apply_w_sym", y, sk._apply_w_sym(ps, W, xh),
+            "sym", "apply_w_sym", y, sk._apply_w_sym(ps, W, xh),
             lambda: sk.apply_w_sym(ps, W, xh), lambda: sk._apply_w_sym(ps, W, xh),
             nbytes(W, xh, y), flops,
         )
         poisoned("K1 on one field", W, ((lambda Wp: sk.apply_w_sym(ps, Wp, xh), y),))
+    # K2 and K3's 1e30 check: POISON into the expanded W (the symmetric
+    # W_pc's wrapped entries are zero there), then pencil-major bf16
+    Wx = st.expand_sym_w(ps, W)
+
+    def pencil(apply, x):
+        return lambda Wp: apply(ps, sk.to_pencil_major(ps, Wp, torch.bfloat16), x)
+
     if "pencil" in groups:
         y = sk.apply_w_pencil(ps, W_pc, xh)
         record(
-            "apply_w_pencil", y, sk._apply_w_pencil(ps, W_pc, xh),
+            "pencil", "apply_w_pencil", y, sk._apply_w_pencil(ps, W_pc, xh),
             lambda: sk.apply_w_pencil(ps, W_pc, xh), lambda: sk._apply_w_pencil(ps, W_pc, xh),
             nbytes(W_pc, xh, y), flops,
         )
+        poisoned("K2", Wx, ((pencil(sk.apply_w_pencil, xh), y),))
     xb = torch.randn((LANES, 3) + lat + (P,), generator=g, device=dev) * free
     if "lanes" in groups:
         # K1's lane kernel: against the twin, bit for bit against K1 on each
@@ -420,7 +479,7 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
             xB = xb if B == LANES else torch.randn((B, 3) + lat + (P,), generator=g, device=dev) * free
             y = sk.apply_w_sym(ps, W, xB)
             record(
-                "apply_w_sym/lanes" + ("" if B == LANES else f" B={B}"), y,
+                "lanes", "apply_w_sym/lanes" + ("" if B == LANES else f" B={B}"), y,
                 sk._lanes(sk._apply_w_sym, ps, W, xB),
                 lambda: sk.apply_w_sym(ps, W, xB), lambda: sk._lanes(sk._apply_w_sym, ps, W, xB),
                 nbytes(W, xB, y), B * flops,
@@ -429,20 +488,28 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
                   f"K1 on {B} lanes at {lat} x {P} equals K1 on each lane's field bit for bit")
             poisoned(f"K1 on {B} lanes", W, ((lambda Wp: sk.apply_w_sym(ps, Wp, xB), y),))
     if "batched" in groups:
-        # K3 against its twin, and against LANES launches of K2 (extra_ms)
-        y = sk.apply_w_pencil_batched(ps, W_pc, xb)
-        record(
-            "apply_w_pencil_batched", y, sk._apply_w_pencil_batched(ps, W_pc, xb),
-            lambda: sk.apply_w_pencil_batched(ps, W_pc, xb),
-            lambda: sk._apply_w_pencil_batched(ps, W_pc, xb),
-            nbytes(W_pc, xb, y), LANES * flops,
-            extra=lambda: [sk.apply_w_pencil(ps, W_pc, x) for x in xb],
-        )
+        # K3 against its twin, at LANES lanes also against LANES launches of
+        # K2 (extra_ms), bit for bit against K2 on each lane's field, and
+        # with POISON where it may not read
+        for B in LANE_COUNTS:
+            xB = xb if B == LANES else torch.randn((B, 3) + lat + (P,), generator=g, device=dev) * free
+            y = sk.apply_w_pencil_batched(ps, W_pc, xB)
+            record(
+                "batched", "apply_w_pencil_batched" + ("" if B == LANES else f" B={B}"), y,
+                sk._apply_w_pencil_batched(ps, W_pc, xB),
+                lambda: sk.apply_w_pencil_batched(ps, W_pc, xB),
+                lambda: sk._apply_w_pencil_batched(ps, W_pc, xB),
+                nbytes(W_pc, xB, y), B * flops,
+                extra=(lambda: [sk.apply_w_pencil(ps, W_pc, x) for x in xB]) if B == LANES else None,
+            )
+            check(all(torch.equal(y[b], sk.apply_w_pencil(ps, W_pc, xB[b])) for b in range(B)),
+                  f"K3 on {B} lanes at {lat} x {P} equals K2 on each lane's field bit for bit")
+            poisoned(f"K3 on {B} lanes", Wx, ((pencil(sk.apply_w_pencil_batched, xB), y),))
     if "df" in groups:
         yh, yl = sk.apply_w_df_sym(ps, W, xh, xl)
         ref64 = sk._apply_w_sym(ps, W.double(), xh.double() + xl.double())
         record(
-            "apply_w_df_sym", yh.double() + yl.double(), ref64,
+            "df", "apply_w_df_sym", yh.double() + yl.double(), ref64,
             lambda: sk.apply_w_df_sym(ps, W, xh, xl),
             lambda: sk._apply_w_df_full(ps, st.expand_sym_w(ps, W), xh, xl),
             nbytes(W, xh, xl, yh, yl), flops, rate=F64_FLOPS,  # f64 accumulation
@@ -1000,15 +1067,16 @@ def kernel_table(phases, floor_ms, launches, by_lattice):
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "floor_ms": floor_ms, "library_ms": None, "shape": shape,
         }
-        if name == "apply_w_sym/lanes":
+        if name in ("apply_w_sym/lanes", "apply_w_pencil_batched"):
             entry["lanes"] = LANES
             for B in LANE_COUNTS:
                 if B != LANES:
                     ln = phases[shape][f"{name} B={B}"]
                     entry[f"lanes_{B}"] = {k: ln[k] for k in ("max_abs_err", "ms", "call_ms", "bound_ms")}
         if name == "apply_w_pencil_batched":
-            entry.update(lanes=LANES, k2_x_lanes_ms=t["extra_ms"])
-        entry.update({k: v for k, v in t.items() if k.startswith("ms_block_") or k in ("clean_ms", "warm_ms")})
+            entry["k2_x_lanes_ms"] = t["extra_ms"]
+        entry.update({k: v for k, v in t.items()
+                      if k.startswith("ms_block_") or k in ("clean_ms", "warm_ms")})
         if shape != "17^3x224":
             f = phases["17^3x224"][name]
             entry.update(ms_17=f["ms"], call_ms_17=f["call_ms"], plain_ms_17=f["plain_ms"],
@@ -1039,8 +1107,14 @@ def run_phases(kind, phases_run):
     nvcc_s, nvcc_log = _build.build()
     _build.lib()
     log(f"[build] {SOURCE} -> {_build.LIBRARY.name}: nvcc {nvcc_s:.2f} s, total {time.perf_counter() - t0:.2f} s")
-    for kernel, used in ptxas_report(nvcc_log):
+    report = ptxas_report(nvcc_log)
+    for kernel, used in report:
+        if kernel.startswith(PENCIL_KERNEL):
+            used += f"; {blocks_per_sm(used, PENCIL_THREADS)} blocks of {PENCIL_THREADS} threads per SM"
         log(f"[build] {kernel}: {used}")
+    for kernel, used in report:
+        check(not kernel.startswith(PENCIL_KERNEL) or "0 bytes spill stores, 0 bytes spill loads" in used,
+              f"{kernel} does not spill")
 
     # 3. kernels vs twins; the limits are relative to max |y|: float32 sums
     # of 15 or 45 products in another order than the twin's (~1e-7), and
@@ -1051,8 +1125,8 @@ def run_phases(kind, phases_run):
         "9^3x224": kernel_phase(ps_k, NS_SHAPE, seed=3, timed=True),
         "5^3x224": kernel_phase(ps_k, PCD_SHAPE, seed=4, timed=True, groups=COARSE_GROUPS),
         "3^3x224": kernel_phase(ps_k, PCD_COARSE_SHAPE, seed=5, timed=True, groups=COARSE_GROUPS),
-        "5^3x222": kernel_phase(ps_k, ODD_P_SHAPE, seed=6, timed=True, groups=("full",)),
-        "3^3x5": kernel_phase(ps_k, SMALL_SHAPE, seed=2, timed=False),
+        "5^3x222": kernel_phase(ps_k, ODD_P_SHAPE, seed=6, timed=True, groups=("full",) + PENCIL_GROUPS),
+        "3^3x5": kernel_phase(ps_k, SMALL_SHAPE, seed=2, timed=PENCIL_GROUPS),
     }
     floor_ms = median_ms(lambda: sk.launch_empty("cuda"))
     _flush.clear()
@@ -1136,7 +1210,8 @@ def solve_phase(launches, by_lattice):
         f"[slice] refs=4 dofs={ctx.n_dofs} P={ctx.ps.P} lat={ctx.ps.fine.lat_shape}: "
         f"host setup {ctx.host_seconds:.2f} s, assembly {ctx.assembly_seconds:.2f} s, "
         f"inner CG iterations {res.inner_iters}, IR rounds {res.rounds}, "
-        f"res_norm {float(res.res_norm):.3e}, converged {res.converged}, launches {launches['solve']}"
+        f"res_norm {float(res.res_norm):.3e}, converged {res.converged}, launches {launches['solve']} "
+        f"(recorded before: {SOLVE_COUNTS[0]} CG iterations, {SOLVE_COUNTS[1]} IR rounds)"
     )
     check(res.converged, "refs=4 cg_ir_p converged")
     data = ctx.data
@@ -1192,7 +1267,8 @@ def admm_phase(ctx, launches, by_lattice):
             f"total_lin_iters {s_.total_lin_iters} solver_iters {s_.solver_iters} "
             f"converged {s_.converged} failed {s_.failed}; {r_.seconds:.3f} s, "
             f"{s_.admm_it / r_.seconds:.4f} ADMM it/s, W_h assembly {s_.wh_seconds:.3f} s, "
-            f"Krylov {s_.krylov_seconds:.3f} s, Lambda {[round(float(v), 6) for v in s_.Lambda]}"
+            f"Krylov {s_.krylov_seconds:.3f} s, Lambda {[round(float(v), 6) for v in s_.Lambda]} "
+            f"(recorded before: admm_it {ADMM_COUNTS[0]}, {ADMM_COUNTS[1]} Newton, {ADMM_COUNTS[2]} Krylov)"
         )
     log(
         f"[admm] launches {launches['admm']}, peak device memory "

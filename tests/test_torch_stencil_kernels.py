@@ -475,14 +475,14 @@ def test_by_value_table_refuses_another_slot_count():
 @pytest.mark.parametrize("case", ["no lanes", "nine lanes", "strided field", "strided W", "2^31 sites on lanes",
                                   "2^31 sites on a scalar field", "2^31 sites on the scalar transpose",
                                   "2^31 sites on one field of K1", "2^31 sites on K5 at C = 3",
-                                  "2^31 sites on K5^T at C = 3"])
+                                  "2^31 sites on K5^T at C = 3", "2^31 sites on K2", "2^31 sites on K3"])
 def test_new_kernels_refusals_on_meta_tensors(problem, case):
     """What the wrappers of the kernels with a by-value table (K1 on lanes
-    and on one field, the scalar kernel, K5 and K5^T at C = 3) refuse, on
-    meta tensors (no memory behind them): a lane axis of 0 or 9 lanes, a
-    field or W that is not contiguous, and a lattice of 2^31 sites or more,
-    which the kernels' 32-bit site indices cannot hold.  Each is refused
-    for that reason, ahead of the refusal of the meta device."""
+    and on one field, the scalar kernel, K5 and K5^T at C = 3, K2 and K3)
+    refuse, on meta tensors (no memory behind them): a lane axis of 0 or 9
+    lanes, a field or W that is not contiguous, and a lattice of 2^31 sites
+    or more, which the kernels' 32-bit site indices cannot hold.  Each is
+    refused for that reason, ahead of the refusal of the meta device."""
     _, tps, _ = problem
     lat, P = tps.fine.lat_shape, tps.P
     H, O = len(st.half_slots(tps)), len(tps.stencil)
@@ -508,6 +508,13 @@ def test_new_kernels_refusals_on_meta_tensors(problem, case):
         call = lambda: sk.apply_w_sym(tps, torch.empty((H, 3, 3) + big, **meta),  # noqa: E731
                                       torch.empty((2, 3) + big, **meta))
         match = "indexes lattice sites in 32 bits"
+    elif case in ("2^31 sites on K2", "2^31 sites on K3"):
+        W_pc = torch.empty((2, 1024, O, 3, 3, 1024, 1024), dtype=torch.bfloat16, **meta)
+        if case.endswith("K2"):
+            call = lambda: sk.apply_w_pencil(tps, W_pc, torch.empty((3,) + big, **meta))  # noqa: E731
+        else:
+            call = lambda: sk.apply_w_pencil_batched(tps, W_pc, torch.empty((2, 3) + big, **meta))  # noqa: E731
+        match = "indexes lattice sites in 32 bits"
     elif case == "2^31 sites on one field of K1":
         call = lambda: sk.apply_w_sym(tps, torch.empty((H, 3, 3) + big, **meta),  # noqa: E731
                                       torch.empty((3,) + big, **meta))
@@ -525,22 +532,16 @@ def test_new_kernels_refusals_on_meta_tensors(problem, case):
 
 
 def test_kernels_with_64_bit_indices_take_2_31_sites(problem):
-    """The kernels that read their slot table from device memory keep 64-bit
-    site indices: on K2, K3 and K4, 2^31 sites pass every check and are
-    refused only for the meta device."""
+    """The kernel that reads its slot table from device memory keeps 64-bit
+    site indices: on K4, 2^31 sites pass every check and are refused only
+    for the meta device."""
     _, tps, _ = problem
-    H, O = len(st.half_slots(tps)), len(tps.stencil)
+    H = len(st.half_slots(tps))
     big = (2, 1024, 1024, 1024)
-    W_pc = torch.empty((2, 1024, O, 3, 3, 1024, 1024), dtype=torch.bfloat16, device="meta")
     W = torch.empty((H, 3, 3) + big, device="meta")
     x = torch.empty((3,) + big, device="meta")
-    for call in (
-        lambda: sk.apply_w_pencil(tps, W_pc, x),
-        lambda: sk.apply_w_pencil_batched(tps, W_pc, torch.empty((2, 3) + big, device="meta")),
-        lambda: sk.apply_w_df_sym(tps, W, x, x),
-    ):
-        with pytest.raises(ValueError, match="must be on the CPU or a CUDA device"):
-            call()
+    with pytest.raises(ValueError, match="must be on the CPU or a CUDA device"):
+        sk.apply_w_df_sym(tps, W, x, x)
 
 
 @pytest.mark.parametrize("kind", ["sym", "sym on one lane", "full", "full_t"])
@@ -569,6 +570,30 @@ def test_c3_field_kernels_take_the_packed_table_of_their_kind(problem, monkeypat
     assert lattice == tuple(lat) + (P,)
     assert args[3] is sk.stencil_tables(tps).packed(table)
     assert args[4:] == lattice
+
+
+@pytest.mark.parametrize("lanes", [None, 5])
+def test_pencil_kernels_take_the_packed_full_table(problem, monkeypatch, lanes):
+    """K2 (a field) and K3 (a lane axis) launch the pencil entry point with
+    the packed by-value table of K5's direct rows (the kernel reads their
+    offsets), the lattice and the lane count, under their own launch
+    counter names: recorded by a stand-in for the launch, on meta tensors,
+    so no card is needed."""
+    _, tps, _ = problem
+    lat, P = tps.fine.lat_shape, tps.P
+    calls = []
+    monkeypatch.setattr(sk, "_launch", lambda name, fn, lattice, *args, device: calls.append(
+        (name, fn, lattice, args, device)))
+    W_pc = torch.empty(tuple(lat[:2]) + (len(tps.stencil), 3, 3, lat[2], P), dtype=torch.bfloat16, device="meta")
+    x = torch.empty(((lanes,) if lanes else ()) + (3,) + lat + (P,), device="meta")
+    fn = sk.apply_w_pencil_batched if lanes else sk.apply_w_pencil
+    y = fn(tps, W_pc, x)
+    assert y.shape == x.shape and y.device == x.device
+    ((name, entry, lattice, args, device),) = calls
+    assert (name, entry, device) == (fn.__name__, "apply_w_pencil_bf16", x.device)
+    assert lattice == tuple(lat) + (P,)
+    assert args[3] is sk.stencil_tables(tps).packed("full")
+    assert args[4:] == lattice + (lanes or 1,)
 
 
 def test_launch_counts_by_lattice_are_reset_with_the_counts(problem):
@@ -626,16 +651,23 @@ def test_k5_scalar_twins_float32_at_a_p_that_is_no_multiple_of_4(problem, transp
     assert _rel(got, want) < 1e-6
 
 
-@pytest.mark.parametrize("form", ["scalar K5", "scalar K5^T", "K5", "K5^T", "K1", "K1 on lanes"])
+@pytest.mark.parametrize("form", ["scalar K5", "scalar K5^T", "K5", "K5^T", "K1", "K1 on lanes", "K2", "K3"])
 def test_w_entries_beyond_the_lattice_edge_are_never_used(problem, form):
     """Every W entry whose neighbour lies outside the lattice filled with
-    1e30: no twin's result changes by a bit.  The kernels clamp the
+    1e30: no twin's result changes by a bit.  K2 and K3 take it as the
+    bf16 pencil-major form of the expanded W.  The kernels clamp the
     addresses of such neighbours to the site and drop the weight;
     chip_smoke.py holds them to the same on the card."""
     _, tps, W_sym = problem
     lat, P = (5, 5, 5), 6
     rng = np.random.default_rng(32)
-    if form.startswith("K1"):
+    if form in ("K2", "K3"):
+        W = st.expand_sym_w(tps, torch.from_numpy(W_sym))
+        lanes = (5,) if form == "K3" else ()
+        x = torch.from_numpy(rng.normal(size=lanes + (3,) + tps.fine.lat_shape + (tps.P,)).astype(np.float32))
+        apply = sk.apply_w_pencil_batched if lanes else sk.apply_w_pencil
+        fn = lambda ps, W, x: apply(ps, sk.to_pencil_major(ps, W, torch.bfloat16), x)  # noqa: E731
+    elif form.startswith("K1"):
         W = torch.from_numpy(W_sym)
         lanes = (5,) if form.endswith("lanes") else ()
         x = torch.from_numpy(rng.normal(size=lanes + (3,) + tps.fine.lat_shape + (tps.P,)).astype(np.float32))
