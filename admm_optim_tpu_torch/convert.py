@@ -107,12 +107,18 @@ def resume_state(d, device, dtype=None) -> dict:
     """A JAX checkpoint dict (io.checkpoint.load_checkpoint: numpy arrays)
     -> the port's ObstacleShapeOpt.run(resume=...): X (V, d) and the packed
     state s as tensors on the device, sigma, drag_old and drag_init as
-    floats, step as an int (drag_init defaults to drag_old)."""
+    floats, step as an int (drag_init defaults to drag_old), and the
+    accepted history and failure catalogue (history_json, failures_json)
+    as the strings they are.  run(resume=) also takes the dict as it
+    comes."""
     out = dict(
         X=tensor(d["X"], device, dtype).contiguous(), s=ns_state(d["s"], device, dtype),
         sigma=float(d["sigma"]), step=int(d["step"]), drag_old=float(d["drag_old"]),
     )
     out["drag_init"] = float(d["drag_init"]) if "drag_init" in d else out["drag_old"]
+    for key in ("history_json", "failures_json"):
+        if key in d:
+            out[key] = str(d[key])
     return out
 
 

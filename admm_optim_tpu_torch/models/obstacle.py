@@ -19,18 +19,27 @@ steps), and the descent test.  A failed ADMM halves sigma in 2D and the J'
 scaling in 3D (admm_failure_control "auto"); a tangled mesh, a diverged
 re-solve or no descent halve sigma.
 
+Around the loop (obstacle.py:1045-1498): the reference's telemetry files
+and VTUs through io.telemetry and io.vtk, a checkpoint after the ladder
+("step -1") and after every accepted step with the accepted history and
+the failure catalogue, the warm sidecar <checkpoint>.warm.npz (the
+adjoint's lambda and GCRO-DR space, the forward recycle space), the
+profiler's phases, and the debug outputs (newton_output, debug_output,
+debug_nodal_positions, debug_nans).
+
 The port has only the host-stepped drivers, so the JAX package's
 ``num_elems > 20000`` switches between monolithic and stepped drivers are
 gone.  What is not ported raises NotImplementedError naming the ROADMAP
 item that brings it: the global (ELL) backend, b2nd_order and grid_path
-(item 9), telemetry, checkpoints, the profiler and the debug outputs (item
-8b).  The assembled NS Jacobian is the only NS operator: above
+(item 9).  The assembled NS Jacobian is the only NS operator: above
 ns_jac_mem_cap the constructor raises instead of falling back to the
 matrix-free jvp (item 9).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Callable
 
@@ -39,6 +48,9 @@ import torch
 
 from .. import ns_run, resolve_device, xupdate_solve
 from ..core.mesh import Hierarchy
+from ..core.ugx import SubsetInfo, UgxGrid, write_ugx
+from ..io.checkpoint import save_checkpoint
+from ..io.vtk import write_vtu
 from ..ops import navier_stokes as nsops
 from ..ops import ns_patchjac as nsjac
 from ..ops import patchstencil as st
@@ -48,6 +60,8 @@ from ..ops.geometry import elem_geometry
 from ..optim import admm
 from ..optim.spaces import PatchOps
 from ..solvers import ns_solver
+from ..utils import debug
+from ..utils.profiling import Profiler
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,27 +169,41 @@ def _refuse(cfg: ProblemConfig, hier: Hierarchy):
     for what, on in item9.items():
         if on:
             raise NotImplementedError(f"{what}: the global (ELL) backend comes with ROADMAP item 9")
-    for name in ("newton_output", "debug_output", "debug_nodal_positions", "debug_nans"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name}=True: telemetry and debug output come with ROADMAP item 8b")
+
+
+def _host(t) -> np.ndarray:
+    """A tensor as a host numpy array (what io/ writes)."""
+    return t.detach().cpu().numpy()
+
+
+def _tensors(obj):
+    """The tensors of a nested dataclass / list / tuple (the assembled
+    multigrid data), for the finite check."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v)
 
 
 class _Phases:
-    """Synchronized seconds and kernel launches per phase of one step,
-    summed over its attempts.  Launches are differences of the counters in
-    ops.stencil_kernels, which are never reset here."""
+    """Seconds and kernel launches per phase of one step, summed over its
+    attempts.  The seconds are the profiler's: its phase synchronizes the
+    device once, at the phase's end.  Launches are differences of the
+    counters in ops.stencil_kernels, which are never reset here."""
 
-    def __init__(self, device):
-        self.device = device
+    def __init__(self, device, prof: Profiler):
+        self.device, self.prof = device, prof
         self.seconds, self.launches, self.by_lattice = {}, {}, {}
 
     def __call__(self, name, fn):
-        ns_run._sync(self.device)
         before, before_lat = dict(sk.launches), dict(sk.launches_by_lattice)
-        t0 = time.perf_counter()
-        out = fn()
-        ns_run._sync(self.device)
-        self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        with self.prof.phase(name, sync=self.device):
+            out = fn()
+        self.seconds[name] = self.seconds.get(name, 0.0) + self.prof.last
         for counts, old, tot in ((sk.launches, before, self.launches.setdefault(name, {})),
                                  (sk.launches_by_lattice, before_lat, self.by_lattice.setdefault(name, {}))):
             for key, n in counts.items():
@@ -231,10 +259,12 @@ class ObstacleShapeOpt:
         # GCRO-DR space, the forward solves' recycle space (across the
         # ladder's rungs too)
         self._cur_lam_adj = self._cur_Jp = None
+        self._cur_X = self._cur_s = None  # the step's mesh and state, for the CLI's callbacks
         self._adj_recycle = {}
         self._ns_recycle = {}
         self.ladder = None  # ns_run.LadderResult of the cold start
         self.step_log = []  # per step: seconds, launches and attempts (see run)
+        self.sidecar_restored = {}  # what _load_warm_sidecar took: key -> shape
 
     def initial_state(self, X):
         return ns_run.initial_state(self.ns, X)
@@ -245,9 +275,11 @@ class ObstacleShapeOpt:
     def _drag(self, X, s):
         return float(nsops.drag(self.ns.space, X, s, self.cfg.visc))
 
-    def _admm(self, mgdata, X, Jp, sigma, scaling, iter_cb=None):
+    def _admm(self, mgdata, X, Jp, sigma, scaling, iter_cb=None, newton_hist_out=None, full_stats_out=None,
+              debug_out=None):
         """admm_inner on the patch lattice at X (obstacle.py:1000-1019):
-        X and J' to patch layout, u back to global (d, V) by owner."""
+        X and J' to patch layout, u and the debug fields back to global
+        (d, V) by owner."""
         ps = self.xu.ps
 
         def to_global(up):
@@ -257,8 +289,75 @@ class ObstacleShapeOpt:
         res = admm.admm_inner(
             self.cfg.admm, ops_, st.to_patch(ps.fine, Jp), sigma, scaling, self.ref_volume,
             self.ref_barycenter, iter_cb=None if iter_cb is None else (lambda k, up: iter_cb(k, to_global(up))),
+            newton_hist_out=newton_hist_out, full_stats_out=full_stats_out, debug_out=debug_out,
         )
+        if debug_out:
+            for k in ("Lu", "rhs_large", "du"):
+                debug_out[k] = to_global(debug_out[k])
         return dataclasses.replace(res, u=to_global(res.u))
+
+    def _write_mesh_ugx(self, path: str, X) -> None:
+        """Per-step mesh dump at the current (deformed) coordinates: the
+        -bDebugOutput SaveGridLevelToFile parity (reference 2d:788)."""
+        lvl = self.hier.fine
+        coords = np.zeros((lvl.num_vertices, 3))
+        coords[:, : lvl.dim] = _host(X)
+        empty = np.zeros((0,), np.int32)
+        subsets = {
+            name: SubsetInfo(name=name, vertices=np.nonzero(mask)[0].astype(np.int32), edges=empty, faces=empty,
+                             volumes=empty)
+            for name, mask in lvl.subset_vertices.items()
+        }
+        write_ugx(path, UgxGrid(
+            name="defGrid", coords=coords, edges=np.asarray(lvl.edges),
+            triangles=lvl.elems if lvl.dim == 2 else np.zeros((0, 3), np.int32),
+            tetrahedrons=lvl.elems if lvl.dim == 3 else np.zeros((0, 4), np.int32),
+            subsets=subsets,
+        ))
+
+    # ---- warm-state sidecar (obstacle.py:1081-1124) ------------------------
+    # Without it a resumed run starts the adjoint cold (zeros, no recycle
+    # space) and re-pays the first solve's Krylov cost.  Kept apart from
+    # the checkpoint: it only speeds the next step up.  The keys and the
+    # (k, n_state) orientation of U are the JAX package's, so a sidecar
+    # written by either package loads in the other.
+    def _save_warm_sidecar(self, checkpoint_path: str) -> None:
+        try:
+            arrs = {}
+            if self._cur_lam_adj is not None:
+                arrs["lam_adj"] = _host(self._cur_lam_adj)
+            for key, U in (("adj_U", self._adj_recycle.get("U")), ("ns_U", self._ns_recycle.get("U"))):
+                if U is not None:
+                    arrs[key] = _host(U)
+            if not arrs:
+                return
+            tmp = checkpoint_path + ".warm.tmp.npz"
+            np.savez(tmp, **arrs)
+            os.replace(tmp, checkpoint_path + ".warm.npz")
+        except Exception as e:  # noqa: BLE001 - never fail a step on this
+            print(f"warm sidecar save failed ({e!r})", flush=True)
+
+    def _load_warm_sidecar(self, checkpoint_path: str) -> None:
+        path = checkpoint_path + ".warm.npz"
+        if not os.path.exists(path):
+            return
+        try:
+            with np.load(path) as z:
+                n = int(self.ns.n_state)
+
+                def dev(key):
+                    self.sidecar_restored[key] = z[key].shape
+                    return torch.as_tensor(z[key], dtype=self.dtype, device=self.device).contiguous()
+
+                if "lam_adj" in z and z["lam_adj"].shape == (n,):
+                    self._cur_lam_adj = dev("lam_adj")
+                if "adj_U" in z and z["adj_U"].shape[-1:] == (n,):
+                    self._adj_recycle["U"] = dev("adj_U")
+                if "ns_U" in z and z["ns_U"].shape[-1:] == (n,):
+                    self._ns_recycle["U"] = dev("ns_U")
+            print(f"warm sidecar restored ({', '.join(sorted(z.files))})", flush=True)
+        except Exception as e:  # noqa: BLE001
+            print(f"warm sidecar load failed ({e!r})", flush=True)
 
     def _ladder(self, verbose):
         """The cold-start viscosity continuation (obstacle.py:1174-1214)."""
@@ -274,6 +373,36 @@ class ObstacleShapeOpt:
             print(f"continuation: {time.perf_counter() - t0:.1f} s", flush=True)
         return self.ladder.s
 
+    def _checkpoint(self, path, step, X, s, sigma, drag_old, drag_init, history, failures):
+        save_checkpoint(
+            path, step=step, X=_host(X), s=_host(s), sigma=sigma, drag_old=drag_old,
+            extra={"drag_init": drag_init, "history_json": json.dumps([dataclasses.asdict(r) for r in history]),
+                   "failures_json": json.dumps(failures)},
+        )
+
+    def _write_telemetry(self, telemetry, history, failures, drag_init, catalog_failures):
+        """__Drag.txt, __Iterations_per_step.txt and __Failure_Data.txt over
+        the whole accepted history (obstacle.py:1432-1463)."""
+        cfg = self.cfg
+        steps = [r.step for r in history]
+        # 2D normalizes the shape-derivative column by scaling*sigma
+        # (2d:1348); 3D stores it raw (3d:1343)
+        telemetry.write_drag(
+            steps, [r.drag for r in history], [r.drag / drag_init for r in history],
+            [r.drag_diff for r in history],
+            [r.shape_derivative / (r.scaling * r.sigma) if cfg.dim == 2 else r.shape_derivative for r in history],
+        )
+        telemetry.write_iterations(
+            steps, [r.admm_iters for r in history], [r.sigma for r in history],
+            [r.newton_iters for r in history], [r.lin_iters for r in history],
+            solver_iters=[r.solver_iters for r in history], dim=cfg.dim,
+        )
+        if failures and catalog_failures:
+            telemetry.write_failures(
+                list(range(len(failures))), [f["step"] for f in failures], [f["drag"] for f in failures],
+                [f["diff"] for f in failures], [f["sigma"] for f in failures],
+            )
+
     def run(
         self,
         num_steps: int | None = None,
@@ -282,14 +411,24 @@ class ObstacleShapeOpt:
         verbose: bool = False,
         resume: dict | None = None,
         checkpoint_path: str | None = None,
-        profiler=None,
+        profiler: Profiler | None = None,
+        catalog_failures: bool = True,
         admm_iter_cb: Callable | None = None,
     ) -> list[StepRecord]:
-        """The optimization loop; returns the accepted steps' records.
+        """The optimization loop; returns the accepted steps' records (with
+        a resume that carries history_json, the restored ones first).
 
-        resume: {"X" (V, d), "s", "sigma", "step", "drag_old"[, "drag_init"]}
-        (convert.resume_state makes it from a JAX checkpoint): the loop
-        starts at step + 1 from that state instead of the cold-start ladder.
+        resume: {"X" (V, d), "s", "sigma", "step", "drag_old"[, "drag_init",
+        "history_json", "failures_json"]}, as io.checkpoint.load_checkpoint
+        returns it (numpy) or convert.resume_state makes it: the loop starts
+        at step + 1 from that state instead of the cold-start ladder, with
+        the warm sidecar of checkpoint_path if there is one.
+        telemetry: an io.telemetry.TelemetryWriter; checkpoint_path: the
+        checkpoint written after the ladder (as step -1) and after every
+        accepted step, with its sidecar <checkpoint_path>.warm.npz;
+        profiler: a utils.profiling.Profiler fed by the step's phases;
+        catalog_failures: keep rejected (non-descent) attempts in
+        __Failure_Data.txt with a failed_flows VTU each.
         callback(step, X, s, rec) after every accepted step;
         admm_iter_cb(step, attempt, k, u) with every ADMM iterate's global
         u (d, V) (-bOutputIntermediateUp, 2d:84).
@@ -299,12 +438,11 @@ class ObstacleShapeOpt:
         ns_solve, drag), "adjoint" (iterations, exit), "ns" per re-solve
         (Newton and linear counts) and "attempts" (per attempt its outcome
         and what it halved)."""
-        for name, v in (("telemetry", telemetry), ("checkpoint_path", checkpoint_path), ("profiler", profiler)):
-            if v is not None:
-                raise NotImplementedError(f"run({name}=...): comes with ROADMAP item 8b")
         cfg = self.cfg
+        prof = profiler if profiler is not None else Profiler()
         num_steps = cfg.num_steps if num_steps is None else num_steps
         history: list[StepRecord] = []
+        failures: list[dict] = []
         if resume is not None:
             X = torch.as_tensor(resume["X"], dtype=self.dtype, device=self.device).contiguous()
             s = torch.as_tensor(resume["s"], dtype=self.dtype, device=self.device)
@@ -312,6 +450,14 @@ class ObstacleShapeOpt:
             drag_old = float(resume["drag_old"])
             start_step = int(resume["step"]) + 1
             self.drag_init = float(resume.get("drag_init", drag_old))
+            if checkpoint_path is not None:
+                self._load_warm_sidecar(checkpoint_path)
+            # the accepted history, so that the telemetry files stay
+            # contiguous across restarts (one __Drag.txt for the whole run)
+            for rd in json.loads(str(resume.get("history_json", "[]"))):
+                rd["solver_iters"] = tuple(rd.get("solver_iters", ()))
+                history.append(StepRecord(**rd))
+            failures = json.loads(str(resume.get("failures_json", "[]")))
         else:
             X = self.X0
             s = self._ladder(verbose)
@@ -319,23 +465,41 @@ class ObstacleShapeOpt:
             sigma = cfg.sigma_threshold
             start_step = 0
             self.drag_init = drag_old  # the normalizer of the drag telemetry
+            if checkpoint_path is not None:
+                # the state after the ladder as "step -1": the ladder is the
+                # longest stretch without a checkpoint
+                self._checkpoint(checkpoint_path, -1, X, s, sigma, drag_old, drag_old, [], [])
+        drag_init = self.drag_init
         fc = cfg.admm_failure_control
         if fc == "auto":
             fc = "scaling" if cfg.dim == 3 else "sigma"
 
+        def vtu(name, coords, fields):
+            if telemetry is not None:
+                write_vtu(f"{telemetry.out_dir}/{name}.vtu", _host(coords), _host(self.elems),
+                          point_data={k: _host(v) for k, v in fields.items()})
+
         for step in range(start_step, num_steps):
             t0 = time.perf_counter()
-            ph = _Phases(self.device)
+            ph = _Phases(self.device, prof)
             log = dict(step=step, seconds=ph.seconds, launches=ph.launches, by_lattice=ph.by_lattice,
                        attempts=[], ns=[])
             self.step_log.append(log)
+            if cfg.debug_output and telemetry is not None:
+                # SaveGridLevelToFile parity (2d:788): per-step mesh dump
+                self._write_mesh_ugx(f"{telemetry.out_dir}/Mesh_lev{cfg.num_refs}_step{step}.ugx", X)
             adj = ph("adjoint", lambda: ns_run.adjoint(
                 self.ns, s, X=X, lam0=self._cur_lam_adj, recycle=self._adj_recycle))
             log["adjoint"] = dict(iters=adj.iters, exit=adj.exit, res_norm=adj.res_norm, target=adj.target)
             if verbose:
                 print(f"  adjoint: {adj.iters} its |r|={adj.res_norm:.2e} ({adj.exit})", flush=True)
+            if cfg.debug_nans:
+                debug.check_finite("adjoint", lam_adj=adj.lam)
             Jp = ph("jprime", lambda: ns_run.jprime(self.ns, s, adj.lam, X=X))
+            if cfg.debug_nans:
+                debug.check_finite("jprime", Jp=Jp)
             self._cur_lam_adj, self._cur_Jp = adj.lam, Jp
+            self._cur_X, self._cur_s = X, s
             scaling = cfg.scaling  # reset each step (reference 2d:807)
             accepted = False
             attempts = 0
@@ -344,9 +508,18 @@ class ObstacleShapeOpt:
                 rec_a = dict(attempt=attempts, sigma=sigma, scaling=scaling, halved=None)
                 log["attempts"].append(rec_a)
                 mgdata = ph("assemble", lambda: xupdate_solve.assemble(self.xu, X))
+                if cfg.debug_nans:
+                    debug.check_finite("assemble", **{f"mgdata_leaf{i}": t for i, t in enumerate(_tensors(mgdata))})
                 icb = None if admm_iter_cb is None else (
                     lambda k, u, _s=step, _a=attempts: admm_iter_cb(_s, _a, k, u))
-                res = ph("admm", lambda: self._admm(mgdata, X, Jp, sigma, scaling, iter_cb=icb))
+                newton_hist = [] if cfg.newton_output and telemetry is not None else None
+                full_stats = []
+                debug_out = {} if cfg.debug_output and telemetry is not None else None
+                res = ph("admm", lambda: self._admm(mgdata, X, Jp, sigma, scaling, iter_cb=icb,
+                                                    newton_hist_out=newton_hist, full_stats_out=full_stats,
+                                                    debug_out=debug_out))
+                if cfg.debug_nans:
+                    debug.check_finite("admm", u=res.u, lam=res.lam)
                 rec_a.update(admm_it=res.admm_it, newton=res.total_newton, krylov=res.total_lin_iters)
                 if res.failed:
                     # 2d:1269 halves sigma; 3d:1322 halves scaling instead
@@ -366,6 +539,8 @@ class ObstacleShapeOpt:
                         print(f"step {step}: mesh tangled, sigma -> {sigma}")
                     continue
                 nres, _ = ph("ns_solve", lambda: ns_run.newton(self.ns, s, recycle=self._ns_recycle, X=X_new))
+                if cfg.debug_nans:
+                    debug.check_finite("ns_solve", s=nres.s)
                 log["ns"].append(dict(iters=nres.iters, lin_iters=list(nres.lin_iters), res_norm=nres.res_norm,
                                       converged=nres.converged))
                 if not nres.converged:
@@ -380,6 +555,10 @@ class ObstacleShapeOpt:
                 rec_a.update(drag=drag_new, drag_diff=ddiff, shape_derivative=shape_deriv)
                 # descent test (reference 2d:1300-1306)
                 if ddiff > 0.0 or ddiff > cfg.line_search_param * shape_deriv:
+                    failures.append(dict(step=step, drag=drag_new, diff=ddiff, sigma=sigma))
+                    if catalog_failures:
+                        # failed-field VTU (reference 2d:1317-1321)
+                        vtu(f"failed_flows_step_{step}_failure_{len(failures) - 1}", X, {"u_fail": res.u.T})
                     sigma *= 0.5  # revert is implicit: X unchanged
                     rec_a.update(outcome="not a descent", halved="sigma")
                     if verbose:
@@ -398,8 +577,36 @@ class ObstacleShapeOpt:
                 if verbose:
                     print(f"step {step}: drag {drag_new:.6f} ({ddiff:+.2e}) admm={rec.admm_iters} "
                           f"newton={rec.newton_iters} sigma={sigma} [{rec.wall_time:.2f}s]", flush=True)
+                if telemetry is not None:
+                    telemetry.log_step(dataclasses.asdict(rec))
+                    # every ADMM stats row, across fake-convergence restarts
+                    # (2d:1221); the state's table when none was kept
+                    stats = np.asarray(full_stats) if full_stats else res.stats.numpy()[: max(res.admm_it, 1)]
+                    telemetry.write_admm_stats(step, {f"c{i}": stats[:, i].tolist() for i in range(stats.shape[1])})
+                    if newton_hist is not None:
+                        # written even when the last ADMM iteration applied
+                        # no Newton row (the reference writes unconditionally)
+                        telemetry.write_newton_stats(step, newton_hist)
+                        telemetry.write_newton_iterations(step, newton_hist)
+                    if debug_out:
+                        # -bDebugOutput VTUs (2d:962-1076): the last Newton
+                        # iteration's Lu, large-problem RHS and increment
+                        vtu(f"ConsistentLu_step_{step}", X, {"up": debug_out["Lu"].T})
+                        vtu(f"RHSBigProb_{step}", X, {"up": debug_out["rhs_large"].T})
+                        vtu(f"delta_u_step_{step}", X, {"u": debug_out["du"].T})
+                    if cfg.debug_nodal_positions:
+                        # -bDebugNodalPositions (3d:1393-1399)
+                        vtu(f"grid_positions_step_{step}", X, {"u": X})
+                    self._write_telemetry(telemetry, history, failures, drag_init, catalog_failures)
+                if checkpoint_path is not None:
+                    self._checkpoint(checkpoint_path, step, X, s, sigma, drag_old, drag_init, history, failures)
+                    self._save_warm_sidecar(checkpoint_path)
                 if callback is not None:
                     callback(step, X, s, rec)
+                if profiler is not None and verbose:
+                    # the cumulative breakdown after every accepted step: a
+                    # killed process keeps it in its log
+                    print(prof.report(), flush=True)
             if not accepted:
                 if verbose:
                     print(f"step {step}: no acceptable step found, stopping")

@@ -100,7 +100,12 @@ def _scatter_local(wiring: NSJacWiring, c: int, m: int, y_loc, yv, yp):
 # assembly
 # ---------------------------------------------------------------------------
 
-JAC_CELL_CHUNK = 4096  # cells per jacfwd batch: bounds (nq,nbv,d,B) temps
+# cells per jacfwd batch: bounds the (nq, nbv, d, B) temporaries.  On the
+# H100 the refs=2 assembly (14,336 cells per class) took 257.5 ms in four
+# batches of 4096 and 228.3 ms in one, at 1.22 and 2.46 GiB of peak
+# temporaries (PERF.md); 65536 gave the same time in the same batch
+# and would allow ~11 GB of temporaries at larger meshes.
+JAC_CELL_CHUNK = 16384
 
 
 def assemble_ns_jacobian(space, ps, wiring: NSJacWiring, coords_p, v0_p, p0_p, visc, stab: float = 0.0):

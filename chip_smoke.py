@@ -5,7 +5,7 @@
     python3 chip_smoke.py --phase NAME[,NAME]   (build and kernels, then these phases)
     python3 chip_smoke.py --kernels-only        (= --phase kernels: phases 1-3, then stop)
 
-NAME is one of kernels, slice, admm, ns, step, pcd, small (admm brings
+NAME is one of kernels, slice, admm, ns, step, pcd, small, cli (admm brings
 slice, whose refs=4 context it runs on); the default runs them all, and
 only the full run prints the {"ok": true, ...} line.  Run alone, step
 climbs its own viscosity ladder.
@@ -52,18 +52,24 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      rung; a rung the mass block fails is a finding, not a failed check),
      then at the first rung's state (visc 0.16) the drag, the adjoint with
      the vjp-transposed preconditioner (K5^T) under a cut iteration budget,
-     and the masked shape gradient J';
-  7. step: one optimization step of models.obstacle.ObstacleShapeOpt at
-     3D refs=2, visc 0.02, float32 with f32_presets and the mass block,
-     started from the 0.02 state the ns phase's ladder reached (the JAX
-     package's "step -1" state; alone, the phase runs its own ladder):
-     seconds, launches and launches by lattice per phase (adjoint, J',
-     assemble, ADMM, tangle test, NS re-solve, drag), the StepRecord, every
-     attempt and what it halved; gates: accepted within
-     max_attempts_per_step, drag fell, min det > 0, the re-solved |R|
-     rechecked in float64 <= accept_tol, volume and barycenter of the new
-     mesh (float64, on the host) within 10 x ns_abs_llambda_tol of the
-     undeformed mesh's; then one step at refs=1 from the cold start held
+     and the masked shape gradient J', and the Jacobian assembly at that
+     state timed at 4096, 16384 and 65536 cells per batch with its peak
+     memory;
+  7. step: two optimization steps of models.obstacle.ObstacleShapeOpt at
+     3D refs=2, visc 0.02, float32 with f32_presets and the mass block.
+     Step 0 starts from the 0.02 state the ns phase's ladder reached (the
+     JAX package's "step -1" state; alone, the phase runs its own ladder)
+     with telemetry, a checkpoint path and a profiler; then that model is
+     deleted and a fresh one takes step 1 from load_checkpoint(checkpoint)
+     and its warm sidecar.  Per step: seconds, launches and launches by
+     lattice per phase (adjoint, J', assemble, ADMM, tangle test, NS
+     re-solve, drag), the StepRecord, every attempt and what it halved;
+     gates for each: accepted within max_attempts_per_step, drag fell, min
+     det > 0, the re-solved |R| rechecked in float64 <= accept_tol, volume
+     and barycenter of the new mesh (float64, on the host) within 10 x
+     ns_abs_llambda_tol of the undeformed mesh's; for step 1 also: the
+     sidecar restored, __Drag.txt with two rows equal to the two
+     StepRecords; then one step at refs=1 from the cold start held
      against the port's float64 CPU run kept in
      tests/goldens/chip_step_refs1.npz;
   8. pcd: ns_run.run(ctx, target_visc=0.02) at refs=2, float32, with the
@@ -74,12 +80,23 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      iterations) and J' at visc 0.02,
      launches per phase, peak memory, and a profiled window of the Krylov
      operators for the card's busy share and K5's share of device time;
+     then the 0.02 rung's Newton solve again from the rung before it with
+     2 velocity-block Richardson steps (vel_inner) beside the ladder's own
+     (scripts/torch_vel_inner.py runs 1 and 2 in turns);
   9. small: refs=1 solve, ADMM run and PCD ladder to visc 0.02 (with
      drag, adjoint and J') held against the port's float64 CPU runs: the
      solve and the ADMM run here, the ladder as kept in
      tests/goldens/chip_pcd_ladder_refs1.npz (made on the CPU, in minutes,
-     by tests/goldens/make_chip_reference.py, which also makes the step's).
-Each path (solve, ADMM, NS, step, PCD) is driven with the launch counts set to 0
+     by tests/goldens/make_chip_reference.py, which also makes the step's);
+ 10. cli: python -m admm_optim_tpu_torch.cli -dim 3 -numRefs 1 -numSteps 1
+     -visc 0.16 -admmSteps 40 -nsMaxIts 8 -tau 2 -bNewtonOutput 1
+     -bActivateProfiler 1, called in this process: exit code 0, one
+     accepted step, __Drag.txt, __Iterations_per_step.txt (9 columns),
+     checkpoint.npz at step 0, __NewtonStats_step_0_.txt, and the step
+     against the same argv with -x64 run on the CPU and kept in
+     tests/goldens/chip_cli_refs1.npz (the same accepting attempt, the
+     drags within STEP_DRAG_SHARE of the CPU step's decrease).
+Each path (solve, ADMM, NS, step, step 1 resumed, PCD, CLI) is driven with the launch counts set to 0
 just before it (the NS paths reset them before each of their phases) and
 read just after; each of its kernels must have launched.  The counts are
 printed per kernel and per kernel and lattice.
@@ -89,30 +106,38 @@ raises, and the run exits nonzero without that last line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import pathlib
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from admm_optim_tpu_torch import _build, admm_run, ns_run, xupdate_solve
+from admm_optim_tpu_torch import _build, admm_run, cli, ns_run, xupdate_solve
 from admm_optim_tpu_torch.core import geomgen
 from admm_optim_tpu_torch.core.mesh import Hierarchy, refine
 from admm_optim_tpu_torch.core.patches import build_patchset
+from admm_optim_tpu_torch.io.checkpoint import load_checkpoint
+from admm_optim_tpu_torch.io.telemetry import TelemetryWriter
 from admm_optim_tpu_torch.models.obstacle import ObstacleShapeOpt, ProblemConfig, f32_presets
 from admm_optim_tpu_torch.ops import navier_stokes as nsops
+from admm_optim_tpu_torch.ops import ns_patchjac as nsjac
 from admm_optim_tpu_torch.ops import patchstencil as st
 from admm_optim_tpu_torch.ops import stencil_kernels as sk
 from admm_optim_tpu_torch.ops.deformation import barycenter
 from admm_optim_tpu_torch.ops.geometry import elem_geometry
 from admm_optim_tpu_torch.optim.admm import ADMMConfig
 from admm_optim_tpu_torch.solvers.ns_solver import NewtonConfig, transpose_M
+from admm_optim_tpu_torch.utils.profiling import Profiler
 
 SOURCE = "admm_optim_tpu_torch/csrc/stencil.cu"
 PALLAS = "admm_optim_tpu/ops/pallas_stencil.py"
@@ -159,7 +184,7 @@ REFERENCE_THREADS = 2
 # adjoint iterations of the mass-block and PCD phases at refs=2 (the step
 # phase runs its adjoint at visc 0.02 to the exit)
 NS_ADJOINT_BUDGET = 200
-PHASES = ("kernels", "slice", "admm", "ns", "step", "pcd", "small")
+PHASES = ("kernels", "slice", "admm", "ns", "step", "pcd", "small", "cli")
 STEP_VISC = PCD_VISC  # 3d_admm.lua's default viscosity
 # the refs=1 step, card against CPU, at the ladder's first rung: one Newton
 # solve from the cold start, so the float64 CPU reference takes minutes
@@ -170,6 +195,18 @@ STEP_ADMM = dict(admm_steps=40, ns_max_its=8, tau=2.0, lin_max_iters=250, x_solv
 STEP_REFERENCE = pathlib.Path(__file__).resolve().parent / "tests" / "goldens" / "chip_step_refs1.npz"
 # the refs=1 step: card drag after the step within this share of the CPU step's drag decrease
 STEP_DRAG_SHARE = 0.1
+# the CLI at 3D refs=1, on the card (float32, f32_presets) and with -x64 on
+# the CPU (float64), kept in CLI_REFERENCE
+CLI_ARGV = ["-dim", "3", "-numRefs", "1", "-numSteps", "1", "-visc", "0.16", "-admmSteps", "40", "-nsMaxIts", "8",
+            "-tau", "2", "-bNewtonOutput", "1", "-bActivateProfiler", "1"]
+CLI_REFERENCE = pathlib.Path(__file__).resolve().parent / "tests" / "goldens" / "chip_cli_refs1.npz"
+# cells per jacfwd batch of the NS Jacobian assembly (ops/ns_patchjac.py
+# JAC_CELL_CHUNK), timed at refs=2 in the ns phase
+JAC_CHUNKS = (4096, 16384, 65536)
+# the Newton solve of the PCD ladder's last rung, rerun with 2
+# velocity-block Richardson steps per preconditioner apply
+# (scripts/torch_vel_inner.py runs 1 and 2 in turns)
+VEL_INNER = 2
 # the kernels each path must launch, and the TPU kernel each replaces
 PATHS = {
     "solve": ("apply_w_sym", "apply_w_pencil", "apply_w_df_sym"),
@@ -178,6 +215,10 @@ PATHS = {
     "pcd": ("apply_w_full", "apply_w_full_t", "apply_w_full/c1", "apply_w_full_t/c1"),
     # K1 on lanes in the x-update's batched CG, K5 in the NS re-solve, K5^T in the adjoint
     "step": ("apply_w_sym/lanes", "apply_w_full", "apply_w_full_t"),
+    # step 1, resumed from step 0's checkpoint and warm sidecar
+    "resume": ("apply_w_sym/lanes", "apply_w_full", "apply_w_full_t"),
+    # the CLI's refs=1 ladder rung and step
+    "cli": ("apply_w_sym/lanes", "apply_w_full", "apply_w_full_t"),
 }
 REPLACES = {
     "apply_w_sym": f"{PALLAS}:213",
@@ -588,7 +629,7 @@ def device_ms(prof):
     return (total / 1e3, k5 / 1e3, k5c1 / 1e3, top) if total > 0 else None
 
 
-def ns_profile(tag, ctx, s, reps=10):
+def ns_profile(tag, ctx, s, reps=5):
     """The Krylov operators of an NS path at the state s: wall and device
     time of reps x (M, then J) and of reps x (M^T, then J^T), untraced and
     under torch.profiler, and K5's share of the device time."""
@@ -748,7 +789,45 @@ def ns_phase(ctx_pcd, launches, by_lattice):
         f"({seconds['jprime']:.3f} s)")
     check_adjoint_and_gradient("refs=2 mass", ctx16, adj, drag, jp, ("target", "stagnation", "budget"))
     ns_profile("ns", ctx16, nw.s)
+    jac_chunks(ctx16, nw.s)
     return rungs
+
+
+def jac_chunks(ctx, s, reps=3):
+    """The refs=2 NS Jacobian assembly (ctx.jac, what every Newton iterate
+    and the adjoint assemble) at the state s, timed at each cells-per-batch
+    chunk of JAC_CHUNKS: median synchronized seconds of reps calls after a
+    warm-up, and the peak device memory above what was allocated before;
+    the blocks must agree across chunks.  The module's chunk is restored."""
+    keep = nsjac.JAC_CELL_CHUNK
+    W_ref = None
+    try:
+        for chunk in JAC_CHUNKS:
+            nsjac.JAC_CELL_CHUNK = chunk
+            ctx.jac(ctx.coords, s, ctx.visc)
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                W = ctx.jac(ctx.coords, s, ctx.visc)
+                sync()
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() - base
+            cells = int(np.prod(W.shape[3:]))
+            diff = 0.0 if W_ref is None else float((W - W_ref).abs().max() / W_ref.abs().max())
+            W_ref = W if W_ref is None else W_ref
+            log(f"[ns] Jacobian assembly at visc {ctx.visc}, JAC_CELL_CHUNK {chunk}: {cells} cells per class in "
+                f"{-(-cells // chunk)} batch(es), median {1e3 * statistics.median(times):.1f} ms of "
+                f"{[round(1e3 * t, 1) for t in times]}, peak {peak / 2**30:.3f} GiB above the "
+                f"{base / 2**30:.3f} GiB held before; W {tuple(W.shape)}, max |W - W(first chunk)| / max |W| {diff:.3e}")
+            check(diff <= 1e-6, f"Jacobian blocks agree at JAC_CELL_CHUNK {chunk}")
+            del W
+    finally:
+        nsjac.JAC_CELL_CHUNK = keep
+    del W_ref
+    torch.cuda.empty_cache()
 
 
 def step_config(num_refs, visc):
@@ -790,13 +869,61 @@ def log_step(tag, prob, hist):
         log_lattices(tag, log_["by_lattice"][phase], phase)
 
 
+def step_gates(tag, prob, rec, drag_old, log_):
+    """The gates of an accepted step at refs=2: the drag fell, min det > 0,
+    the re-solved |R| rechecked in float64 <= accept_tol, and volume and
+    barycenter of the new mesh (float64, on the host) within 10 x
+    ns_abs_llambda_tol of the undeformed mesh's."""
+    cfg = prob.cfg
+    X, s = prob.X_final, prob.s_final
+    r64 = float64_residual(prob.ns, s, X)
+    vol, bary = host_constraints(prob, X)
+    vol0, bary0 = host_constraints(prob, prob.X0)
+    dvol, dbary = abs(vol - vol0), float(np.abs(bary - bary0).max())
+    limit = 10 * cfg.admm.ns_abs_llambda_tol
+    min_det = prob._min_det(X)
+    log(f"[{tag}] drag {drag_old:.10g} -> {rec.drag:.10g} ({-rec.drag_diff:+.4e}, {-rec.drag_diff / drag_old:+.3e} "
+        f"relative), {rec.attempts} attempt(s); min det {min_det:.4e}; re-solved |R| {log_['ns'][-1]['res_norm']:.3e} "
+        f"(float64 recheck {r64:.3e}, accept_tol {cfg.ns.accept_tol:g}); volume {vol:.10g} vs {vol0:.10g} "
+        f"(|diff| {dvol:.3e}), barycenter max |diff| {dbary:.3e} (limit {limit:g}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(rec.attempts <= cfg.max_attempts_per_step, f"{tag}: accepted within {cfg.max_attempts_per_step} attempts")
+    check(rec.drag < drag_old, f"{tag}: the drag fell")
+    check(min_det > 0, f"{tag}: min det {min_det:.3e} > 0")
+    check(r64 <= cfg.ns.accept_tol, f"{tag}: float64 |R| {r64:.3e} <= accept_tol")
+    check(dvol <= limit and dbary <= limit, f"{tag}: volume and barycenter within {limit:g}")
+
+
+def step_launches(path, log_, launches, by_lattice):
+    """The launches of one step's phases (the counts were set to 0 just
+    before its run); each kernel of the path must have launched."""
+    counts = {name: sum(n.get(name, 0) for n in log_["launches"].values()) for name in sk.launches}
+    by_lattice[path] = sum_lattices(log_["by_lattice"])
+    launches[path] = required_launched(path, {name: n for name, n in counts.items() if n})
+
+
+def check_drag_file(tag, path, hist, drag_init, dim=3):
+    """__Drag.txt holds one row per record of hist, its columns equal to
+    the records' (the shape derivative raw in 3D, 3d_admm.lua:1343, over
+    scaling * sigma in 2D)."""
+    rows = [[float(v) for v in line.split("\t")] for line in path.read_text().strip().splitlines()]
+    want = [[r.step, r.drag, r.drag / drag_init, r.drag_diff,
+             r.shape_derivative / (r.scaling * r.sigma) if dim == 2 else r.shape_derivative] for r in hist]
+    log(f"[{tag}] {path.name}: {rows}")
+    check(rows == want, f"{tag}: {path.name} has {len(hist)} rows equal to the StepRecords")
+
+
 def step_phase(launches, by_lattice, ladder_s=None):
-    """One optimization step at 3D refs=2, visc STEP_VISC, float32, mass
-    block, through ObstacleShapeOpt.run.  ladder_s, the state the ns
-    phase's ladder reached at STEP_VISC, is handed to run as the JAX
-    package's "step -1" state; without it run climbs its own ladder.  The
-    launch counts are set to 0 just before run and read just after; the
-    step path's are those of the step's own phases (the ladder's are not)."""
+    """Two optimization steps at 3D refs=2, visc STEP_VISC, float32, mass
+    block, through ObstacleShapeOpt.run, across a process-like boundary.
+    Step 0: ladder_s, the state the ns phase's ladder reached at
+    STEP_VISC, is handed to run as the JAX package's "step -1" state
+    (without it run climbs its own ladder), with telemetry, a checkpoint
+    path and a profiler.  Step 1: that model deleted, a fresh one runs from
+    load_checkpoint(checkpoint) with its warm sidecar (the adjoint's
+    lambda and recycle space, the forward recycle space).  The launch
+    counts are set to 0 just before each run and read just after; each
+    step path's are those of its own phases (the ladder's are not)."""
     t0 = time.perf_counter()
     cfg = step_config(2, STEP_VISC)
     prob = ObstacleShapeOpt(cfg)
@@ -809,38 +936,63 @@ def step_phase(launches, by_lattice, ladder_s=None):
         resume = dict(X=prob.X0, s=ladder_s, sigma=cfg.sigma_threshold, step=-1,
                       drag_old=float(nsops.drag(prob.ns.space, prob.X0, ladder_s, STEP_VISC)))
         log(f"[step] resumed from the ns phase's ladder state at visc {STEP_VISC}: drag {resume['drag_old']:.10g}")
-    torch.cuda.reset_peak_memory_stats()
-    sk.reset_launches()
-    t0 = time.perf_counter()
-    hist = prob.run(num_steps=1, resume=resume)
-    sync()
-    seconds = time.perf_counter() - t0
-    if prob.ladder is not None:
-        report_rungs("step", prob.ladder.rungs)
-    log_step("step", prob, hist)
-    log_ = prob.step_log[-1]
-    counts = {name: sum(n.get(name, 0) for n in log_["launches"].values()) for name in sk.launches}
-    by_lattice["step"] = sum_lattices(log_["by_lattice"])
-    launches["step"] = required_launched("step", {name: n for name, n in counts.items() if n})
-    check(len(hist) == 1 and hist[0].attempts <= cfg.max_attempts_per_step,
-          f"refs=2 step accepted within {cfg.max_attempts_per_step} attempts")
-    rec, drag_old = hist[0], prob.drag_init  # the drag the step started from
-    X, s = prob.X_final, prob.s_final
-    r64 = float64_residual(prob.ns, s, X)
-    vol, bary = host_constraints(prob, X)
-    vol0, bary0 = host_constraints(prob, prob.X0)
-    dvol, dbary = abs(vol - vol0), float(np.abs(bary - bary0).max())
-    limit = 10 * cfg.admm.ns_abs_llambda_tol
-    min_det = prob._min_det(X)
-    log(f"[step] drag {drag_old:.10g} -> {rec.drag:.10g} ({-rec.drag_diff:+.4e}, {-rec.drag_diff / drag_old:+.3e} "
-        f"relative), {rec.attempts} attempt(s); min det {min_det:.4e}; re-solved |R| {log_['ns'][-1]['res_norm']:.3e} "
-        f"(float64 recheck {r64:.3e}, accept_tol {cfg.ns.accept_tol:g}); volume {vol:.10g} vs {vol0:.10g} "
-        f"(|diff| {dvol:.3e}), barycenter max |diff| {dbary:.3e} (limit {limit:g}); run {seconds:.3f} s, peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check(rec.drag < drag_old, "refs=2 step: the drag fell")
-    check(min_det > 0, f"refs=2 step: min det {min_det:.3e} > 0")
-    check(r64 <= cfg.ns.accept_tol, f"refs=2 step: float64 |R| {r64:.3e} <= accept_tol")
-    check(dvol <= limit and dbary <= limit, f"refs=2 step: volume and barycenter within {limit:g}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp)
+        ckpt = str(out / "checkpoint.npz")
+        torch.cuda.reset_peak_memory_stats()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        tele, prof = TelemetryWriter(tmp), Profiler()
+        hist = prob.run(num_steps=1, resume=resume, telemetry=tele, checkpoint_path=ckpt, profiler=prof)
+        tele.close()
+        sync()
+        seconds = time.perf_counter() - t0
+        if prob.ladder is not None:
+            report_rungs("step", prob.ladder.rungs)
+        log_step("step", prob, hist)
+        log(f"[step] run {seconds:.3f} s; profiler:\n{prof.report()}")
+        log0 = prob.step_log[-1]
+        step_launches("step", log0, launches, by_lattice)
+        check(len(hist) == 1, "refs=2 step 0 accepted")
+        step_gates("refs=2 step 0", prob, hist[0], prob.drag_init, log0)
+        check(load_checkpoint(ckpt)["step"] == 0 and os.path.exists(ckpt + ".warm.npz"),
+              "refs=2 step 0: the checkpoint and its warm sidecar were written")
+        drag_init = prob.drag_init
+        del prob
+        torch.cuda.empty_cache()
+
+        # step 1: a fresh model from the checkpoint and its sidecar
+        t0 = time.perf_counter()
+        prob = ObstacleShapeOpt(cfg)
+        sync()
+        setup = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        tele, prof = TelemetryWriter(tmp), Profiler()
+        hist1 = prob.run(num_steps=2, resume=load_checkpoint(ckpt), telemetry=tele, checkpoint_path=ckpt,
+                         profiler=prof)
+        tele.close()
+        sync()
+        seconds1 = time.perf_counter() - t0
+        log(f"[step] step 1 from the checkpoint: rebuild {setup:.2f} s, warm sidecar restored "
+            f"{ {k: tuple(v) for k, v in prob.sidecar_restored.items()} }, run {seconds1:.3f} s; "
+            f"profiler:\n{prof.report()}")
+        log_step("step 1", prob, hist1[1:])
+        log1 = prob.step_log[-1]
+        step_launches("resume", log1, launches, by_lattice)
+        check(prob.ladder is None and [r.step for r in hist1] == [0, 1], "refs=2 step 1 accepted after step 0")
+        check(set(prob.sidecar_restored) == {"lam_adj", "adj_U", "ns_U"}, "refs=2 step 1: the warm sidecar restored")
+        check(hist1[0] == hist[0], "refs=2 step 1: step 0's record restored from the checkpoint")
+        step_gates("refs=2 step 1", prob, hist1[1], hist[0].drag, log1)
+        check_drag_file("step 1", out / "__Drag.txt", hist1, drag_init, cfg.dim)
+        its = [line.split("\t") for line in (out / "__Iterations_per_step.txt").read_text().strip().splitlines()]
+        check(len(its) == 2 and all(len(r) == 9 for r in its), "refs=2: __Iterations_per_step.txt in the 3D layout")
+    log("[step] step 0 vs step 1 (warm from the sidecar), seconds per phase: "
+        + ", ".join(f"{k} {log0['seconds'][k]:.3f} / {log1['seconds'].get(k, 0.0):.3f}" for k in log0["seconds"])
+        + f"; in the phases {sum(log0['seconds'].values()):.3f} / {sum(log1['seconds'].values()):.3f} s; adjoint "
+        f"{log0['adjoint']['iters']} / {log1['adjoint']['iters']} iterations ({log0['adjoint']['exit']} / "
+        f"{log1['adjoint']['exit']})")
     del prob
     torch.cuda.empty_cache()
     step_small()
@@ -895,6 +1047,75 @@ def step_small():
     check(bool(g["accepted"]) and bool(c["accepted"]) and int(g["attempts"]) == int(c["attempts"]),
           "refs=1 step: card and CPU accept on the same attempt")
     check(gap <= STEP_DRAG_SHARE * float(c["drag_diff"]), "refs=1 step: the card's drag agrees with the CPU's")
+
+
+class _Tee(io.StringIO):
+    """stdout kept and passed on."""
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+
+def cli_run(argv, out):
+    """cli.main(argv) in this process, writing into the directory out:
+    (exit code, its standard output, the accepted steps of history.jsonl)."""
+    buf = _Tee()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["-outDir", str(out)])
+    sys.stdout.flush()
+    hist = [json.loads(line) for line in (out / "history.jsonl").read_text().splitlines()]
+    return rc, buf.getvalue(), hist
+
+
+def cli_reference():
+    """CLI_ARGV with -x64 (float64 on the CPU) and REFERENCE_THREADS
+    threads: tests/goldens/make_chip_reference.py keeps it in CLI_REFERENCE."""
+    torch.set_num_threads(REFERENCE_THREADS)
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, _, hist = cli_run(CLI_ARGV + ["-x64"], pathlib.Path(tmp))
+    check(rc == 0 and len(hist) == 1, "the CPU run of CLI_ARGV accepts a step")
+    r = hist[0]
+    return dict({k: np.array(r[k]) for k in ("drag", "drag_diff", "attempts", "admm_iters", "newton_iters",
+                                              "lin_iters", "sigma", "scaling")},
+                threads=np.array(REFERENCE_THREADS))
+
+
+def cli_phase(launches, by_lattice):
+    """python -m admm_optim_tpu_torch.cli CLI_ARGV on the card, in this
+    process so that the launch counts (set to 0 just before) can be read:
+    its files, and the step against the -x64 CPU run kept in CLI_REFERENCE
+    (the same accepting attempt, the drags within STEP_DRAG_SHARE of the
+    CPU step's decrease)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp)
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        rc, text, hist = cli_run(CLI_ARGV, out)
+        launches["cli"] = read_launches("cli", by_lattice)
+        seconds = time.perf_counter() - t0
+        drag = [line.split("\t") for line in (out / "__Drag.txt").read_text().strip().splitlines()]
+        its = [line.split("\t") for line in (out / "__Iterations_per_step.txt").read_text().strip().splitlines()]
+        files = sorted(p.name for p in out.iterdir())
+        ck = load_checkpoint(str(out / "checkpoint.npz"))
+        log(f"[cli] {' '.join(CLI_ARGV)}: exit {rc}, {seconds:.3f} s, launches {launches['cli']}; files {files}; "
+            f"__Drag.txt {drag}; __Iterations_per_step.txt {its}; checkpoint at step {ck['step']}")
+        check(rc == 0, "cli: exit code 0")
+        check("DONE: 1 accepted steps" in text, "cli: DONE: 1 accepted steps")
+        check(len(drag) == 1 and len(hist) == 1, "cli: __Drag.txt has one row")
+        check(len(its) == 1 and len(its[0]) == 9, "cli: __Iterations_per_step.txt in the 3D layout of 9 columns")
+        check(ck["step"] == 0, "cli: checkpoint.npz at step 0")
+        check("__NewtonStats_step_0_.txt" in files, "cli: __NewtonStats_step_0_.txt written")
+    g, c = hist[0], np.load(CLI_REFERENCE)
+    gap = abs(g["drag"] - float(c["drag"]))
+    log(f"[cli] card f32 vs CPU f64 ({CLI_REFERENCE.name}, {int(c['threads'])} threads): attempts {g['attempts']} vs "
+        f"{int(c['attempts'])}, ADMM {g['admm_iters']} vs {int(c['admm_iters'])}, Newton {g['newton_iters']} vs "
+        f"{int(c['newton_iters'])}, Krylov {g['lin_iters']} vs {int(c['lin_iters'])}, sigma {g['sigma']} vs "
+        f"{float(c['sigma'])}, scaling {g['scaling']} vs {float(c['scaling'])}, drag {g['drag']:.10g} vs "
+        f"{float(c['drag']):.10g}: {gap:.3e} apart, {gap / float(c['drag_diff']):.3e} of the CPU step's decrease "
+        f"(limit {STEP_DRAG_SHARE:g})")
+    check(g["attempts"] == int(c["attempts"]), "cli: card and CPU accept on the same attempt")
+    check(gap <= STEP_DRAG_SHARE * float(c["drag_diff"]), "cli: the card's drag agrees with the CPU's")
 
 
 def pcd_phase(ctx, launches, by_lattice, mass_rungs):
@@ -959,6 +1180,36 @@ def pcd_phase(ctx, launches, by_lattice, mass_rungs):
     check(r64 <= ctx.cfg.accept_tol, f"refs=2 PCD float64 |R| {r64:.3e} <= accept_tol")
     check_adjoint_and_gradient("refs=2 PCD", ctx, adj, out.drag, out.jprime, ("target", "stagnation", "budget"))
     ns_profile("pcd", ctx, nw.s)
+    # the last rung again with VEL_INNER, beside the ladder's own (vel_inner
+    # 1, with the recycle space the rungs before it left): a finding, whose
+    # only gate is that it converges
+    conv = [r for r in out.rungs if r.newton.converged]
+    res, _, ms = vel_inner_rung(ctx, conv[-2].newton.s, VEL_INNER)
+    last = conv[-1]
+    lin = sum(last.newton.lin_iters)
+    ms1 = 1e3 * (last.seconds - sum(sum(a.values()) for a in last.assembly_seconds)) / max(lin, 1)
+    log(f"[pcd] vel_inner {VEL_INNER} against the ladder's own visc {PCD_VISC} rung (vel_inner 1, recycle space "
+        f"carried): linear {sum(res.lin_iters)} vs {lin}, {ms:.2f} vs {ms1:.2f} ms per linear iteration")
+    check(res.converged, f"vel_inner {VEL_INNER}: the visc {PCD_VISC} rung converged")
+
+
+def vel_inner_rung(ctx, s0, vel_inner, tag="pcd"):
+    """The Newton solve at ctx.visc from the state s0 with vel_inner
+    Richardson steps of the velocity V-cycle per preconditioner apply and
+    no recycle space: (result, seconds, ms per linear iteration outside
+    assembly)."""
+    c = dataclasses.replace(ctx, vel_inner=vel_inner)
+    sync()
+    t0 = time.perf_counter()
+    res, asm = ns_run.newton(c, s0, recycle={})
+    sync()
+    secs = time.perf_counter() - t0
+    lin = sum(res.lin_iters)
+    ms = 1e3 * (secs - sum(sum(a.values()) for a in asm)) / max(lin, 1)
+    log(f"[{tag}] vel_inner {vel_inner}: the visc {c.visc:g} rung from the rung before it, no recycle space: "
+        f"converged {res.converged}, {res.iters} Newton, linear {res.lin_iters} ({lin}), |R| {res.res_norm:.3e}, "
+        f"{secs:.3f} s, {ms:.2f} ms per linear iteration outside assembly")
+    return res, secs, ms
 
 
 def small_reference():
@@ -1100,6 +1351,13 @@ def main(phases_run=PHASES):
     run_phases(kind, phases_run)
 
 
+_T0 = time.perf_counter()
+
+
+def phase_done(name):
+    log(f"[phase] {name} done, {time.perf_counter() - _T0:.1f} s since the start")
+
+
 def run_phases(kind, phases_run):
 
     # 2. build
@@ -1149,6 +1407,7 @@ def run_phases(kind, phases_run):
                 + "".join(f" block {n}: {t[f'ms_block_{n}']:.4f} ms" for n in SCALAR_BLOCKS if f"ms_block_{n}" in t)
             )
             check(t["rel_err"] <= limit, f"{name} at {label}: rel err {t['rel_err']:.3e} > {limit:.0e}")
+    phase_done("kernels")
     if phases_run == ("kernels",):
         print(json.dumps({"kernels": kernel_table(phases, floor_ms, {}, {})}))
         print(nvidia_smi())
@@ -1164,11 +1423,13 @@ def run_phases(kind, phases_run):
         admm_phase(ctx, launches, by_lattice)
     del ctx
     torch.cuda.empty_cache()
+    phase_done("slice, admm")
 
     # 6. the NS path at refs=2 with the mass block: the ladder, then drag,
     # adjoint and J' at visc 0.16; the PCD context's tables serve both
     ctx_pcd = ns_run.build(2, visc=PCD_VISC, pressure_precond="pcd") if {"ns", "pcd"} & set(phases_run) else None
     mass_rungs = ns_phase(ctx_pcd, launches, by_lattice) if "ns" in phases_run else []
+    phase_done("ns")
     torch.cuda.empty_cache()
 
     # 7. the optimization step at refs=2, from the mass ladder's state at STEP_VISC
@@ -1177,16 +1438,24 @@ def run_phases(kind, phases_run):
         step_phase(launches, by_lattice, at[-1] if at else None)
         del at
         torch.cuda.empty_cache()
+        phase_done("step")
 
     # 8. the PCD path at refs=2: ladder to visc 0.02, drag, adjoint, J'
     if "pcd" in phases_run:
         pcd_phase(ctx_pcd, launches, by_lattice, mass_rungs)
+        phase_done("pcd")
     del ctx_pcd, mass_rungs
     torch.cuda.empty_cache()
 
     # 9. small-input agreement: GPU float32 vs the port's float64 CPU runs
     if "small" in phases_run:
         small_phase()
+        phase_done("small")
+
+    # 10. the CLI at 3D refs=1, against its float64 CPU run
+    if "cli" in phases_run:
+        cli_phase(launches, by_lattice)
+        phase_done("cli")
 
     print(json.dumps({"kernels": kernel_table(phases, floor_ms, launches, by_lattice)}))
     print(nvidia_smi())

@@ -20,18 +20,33 @@ on the CPU in float64:
     (2D and 3D refs=1), with a recycle space of k = 8.  A cold adjoint
     leaves lambda_1 and U; the warm one starts from lam0 = lambda_1 / 2
     with that U.
+  * ckpt: tests/goldens/e2e_ckpt_2d.npz and e2e_ckpt_2d_sidecar.npz,
+    held by tests/test_torch_resume.py: the 2D run of e2e_steps.npz again,
+    with a checkpoint path and a TelemetryWriter; the checkpoint and its
+    warm sidecar (lam_adj, adj_U, ns_U) as they stood after step 0, kept
+    byte for byte (the sidecar under a name that .gitignore's *.warm.npz
+    does not match), and, in e2e_ckpt_2d_telemetry.npz, the text of __Drag.txt and
+    __Iterations_per_step.txt after both steps with the adjoint's
+    iteration count per step.
+  * cli: the JAX CLI (python -m admm_optim_tpu.cli) on the drive recipe
+    -dim 2 -numRefs 1 -numSteps 2 -admmSteps 8 -x64, its __Drag.txt and
+    __Iterations_per_step.txt kept in e2e_cli_2d.npz, held by
+    tests/test_torch_cli.py.  The CLI's ObstacleShapeOpt is given the
+    host-stepped loops as above (the port has only those).
 
 The JAX stepped kernels compile for minutes on one CPU core.  Run from the
 repository root:
 
-    python tests/goldens/make_e2e_goldens.py [e2e] [adjoint]
+    python tests/goldens/make_e2e_goldens.py [e2e] [adjoint] [ckpt] [cli]
 """
 import contextlib
 import io
 import os
 import pathlib
 import re
+import shutil
 import sys
+import tempfile
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["JAX_ENABLE_X64"] = "1"
@@ -53,6 +68,12 @@ from admm_optim_tpu.solvers import ns_solver  # noqa: E402
 
 E2E_OUT = HERE / "e2e_steps.npz"
 ADJ_OUT = HERE / "adjoint_warm.npz"
+CKPT_OUT = HERE / "e2e_ckpt_2d.npz"
+SIDECAR_OUT = HERE / "e2e_ckpt_2d_sidecar.npz"
+TELEMETRY_OUT = HERE / "e2e_ckpt_2d_telemetry.npz"
+CLI_OUT = HERE / "e2e_cli_2d.npz"
+CLI_ARGV = ["-dim", "2", "-numRefs", "1", "-numSteps", "2", "-admmSteps", "8", "-x64"]
+TELEMETRY_FILES = {"drag": "__Drag.txt", "iterations": "__Iterations_per_step.txt"}
 NUM_STEPS = 2
 # tests/test_e2e_2d.py:20-28 and tests/test_e2e_3d.py:22-33
 CONFIGS = {
@@ -161,6 +182,67 @@ def run_adjoint(name, dim, refs, gold):
     }
 
 
+def run_ckpt():
+    """The 2D run of run_e2e with checkpoint_path and telemetry: the
+    checkpoint and sidecar after step 0, the telemetry after step 1."""
+    from admm_optim_tpu.io.telemetry import TelemetryWriter
+
+    prob = ObstacleShapeOpt(problem_config(CONFIGS["2d"]))
+    prob._ns_stepped = True
+    prob._admm_stepped_on = True
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "checkpoint.npz")
+
+        def callback(step, X, s, rec):
+            # run saves the checkpoint and its sidecar before the callback
+            if step == 0:
+                shutil.copyfile(ckpt, CKPT_OUT)
+                shutil.copyfile(ckpt + ".warm.npz", SIDECAR_OUT)
+
+        tele = TelemetryWriter(tmp)
+        buf = Tee()
+        with contextlib.redirect_stdout(buf):
+            hist = prob.run(num_steps=NUM_STEPS, verbose=True, callback=callback, telemetry=tele,
+                            checkpoint_path=ckpt)
+        tele.close()
+        parsed = parse_verbose(buf.getvalue())
+        assert len(hist) == NUM_STEPS
+        out = {k: np.asarray(open(os.path.join(tmp, f)).read()) for k, f in TELEMETRY_FILES.items()}
+    out["adjoint_iters"] = np.asarray([p["adjoint"] for p in parsed])
+    with np.load(SIDECAR_OUT) as z:
+        print(f"ckpt: drags {[r.drag for r in hist]}, adjoint {out['adjoint_iters'].tolist()}, sidecar "
+              f"{ {k: z[k].shape for k in z.files} }", flush=True)
+    return out
+
+
+def run_cli():
+    """The JAX CLI on CLI_ARGV with the host-stepped loops; its HOME (the
+    compilation cache's root) is a temporary directory."""
+    from admm_optim_tpu import cli
+    from admm_optim_tpu.models import obstacle
+
+    class Stepped(obstacle.ObstacleShapeOpt):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self._ns_stepped = True
+            self._admm_stepped_on = True
+
+    orig, home = obstacle.ObstacleShapeOpt, os.environ.get("HOME")
+    with tempfile.TemporaryDirectory() as tmp:
+        obstacle.ObstacleShapeOpt = Stepped
+        os.environ["HOME"] = tmp
+        try:
+            out_dir = os.path.join(tmp, "out")
+            assert cli.main(CLI_ARGV + ["-outDir", out_dir]) == 0
+        finally:
+            obstacle.ObstacleShapeOpt = orig
+            if home is not None:
+                os.environ["HOME"] = home
+        out = {k: np.asarray(open(os.path.join(out_dir, f)).read()) for k, f in TELEMETRY_FILES.items()}
+    print(f"cli: {out}", flush=True)
+    return out
+
+
 def main(which):
     if "e2e" in which:
         out = {}
@@ -175,7 +257,11 @@ def main(which):
             out.update(run_adjoint(name, dim, refs, gold))
         np.savez_compressed(ADJ_OUT, **out)
         print(f"wrote {ADJ_OUT} ({ADJ_OUT.stat().st_size} bytes)", flush=True)
+    for name, run, path in (("ckpt", run_ckpt, TELEMETRY_OUT), ("cli", run_cli, CLI_OUT)):
+        if name in which:
+            np.savez_compressed(path, **run())
+            print(f"wrote {path}", flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["e2e", "adjoint"])
+    main(sys.argv[1:] or ["e2e", "adjoint", "ckpt", "cli"])

@@ -90,7 +90,9 @@ def test_port_imports_without_jax():
         "assert 'admm_optim_tpu_torch.solvers.patch_mg' in names\n"
         "assert 'admm_optim_tpu_torch.xupdate_solve' in names\n"
         "for n in ('core.quadrature', 'core.spaces', 'ops.convdiff', 'ops.navier_stokes',\n"
-        "          'ops.ns_patchjac', 'solvers.ns_solver', 'ns_run', 'models.obstacle'):\n"
+        "          'ops.ns_patchjac', 'solvers.ns_solver', 'ns_run', 'models.obstacle',\n"
+        "          'io.checkpoint', 'io.telemetry', 'io.vtk', 'io.resume', 'utils.debug',\n"
+        "          'utils.profiling', 'cli'):\n"
         "    assert 'admm_optim_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
@@ -99,4 +101,6 @@ def test_port_imports_without_jax():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 22
+    # importing cli does not run main (which would print its parameters)
+    assert "THE PARAMETERS" not in out.stdout
+    assert int(out.stdout.strip().splitlines()[-1]) >= 31

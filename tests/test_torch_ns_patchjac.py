@@ -156,3 +156,16 @@ def test_assembled_jacobian_apply_transpose_and_bt_match_jax(case):
     # the lattice layout of the packed state is the JAX package's
     v0, _ = t["space"].unpack(torch.from_numpy(s))
     assert _rel(tst.to_patch(t["pre"].fine, v0), jst.to_patch(j["pre"].fine, j["space"].unpack(jnp.asarray(s))[0])) == 0.0
+
+
+def test_assembled_jacobian_is_bitwise_equal_across_cell_chunks(case, monkeypatch):
+    """JAC_CELL_CHUNK only splits the cells into vmap batches: the blocks
+    are bit for bit the same at any chunk (the chunk is timed on the card,
+    PERF.md)."""
+    t, s = case["t"], torch.from_numpy(case["s"])
+    fn = tjac.make_assemble_fn(t["space"], t["ps"], t["pre"], t["wiring"])
+    Ws = []
+    for chunk in (5, 64, 4096, 65536):
+        monkeypatch.setattr(tjac, "JAC_CELL_CHUNK", chunk)
+        Ws.append(fn(t["X"], s, VISC))
+    assert all(torch.equal(W, Ws[-1]) for W in Ws[:-1])

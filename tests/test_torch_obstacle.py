@@ -9,7 +9,9 @@ are in tests/test_torch_obstacle_3d*.py.  What is held and why:
 tests/torch_obstacle_golden.py.
 
 Also: the configuration and resume state converters, the float32 presets,
-and what the port refuses (NotImplementedError, naming the ROADMAP item)."""
+and what the port refuses (NotImplementedError, naming the ROADMAP item).
+ObstacleShapeOpt's outputs, checkpoints and profiler are held in
+tests/test_torch_obstacle_hooks.py and tests/test_torch_resume.py."""
 import dataclasses
 
 import numpy as np
@@ -109,21 +111,12 @@ def test_f32_presets_equal_the_jax_package(dim):
     ("backend", "global", "item 9"),
     ("b2nd_order", True, "item 9"),
     ("grid_path", "grids/box.ugx", "item 9"),
-    ("newton_output", True, "item 8b"),
-    ("debug_output", True, "item 8b"),
-    ("debug_nodal_positions", True, "item 8b"),
-    ("debug_nans", True, "item 8b"),
 ])
 def test_unported_settings_raise(field, value, item):
+    """What comes with ROADMAP item 9 raises; the outputs, checkpoints and
+    the profiler work (tests/test_torch_obstacle_hooks.py)."""
     with pytest.raises(NotImplementedError, match=item):
         ObstacleShapeOpt(ProblemConfig(num_refs=0, **{field: value}), device="cpu")
-
-
-@pytest.mark.parametrize("arg", ["telemetry", "checkpoint_path", "profiler"])
-def test_unported_run_arguments_raise(arg):
-    prob = ObstacleShapeOpt(ProblemConfig(num_refs=0), device="cpu", dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        prob.run(num_steps=1, **{arg: object()})
 
 
 def test_jacobian_above_the_memory_cap_raises():
