@@ -7,13 +7,17 @@ interface (flag names from 2d_admm.lua:43-87 / 3d_admm.lua:46-86), e.g.::
         -visc 0.16 -tau 2 -outDir ./out              (the card, float32)
     python -m admm_optim_tpu_torch.cli -dim 2 -numRefs 1 -numSteps 2 \
         -admmSteps 8 -x64 -outDir ./out              (the CPU, float64)
+    python -m admm_optim_tpu_torch.cli -dim 2 -numRefs 1 -numSteps 1 \
+        -backend global -x64 -outDir ./out           (the block-ELL backend)
+    python -m admm_optim_tpu_torch.cli -grid box.ugx -numRefs 1 ...
 
 Extra flags beyond the reference: ``-dim`` (one entry point for both 2D/3D),
 ``-outDir``, ``-x64`` (CPU double precision), ``-vorder``.  Without
 ``-x64`` the run takes the card in float32 with f32_presets, and raises
-when there is none.  The flags the port does not run yet (``-backend
-global``, ``-grid``, ``-b2ndOrder 1``, ``-vorder 1``) raise ObstacleShapeOpt's
-NotImplementedError.
+when there is none.  A ``-grid`` file, and ``-backend global``, run on the
+global (block-ELL) backend.  The flags the port does not run yet
+(``-b2ndOrder 1``, ``-vorder 1``) raise ObstacleShapeOpt's
+NotImplementedError naming ROADMAP item 9b.
 """
 from __future__ import annotations
 
@@ -251,11 +255,13 @@ def main(argv=None) -> int:
         from .utils.profiling import Profiler
 
         profiler = Profiler()
-        # the reference's ProfileLUA cost accounting analogue: per-level
-        # device-memory bytes and flops with a bandwidth roofline per V-cycle
-        print(f"V-cycle cost table at the NVIDIA H100 SXM's published {H100_SXM_GBPS:.0f} GB/s:")
-        print(xupdate_solve.patch_mg.vcycle_cost_table(
-            prob.xu.struct, xupdate_solve.assemble(prob.xu, prob.X0), H100_SXM_GBPS))
+        if prob.use_patch:
+            # the reference's ProfileLUA cost accounting analogue: per-level
+            # device-memory bytes and flops with a bandwidth roofline per
+            # V-cycle (the patch backend's, as in the JAX CLI)
+            print(f"V-cycle cost table at the NVIDIA H100 SXM's published {H100_SXM_GBPS:.0f} GB/s:")
+            print(xupdate_solve.patch_mg.vcycle_cost_table(
+                prob.xu.struct, xupdate_solve.assemble(prob.xu, prob.X0), H100_SXM_GBPS))
 
     trace_ctx = contextlib.nullcontext()
     if args.traceDir:

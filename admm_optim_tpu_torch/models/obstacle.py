@@ -1,7 +1,7 @@
 """The optimization step: drag-minimizing obstacle shape optimization in
-steady incompressible Navier-Stokes channel flow on the patch backend (port
-of admm_optim_tpu/models/obstacle.py, the reference's 2d_admm.lua /
-3d_admm.lua outer loop).
+steady incompressible Navier-Stokes channel flow (port of
+admm_optim_tpu/models/obstacle.py, the reference's 2d_admm.lua /
+3d_admm.lua outer loop), on the patch and on the global backend.
 
     cfg = f32_presets(ProblemConfig(dim=3, num_refs=2, visc=0.02))
     prob = ObstacleShapeOpt(cfg)               # on the card, float32
@@ -9,15 +9,25 @@ of admm_optim_tpu/models/obstacle.py, the reference's 2d_admm.lua /
     hist[0].drag, prob.step_log[0]["seconds"]
 
     ObstacleShapeOpt(cfg, device="cpu", dtype=torch.float64)   # the plain forms
+    ObstacleShapeOpt(dataclasses.replace(cfg, backend="global"))   # block-ELL
+    ObstacleShapeOpt(ProblemConfig(grid_path="box.ugx", num_refs=1))
+
+The backend is the JAX package's selection: "patch" (brick-lattice
+stencils, the hand-written kernels) when the mesh carries brick metadata
+and backend is "auto" or "patch"; "global" otherwise (a .ugx grid, the 2D
+channel with alternating diagonals, backend="global"): the x-update on
+solvers.mg's block-ELL V-cycle (optim.spaces.GlobalOps), the NS side on
+the per-element assembled Jacobian (ops.ns_elljac) and the ELL velocity
+cycle.  The global backend launches no hand-written kernel.
 
 Per step (obstacle.py:1248-1495): the adjoint (warm from the last step's
 lambda and GCRO-DR space), the masked shape gradient J', then attempts
 until one is accepted: the deformation multigrid assembled at X, the ADMM
-inner loop on the patch lattice, X_new = X + u, the tangle test, the NS
-re-solve at X_new (warm, its recycle space carried across rungs and
-steps), and the descent test.  A failed ADMM halves sigma in 2D and the J'
-scaling in 3D (admm_failure_control "auto"); a tangled mesh, a diverged
-re-solve or no descent halve sigma.
+inner loop, X_new = X + u, the tangle test, the NS re-solve at X_new
+(warm, its recycle space carried across rungs and steps), and the descent
+test.  A failed ADMM halves sigma in 2D and the J' scaling in 3D
+(admm_failure_control "auto"); a tangled mesh, a diverged re-solve or no
+descent halve sigma.
 
 Around the loop (obstacle.py:1045-1498): the reference's telemetry files
 and VTUs through io.telemetry and io.vtk, a checkpoint after the ladder
@@ -29,11 +39,10 @@ debug_nodal_positions, debug_nans).
 
 The port has only the host-stepped drivers, so the JAX package's
 ``num_elems > 20000`` switches between monolithic and stepped drivers are
-gone.  What is not ported raises NotImplementedError naming the ROADMAP
-item that brings it: the global (ELL) backend, b2nd_order and grid_path
-(item 9).  The assembled NS Jacobian is the only NS operator: above
-ns_jac_mem_cap the constructor raises instead of falling back to the
-matrix-free jvp (item 9).
+gone.  What is not ported raises NotImplementedError naming ROADMAP item
+9b: b2nd_order, vorder=1 and the matrix-free NS jvp/vjp (ns_assembled_jac
+"off", or a Jacobian above ns_jac_mem_cap under "auto"), and PCD on the
+global backend.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from ..core.ugx import SubsetInfo, UgxGrid, write_ugx
 from ..io.checkpoint import save_checkpoint
 from ..io.vtk import write_vtu
 from ..ops import navier_stokes as nsops
+from ..ops import ns_elljac as elljac
 from ..ops import ns_patchjac as nsjac
 from ..ops import patchstencil as st
 from ..ops import stencil_kernels as sk
@@ -149,7 +159,7 @@ class StepRecord:
     solver_iters: tuple = ()
 
 
-def _refuse(cfg: ProblemConfig, hier: Hierarchy):
+def _refuse(cfg: ProblemConfig):
     """NotImplementedError for what the port does not have yet, naming
     the ROADMAP item that brings it; ValueError for unknown settings."""
     if cfg.backend not in ("auto", "patch", "global"):
@@ -158,17 +168,14 @@ def _refuse(cfg: ProblemConfig, hier: Hierarchy):
         raise ValueError(f"admm_failure_control must be 'auto', 'sigma' or 'scaling', got {cfg.admm_failure_control!r}")
     if cfg.ns_assembled_jac not in ("auto", "on", "off"):
         raise ValueError(f"ns_assembled_jac must be 'auto', 'on' or 'off', got {cfg.ns_assembled_jac!r}")
-    item9 = {
-        "backend='global'": cfg.backend == "global",
-        "b2nd_order=True": cfg.b2nd_order,
-        "grid_path": cfg.grid_path is not None,
+    item9b = {
+        "b2nd_order=True (its forward-over-reverse J'' term)": cfg.b2nd_order,
         "vorder=1": cfg.vorder != 2,
-        "ns_assembled_jac='off' (the matrix-free NS jvp)": cfg.ns_assembled_jac == "off",
-        "a mesh without brick metadata": hier is not None and hier.levels[0].bricks is None,
+        "ns_assembled_jac='off' (the matrix-free NS jvp/vjp)": cfg.ns_assembled_jac == "off",
     }
-    for what, on in item9.items():
+    for what, on in item9b.items():
         if on:
-            raise NotImplementedError(f"{what}: the global (ELL) backend comes with ROADMAP item 9")
+            raise NotImplementedError(f"{what}: comes with ROADMAP item 9b")
 
 
 def _host(t) -> np.ndarray:
@@ -213,37 +220,57 @@ class _Phases:
 
 
 class ObstacleShapeOpt:
-    """End-to-end shape optimization on the geomgen channel/obstacle mesh,
-    patch backend for the x-update and the NS solves."""
+    """End-to-end shape optimization on a channel/obstacle mesh: the geomgen
+    channel, or a .ugx grid (cfg.grid_path), on the patch or the global
+    backend (module docstring)."""
 
     def __init__(self, cfg: ProblemConfig, hier: Hierarchy | None = None, device=None,
                  dtype=torch.float32):
-        _refuse(cfg, hier)
+        _refuse(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
         if hier is None:
-            hier = ns_run.channel(cfg.num_refs, cfg.dim)
+            if cfg.grid_path is not None:
+                hier = Hierarchy.from_ugx(cfg.grid_path, cfg.num_refs)
+            else:
+                # fixed 2D diagonals carry the patch backend's brick
+                # metadata; the global backend's 2D channel alternates them
+                hier = ns_run.channel(cfg.num_refs, cfg.dim, diag="alt" if cfg.backend == "global" else "fixed")
         if hier.dim != cfg.dim:
             raise ValueError(f"the mesh is {hier.dim}D, the configuration {cfg.dim}D")
         self.hier = hier
+        # backend selection (obstacle.py:245-251, :301-305, :364-388): the
+        # JAX package's use_patch_ns is use_patch here and its use_ell_jac
+        # is not use_patch (its matrix-free NS jvp waits for item 9b)
+        self.use_patch = cfg.backend in ("auto", "patch") and hier.levels[0].bricks is not None
+        if cfg.backend == "patch" and not self.use_patch:
+            raise ValueError("backend='patch' needs brick metadata (a geomgen mesh)")
+        backend = "patch" if self.use_patch else "global"
+        if backend == "global" and cfg.pressure_precond == "pcd":
+            raise NotImplementedError("pressure_precond='pcd' on the global backend: the block-ELL PCD forms "
+                                      "come with ROADMAP item 9b")
         a = cfg.admm
         # the x-update: deformation operator with the loop's coefficients
-        # (c_grad = tau) and PatchMGStructure's default V(3,3) Chebyshev
-        # cycle (obstacle.py:318-340); assembled at X on every attempt
-        self.xu = xupdate_solve.prepare(hier, self.device, dtype, a.c_eps, a.tau, a.c_mass, smoothing={})
+        # (c_grad = tau) and the default V(3,3) Chebyshev cycle
+        # (obstacle.py:318-340); assembled at X on every attempt
+        self.xu = xupdate_solve.prepare(hier, self.device, dtype, a.c_eps, a.tau, a.c_mass, smoothing={},
+                                        backend=backend)
         # the NS side shares the level-k patchset and its fine tables
         # (obstacle.py:349-352, :398-405)
         self.ns = ns_run.build(
             device=self.device, dtype=dtype, visc=cfg.visc, cfg=cfg.ns, stab=cfg.stab,
             pressure_precond=cfg.pressure_precond, vel_inner=cfg.vel_inner, hier=hier, ps=self.xu.ps,
-            tab_c=self.xu.tabs[-1], do_nothing=cfg.do_nothing, diameter=cfg.diameter,
+            tab_c=self.xu.tabs[-1] if self.use_patch else None, do_nothing=cfg.do_nothing, diameter=cfg.diameter,
+            backend=backend,
         )
-        need = nsjac.jac_memory_bytes(self.xu.ps, self.ns.wiring, torch.finfo(dtype).bits // 8)
+        itemsize = torch.finfo(dtype).bits // 8
+        need = (nsjac.jac_memory_bytes(self.xu.ps, self.ns.wiring, itemsize) if self.use_patch
+                else elljac.jac_memory_bytes(self.ns.ell, itemsize))
         if cfg.ns_assembled_jac == "auto" and need > cfg.ns_jac_mem_cap:
             raise NotImplementedError(
                 f"the assembled NS Jacobian needs {need:.3e} bytes, above ns_jac_mem_cap "
-                f"{cfg.ns_jac_mem_cap:.3e}: the matrix-free jvp comes with ROADMAP item 9"
+                f"{cfg.ns_jac_mem_cap:.3e}: the matrix-free jvp comes with ROADMAP item 9b"
             )
         fine = hier.fine
         self.X0 = self.ns.coords
@@ -277,9 +304,15 @@ class ObstacleShapeOpt:
 
     def _admm(self, mgdata, X, Jp, sigma, scaling, iter_cb=None, newton_hist_out=None, full_stats_out=None,
               debug_out=None):
-        """admm_inner on the patch lattice at X (obstacle.py:1000-1019):
-        X and J' to patch layout, u and the debug fields back to global
-        (d, V) by owner."""
+        """admm_inner at X (obstacle.py:931-1019): on the global
+        representation directly; on the patch lattice with X and J' in
+        patch layout, u and the debug fields back to global (d, V) by
+        owner."""
+        hooks = dict(newton_hist_out=newton_hist_out, full_stats_out=full_stats_out, debug_out=debug_out)
+        if not self.use_patch:
+            return admm.admm_inner_global(
+                self.cfg.admm, self.xu.struct, mgdata, X, self.elems, self.ns.free_def, Jp, sigma, scaling,
+                self.ref_volume, self.ref_barycenter, vplan=self.xu.vplan, iter_cb=iter_cb, **hooks)
         ps = self.xu.ps
 
         def to_global(up):
@@ -289,7 +322,7 @@ class ObstacleShapeOpt:
         res = admm.admm_inner(
             self.cfg.admm, ops_, st.to_patch(ps.fine, Jp), sigma, scaling, self.ref_volume,
             self.ref_barycenter, iter_cb=None if iter_cb is None else (lambda k, up: iter_cb(k, to_global(up))),
-            newton_hist_out=newton_hist_out, full_stats_out=full_stats_out, debug_out=debug_out,
+            **hooks,
         )
         if debug_out:
             for k in ("Lu", "rhs_large", "du"):

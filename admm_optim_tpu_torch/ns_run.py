@@ -1,9 +1,14 @@
-"""The patch-backend Navier-Stokes path end to end: the forward Newton
-solve, the cold-start viscosity ladder, the drag, the adjoint and the shape
-gradient, wired as the JAX package's models/obstacle.py wires them for
-``use_patch_ns`` (assembled lattice Jacobian, block-triangular
-preconditioner with one Jacobi V(2,2) conv-diff cycle for the velocity,
-stepped FGMRES with GCRO-DR).
+"""The Navier-Stokes path end to end: the forward Newton solve, the
+cold-start viscosity ladder, the drag, the adjoint and the shape gradient,
+wired as the JAX package's models/obstacle.py wires them: on the patch
+backend (its ``use_patch_ns``: assembled lattice Jacobian, block-triangular
+preconditioner with one Jacobi V(2,2) conv-diff cycle for the velocity on
+the once-refined lattice, stepped FGMRES with GCRO-DR), on the global
+backend (its ``use_ell_jac``: the per-element assembled Jacobian of
+ops.ns_elljac, the velocity cycle of solvers.mg on the once-refined P1
+space with its transposed values, the same Krylov loops).
+
+    ctx = build(2, visc=0.02, backend="global")   # any mesh; 2D: "alt" diagonals
 
     ctx = build(2, visc=0.16)     # on the card, float32: host mesh, tables
     out = run(ctx)                # cold start, Newton, drag, adjoint, J'
@@ -41,11 +46,13 @@ from .core import geomgen
 from .core.mesh import Hierarchy, refine
 from .core.patches import PatchSet, build_patchset
 from .ops import navier_stokes as nsops
+from .ops import ns_elljac as elljac
 from .ops import ns_patchjac as nsjac
 from .ops import patchstencil as st
 from .ops import sparsity
 from .ops import stencil_kernels as sk
 from .ops.convdiff import convdiff_elem_mats
+from .ops.p1space import P1VectorSpace
 from .solvers import ns_solver, patch_mg
 from .solvers.ns_solver import NewtonConfig
 
@@ -98,6 +105,12 @@ class NSContext:
     # masks and the Jacobi V(2,2) structure on the level-k patchset
     pcd_tabs: list | None = None
     pcd_struct: patch_mg.PatchMGStructure | None = None
+    # backend "global": the P1 space over levels 0..L+1 of the velocity
+    # cycle (pre_struct is then its mg.MGStructure) and the per-element
+    # Jacobian wiring; the lattice fields above are None
+    backend: str = "patch"
+    pre_space: P1VectorSpace | None = None
+    ell: elljac.EllJacWiring | None = None
 
     @property
     def n_state(self) -> int:
@@ -126,6 +139,8 @@ class NSContext:
         return torch.linalg.inv(sparsity.to_dense(b["pat_p"], v0))
 
     def jac(self, X, s, nu):
+        if self.backend == "global":
+            return elljac.assemble_ns_jacobian(self.space, self.ell, X, s, nu, self.stab)
         v0, p0 = self.space.unpack(s)
         return nsjac.assemble_ns_jacobian(
             self.space, self.ps, self.wiring, st.to_patch_tab(self.tab_c, X.T),
@@ -156,10 +171,16 @@ class NSContext:
             seconds[name] = time.perf_counter() - t0
             return out
 
-        pre_data, pdiag = timed("velocity", lambda: ns_solver.ns_gmg_precond_data_patch(
-            self.space, self.pre_ps, self.pre_struct, self.pre_tabs, self.base_dense_fn,
-            self.parents_fine, X, nu, s=s,
-        ))
+        if self.backend == "global":
+            # the transposed values too: the adjoint's transposed cycle
+            # stays a gather (obstacle.py _vel_pre, with_transpose=True)
+            pre_data, pdiag = timed("velocity", lambda: ns_solver.ns_gmg_precond_data(
+                self.space, self.pre_space, self.pre_struct, X, nu, s, with_transpose=True))
+        else:
+            pre_data, pdiag = timed("velocity", lambda: ns_solver.ns_gmg_precond_data_patch(
+                self.space, self.pre_ps, self.pre_struct, self.pre_tabs, self.base_dense_fn,
+                self.parents_fine, X, nu, s=s,
+            ))
         mid = (pdiag,)
         if self.pressure_precond == "pcd":
             mid = timed("pcd", lambda: ns_solver.ns_pcd_precond_data_patch(
@@ -174,7 +195,10 @@ class NSContext:
         the mass block, ns_pcd_M with PCD."""
         W = rest[-1]
         bt = _bt(self)
-        vel_M = ns_solver.patch_velocity_M(self.pre_ps, self.pre_struct, pre_data, iters=self.vel_inner)
+        if self.backend == "global":
+            vel_M = ns_solver.ell_velocity_M(self.pre_struct, pre_data)
+        else:
+            vel_M = ns_solver.patch_velocity_M(self.pre_ps, self.pre_struct, pre_data, iters=self.vel_inner)
         if self.pressure_precond == "pcd":
             ap_data, W_fp, mp = rest[:3]
             schur = ns_solver.pcd_schur_patch_M(
@@ -185,10 +209,14 @@ class NSContext:
 
 
 def _matvecs(ctx):
+    if ctx.backend == "global":
+        return elljac.make_matvec_fns(ctx.space, ctx.ell)
     return nsjac.make_matvec_fns(ctx.space, ctx.ps, ctx.pre_ps, ctx.wiring, ctx.pre_tabs[-1], ctx.tab_c)
 
 
 def _bt(ctx):
+    if ctx.backend == "global":
+        return elljac.make_bt_fn(ctx.space, ctx.ell)
     return nsjac.make_bt_fn(ctx.space, ctx.ps, ctx.pre_ps, ctx.wiring, ctx.pre_tabs[-1], ctx.tab_c)
 
 
@@ -197,10 +225,12 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def channel(num_refs: int, dim: int = 3) -> Hierarchy:
-    """The geomgen channel (3D, or 2D with fixed diagonals, which carries
-    the brick metadata of the patch backend) refined num_refs times."""
-    levels = [geomgen.channel_3d() if dim == 3 else geomgen.channel_2d(diag="fixed")]
+def channel(num_refs: int, dim: int = 3, diag: str = "fixed") -> Hierarchy:
+    """The geomgen channel refined num_refs times: 3D, or 2D with fixed
+    diagonals (the brick metadata of the patch backend) or with
+    diag="alt", alternating ones (the JAX package's global-backend mesh,
+    without brick metadata)."""
+    levels = [geomgen.channel_3d() if dim == 3 else geomgen.channel_2d(diag=diag)]
     for _ in range(num_refs):
         levels.append(refine(levels[-1]))
     return Hierarchy(levels)
@@ -209,7 +239,8 @@ def channel(num_refs: int, dim: int = 3) -> Hierarchy:
 def build(num_refs: int | None = None, device=None, dtype=torch.float32, visc: float = 0.16, dim: int = 3,
           cfg: NewtonConfig | None = None, stab: float = 0.0, pressure_precond: str = "mass",
           vel_inner: int = 1, *, hier: Hierarchy | None = None, ps: PatchSet | None = None,
-          tab_c: st.LevelTables | None = None, do_nothing: bool = True, diameter: float = 6.0) -> NSContext:
+          tab_c: st.LevelTables | None = None, do_nothing: bool = True, diameter: float = 6.0,
+          backend: str = "patch") -> NSContext:
     """Host hierarchy, NS space, the level-k and once-refined patchsets
     with their device tables, and the level-0 wiring of the dense base
     solves.  device defaults to the card (an error without one); cfg
@@ -220,18 +251,46 @@ def build(num_refs: int | None = None, device=None, dtype=torch.float32, visc: f
     hier replaces channel(num_refs, dim); ps and tab_c, the level-k
     patchset with the deformation's Dirichlet set and its fine tables,
     share the x-update's (models/obstacle.py:349-352, :398-405).
-    do_nothing=False adds the outlet to the velocity's Dirichlet set."""
+    do_nothing=False adds the outlet to the velocity's Dirichlet set.
+    backend "global" takes the block-ELL pieces on any mesh (ps, tab_c and
+    vel_inner are not used; PCD on it raises, ROADMAP item 9b)."""
     if pressure_precond not in ("mass", "pcd"):
         raise ValueError(f"pressure_precond must be 'mass' or 'pcd', got {pressure_precond!r}")
+    if backend not in ("patch", "global"):
+        raise ValueError(f"backend must be 'patch' or 'global', got {backend!r}")
+    if backend == "global" and pressure_precond == "pcd":
+        raise NotImplementedError("pressure_precond='pcd' on the global backend: the block-ELL PCD forms come "
+                                  "with ROADMAP item 9b")
     device = resolve_device(device)
     t0 = time.perf_counter()
     if hier is None:
-        hier = channel(num_refs, dim)
+        hier = channel(num_refs, dim, diag="alt" if backend == "global" else "fixed")
     dim = hier.dim
     ns_dir = NS_DIR + (() if do_nothing else ("outlet",))
     lvl = hier.fine
     space = nsops.NSSpace.build(lvl, vorder=2, do_nothing=do_nothing, diameter=diameter)
     fine_pre = refine(lvl)
+    if cfg is None:
+        cfg = f32_presets(NewtonConfig()) if dtype == torch.float32 else NewtonConfig()
+    common = dict(
+        hier=hier, space=space,
+        coords=torch.as_tensor(lvl.coords, dtype=dtype, device=device),
+        obstacle_vmask=torch.as_tensor(lvl.subset_vertices["obstacle_surface"], dtype=dtype, device=device),
+        free_def=torch.as_tensor(np.repeat(~lvl.vertex_mask(DEF_DIR)[None], dim, axis=0), dtype=dtype, device=device),
+        visc=float(visc), stab=float(stab), cfg=cfg, host_seconds=0.0, pressure_precond=pressure_precond,
+        vel_inner=int(vel_inner),
+    )
+    if backend == "global":
+        pre_space = P1VectorSpace.build(Hierarchy(hier.levels + [fine_pre]), dirichlet=ns_dir)
+        # jacobi smoothing: the conv-diff operator is nonsymmetric
+        pre_struct = dataclasses.replace(pre_space.mg_structure(pre_smooth=2, post_smooth=2), smoother="jacobi")
+        ell = elljac.build_wiring(space)
+        ell.tables(device)  # the segment sums, on the host once
+        ctx = NSContext(ps=None, pre_ps=None, pre_struct=pre_struct, pre_tabs=None, tab_c=None, wiring=None,
+                        base0=None, parents_fine=None, backend="global", pre_space=pre_space, ell=ell, **common)
+        _sync(device)
+        ctx.host_seconds = time.perf_counter() - t0
+        return ctx
     pre_ps = build_patchset(Hierarchy(hier.levels + [fine_pre]), dirichlet=ns_dir)
     pre_struct = patch_mg.PatchMGStructure(
         pre_ps, pre_smooth=2, post_smooth=2, smoother="jacobi", smoother_w="f32"
@@ -256,17 +315,11 @@ def build(num_refs: int | None = None, device=None, dtype=torch.float32, visc: f
             pat_p=sparsity.build_pattern(lvl0.elems, lvl0.num_vertices, 1),
             fixed_p=torch.as_tensor(lvl0.vertex_mask(PCD_DIR)[None], device=device),
         )
-    if cfg is None:
-        cfg = f32_presets(NewtonConfig()) if dtype == torch.float32 else NewtonConfig()
     ctx = NSContext(
-        hier=hier, space=space, ps=ps, pre_ps=pre_ps, pre_struct=pre_struct, pre_tabs=pre_tabs,
+        ps=ps, pre_ps=pre_ps, pre_struct=pre_struct, pre_tabs=pre_tabs,
         tab_c=tab_c, wiring=nsjac.build_wiring(ps), base0=base0,
         parents_fine=torch.as_tensor(fine_pre.parents.astype(np.int64), device=device),
-        coords=torch.as_tensor(lvl.coords, dtype=dtype, device=device),
-        obstacle_vmask=torch.as_tensor(lvl.subset_vertices["obstacle_surface"], dtype=dtype, device=device),
-        free_def=torch.as_tensor(np.repeat(~lvl.vertex_mask(DEF_DIR)[None], dim, axis=0), dtype=dtype, device=device),
-        visc=float(visc), stab=float(stab), cfg=cfg, host_seconds=0.0,
-        pressure_precond=pressure_precond, vel_inner=int(vel_inner), pcd_tabs=pcd_tabs, pcd_struct=pcd_struct,
+        pcd_tabs=pcd_tabs, pcd_struct=pcd_struct, **common,
     )
     _sync(device)
     ctx.host_seconds = time.perf_counter() - t0
@@ -398,9 +451,11 @@ class NSRun(NamedTuple):
     rungs: list | None = None  # the ladder's Rung records when a target was given
 
 
-def run(ctx: NSContext, target_visc: float | None = None, adjoint_iters: int | None = None) -> NSRun:
+def run(ctx: NSContext, target_visc: float | None = None, adjoint_iters: int | None = None,
+        s0=None) -> NSRun:
     """Without a target: cold start, Newton at ctx.visc, drag, adjoint, J'.
-    With one: the cold-start ladder down to target_visc (solve_ladder),
+    With one: the cold-start ladder down to target_visc (solve_ladder), or
+    from the state s0 one rung, Newton at target_visc with no recycle space,
     then drag, adjoint and J' at the target.  adjoint_iters cuts the
     adjoint's budget (4 * lin_max_iters) to about that many iterations.
     The kernel launch counts are reset before each phase and read after
@@ -426,10 +481,12 @@ def run(ctx: NSContext, target_visc: float | None = None, adjoint_iters: int | N
     rungs = None
     if target_visc is None:
         nres, assembly = phase("newton", lambda: newton(ctx))
-    else:
-        lad = phase("newton", lambda: solve_ladder(ctx))
-        rungs = lad.rungs
+    elif s0 is None:
+        rungs = phase("newton", lambda: solve_ladder(ctx)).rungs
         nres, assembly = rungs[-1].newton, rungs[-1].assembly_seconds
+    else:
+        nres, assembly = phase("newton", lambda: newton(ctx, s0, recycle={}))
+        rungs = [Rung(ctx.visc, False, nres, assembly, seconds["newton"])]
     drag = phase("drag", lambda: float(nsops.drag(ctx.space, ctx.coords, nres.s, ctx.visc)))
     ares = phase("adjoint", lambda: adjoint(actx, nres.s))
     jp = phase("jprime", lambda: jprime(ctx, nres.s, ares.lam))

@@ -240,6 +240,8 @@ class LevelTables:
     # error-free exchange (exchange_sum_df): per distinct group size k a
     # dense (g_k, k) flat-slot table, groups ordered bucket-major
     dfg_bidx: tuple = ()
+    # exchange_groups' two tables, made from dfg_bidx at first use
+    groups: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
 
 def _df_group_tables(lvl: PatchLevel) -> list:
@@ -289,15 +291,44 @@ def exchange_sum(lvl: PatchLevel, x, tab: LevelTables | None = None):
     """additive -> consistent: sum duplicated boundary sites (segment sum
     over the boundary slots; UG4's change_storage_type_to_consistent).
     Every leading axis (components, lanes) is exchanged alike.
-    On the GPU index_add_ adds group members in atomic order, so the last
-    bit of a 3+-member group may vary from run to run."""
+    On the GPU each group is gathered from its group-size table (the
+    error-free exchange's) and summed along a fixed axis, so a run adds
+    the members of a 3+-member group in one order every time (index_add_
+    would add them in atomic order, and two identical calls could part in
+    the last bit); on the CPU index_add_ adds them in slot order."""
     if tab is None:
         tab = make_tables(lvl, x.dtype, x.device)
     xf = x.reshape(-1, tab.owner.numel())
-    s = xf.new_zeros((xf.shape[0], tab.nseg)).index_add_(1, tab.bseg, xf[:, tab.bslots])
+    if x.is_cuda and tab.dfg_bidx:
+        return exchange_groups(tab, xf).reshape(x.shape)
     out = xf.clone()
+    s = xf.new_zeros((xf.shape[0], tab.nseg)).index_add_(1, tab.bseg, xf[:, tab.bslots])
     out[:, tab.bslots] = s[:, tab.bseg]
     return out.reshape(x.shape)
+
+
+def exchange_groups(tab: LevelTables, xf):
+    """exchange_sum's GPU form on flat (n, sites) fields: the pairs from one
+    (g, 2) table, every larger group from one (g, k_max) table padded with
+    a zero column appended to the field; each group gathered and summed
+    along a fixed axis, the sums written back over its members (the
+    padding's writes land in the zero column, which is dropped).  Eight
+    launches whatever the number of group sizes."""
+    n_sites = xf.shape[1]
+    if "pairs" not in tab.groups:
+        pad = np.int64(n_sites)
+        big = [b.cpu().numpy() for b in tab.dfg_bidx if b.shape[1] > 2]
+        k = max((b.shape[1] for b in big), default=0)
+        rest = np.concatenate([np.pad(b, ((0, 0), (0, k - b.shape[1])), constant_values=pad) for b in big]) if big else None
+        pairs = [b for b in tab.dfg_bidx if b.shape[1] == 2]
+        tab.groups["pairs"] = pairs[0] if pairs else None
+        tab.groups["rest"] = None if rest is None else torch.as_tensor(rest, device=tab.dfg_bidx[0].device)
+    xp = torch.cat([xf, xf.new_zeros((xf.shape[0], 1))], dim=1)
+    sums = [(b, xp[:, b].sum(dim=-1, keepdim=True)) for b in (tab.groups["pairs"], tab.groups["rest"])
+            if b is not None]
+    for b, total in sums:
+        xp[:, b] = total.expand(total.shape[:-1] + b.shape[-1:])
+    return xp[:, :n_sites]
 
 
 def exchange_sum_df(tab: LevelTables, xh, xl):

@@ -27,6 +27,7 @@ import math
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..solvers import krylov
@@ -127,6 +128,27 @@ def initial_state(cfg: ADMMConfig, ops_, scaling, dtype) -> ADMMState:
     )
 
 
+def l2_norm_p1(coords, elems, f):
+    """sqrt(int |f|^2) for a P1 field f (C, V), exact via the element mass."""
+    from ..ops.geometry import elem_geometry
+
+    d = coords.shape[1]
+    nl = d + 1
+    _, _, _, vol = elem_geometry(coords, elems)
+    fe = f[:, elems.T]  # (C, nl, E)
+    mfac = torch.as_tensor((np.ones((nl, nl)) + np.eye(nl)) / ((d + 1) * (d + 2)), dtype=f.dtype, device=f.device)
+    val = torch.einsum("e,ij,cie,cje->", vol, mfac, fe, fe)
+    return torch.sqrt(torch.clamp_min(val, 0.0))
+
+
+def l2_norm_pc(coords, elems, T):
+    """sqrt(int |T|^2) for a piecewise-constant tensor field (d, d, E)."""
+    from ..ops.geometry import elem_geometry
+
+    _, _, _, vol = elem_geometry(coords, elems)
+    return torch.sqrt(torch.clamp_min(torch.einsum("e,cde,cde->", vol, T, T), 0.0))
+
+
 def _clock(t: torch.Tensor) -> float:
     if t.device.type == "cuda":
         torch.cuda.synchronize(t.device)
@@ -158,7 +180,7 @@ def newton_xupdate_ops(
     u0, Lambda0, sols0=None,
 ) -> NewtonResult:
     """Constrained Newton (KKT via the dense m x m Schur complement) on a
-    representation adapter (optim.spaces.PatchOps).  sols0: optional
+    representation adapter (optim.spaces.GlobalOps / PatchOps).  sols0: optional
     (1+m, ...) warm start of the st / t_i solves."""
     free = ops_.free
     m = Lambda0.shape[0]
@@ -334,3 +356,17 @@ def admm_inner(
     if full_stats_out is not None:
         full_stats_out[:] = rows
     return st
+
+
+def admm_inner_global(cfg: ADMMConfig, struct, mgdata, coords, elems, free, Jp_base, sigma_threshold: float,
+                      scaling0: float, ref_volume, ref_barycenter, vplan=None, **hooks) -> ADMMState:
+    """The ADMM loop on the global representation: admm_inner over
+    optim.spaces.GlobalOps(struct, mgdata, coords, elems, free) (the JAX
+    package's admm_inner(cfg, struct, mgdata, coords, elems, free, ...)).
+    vplan: the fixed-order vertex sum of elems (ops.deformation
+    .vertex_plan); hooks: admm_inner's iter_cb, newton_hist_out,
+    full_stats_out and debug_out."""
+    from .spaces import GlobalOps
+
+    ops_ = GlobalOps(struct, mgdata, coords, elems, free, vplan)
+    return admm_inner(cfg, ops_, Jp_base, sigma_threshold, scaling0, ref_volume, ref_barycenter, **hooks)

@@ -1,14 +1,16 @@
-"""Representation adapter for the ADMM solver on the brick-patch backend
-(port of admm_optim_tpu/optim/spaces.py:147-323, ``PatchOps``).
+"""Representation adapters for the ADMM solver (port of
+admm_optim_tpu/optim/spaces.py).
 
-optim.admm's Newton/ADMM logic is representation-agnostic; PatchOps binds
-it to fields (C, *lat, P) on brick-patch lattices and per-cell tensors
-(d, d, T, *cells, P): the stencil apply plus the duplicate-site exchange,
-the solvers.patch_mg V-cycle, owner-weighted inner products.  Every field
-method also takes a lane axis (B, C, *lat, P), which the x-update's
-batched Krylov solves use.  Single device only: the JAX package's SPMD
-wiring (``struct.spmd``) comes with the multi-device layer, and
-``GlobalOps`` with the ELL backend.
+optim.admm's Newton/ADMM logic is representation-agnostic; these adapters
+bind it to a field layout:
+  * GlobalOps - fields (C, V) global vectors, tensors (d, d, E); the
+    block-ELL spmv and the solvers.mg V-cycle; any simplex mesh (.ugx).
+  * PatchOps - fields (C, *lat, P) on brick-patch lattices, per-cell
+    tensors (d, d, T, *cells, P): the stencil apply plus the duplicate-site
+    exchange, the solvers.patch_mg V-cycle, owner-weighted inner products.
+Every field method also takes a lane axis (B, C, ...), which the
+x-update's batched Krylov solves use.  Single device only: the JAX
+package's SPMD wiring (``struct.spmd``) comes with the multi-device layer.
 """
 from __future__ import annotations
 
@@ -17,9 +19,109 @@ from typing import Any
 
 import torch
 
+from ..ops import deformation as dfm
 from ..ops import patchdeform as pdfm
 from ..ops import patchstencil as pst
+from ..ops import sparsity
+from ..solvers import mg as mgmod
 from ..solvers import patch_mg as pmg
+
+
+@dataclasses.dataclass
+class GlobalOps:
+    """Current-geometry operator bundle on the global representation."""
+
+    struct: Any  # mg.MGStructure
+    mgdata: Any  # mg.MGData
+    coords: torch.Tensor  # (V, d)
+    elems: torch.Tensor  # (E, nl) int64
+    free: torch.Tensor  # (C, V) float mask
+    vplan: Any = None  # sparsity.SegmentSum of elems.T (dfm.vertex_plan); None: index_add
+
+    @property
+    def dim(self):
+        return self.coords.shape[1]
+
+    @property
+    def pattern(self):
+        return self.struct.patterns[-1]
+
+    def zeros_field(self, dtype):
+        return self.coords.new_zeros((self.dim, self.coords.shape[0]), dtype=dtype)
+
+    def zeros_tensor(self, dtype):
+        d = self.dim
+        return self.coords.new_zeros((d, d, self.elems.shape[0]), dtype=dtype)
+
+    def A(self, x):
+        return sparsity.spmv_cn(self.pattern, self.mgdata.vals[-1], x)
+
+    def M(self, r):
+        return mgmod.vcycle(self.struct, self.mgdata, r.reshape(r.shape[:-2] + (-1,))).reshape(r.shape)
+
+    def dot(self, x, y):
+        """One value per lane for (B, C, V), a 0-d tensor for (C, V)."""
+        return torch.sum(x * y, dim=(-2, -1))
+
+    def dot_batch(self, Xs, Ys):
+        """(i, ...) x (j, ...) -> (i, j) Gram block in one pass."""
+        return Xs.reshape(Xs.shape[0], -1) @ Ys.reshape(Ys.shape[0], -1).T
+
+    def constraints(self, u, ref_volume, ref_barycenter):
+        return dfm.constraints(self.coords, self.elems, u, ref_volume, ref_barycenter)
+
+    def constraint_grads(self, u, ref_volume, ref_barycenter):
+        return dfm.constraint_grads(self.coords, self.elems, u, ref_volume, ref_barycenter, self.free,
+                                    plan=self.vplan)
+
+    def constraint_hvp(self, u, Lmbda, ref_volume, ref_barycenter, x):
+        return dfm.constraint_hvp(self.coords, self.elems, u, Lmbda, ref_volume, ref_barycenter,
+                                  x * self.free, plan=self.vplan) * self.free
+
+    def hvp_fn(self, u, Lmbda, ref_volume, ref_barycenter):
+        """x -> (sum_k Lambda_k g_k'') x at the fixed Newton iterate."""
+        return lambda x: self.constraint_hvp(u, Lmbda, ref_volume, ref_barycenter, x)
+
+    def hess_fn(self, u, Lmbda, ref_volume, ref_barycenter):
+        """x -> (A + sum_k Lambda_k g_k'') x with the constraint Hessian
+        assembled into the ELL values once per Newton iterate
+        (dfm.hvp_elem_mats): every Krylov matvec is one spmv, for one
+        field or all lanes.  Dirichlet rows and columns of the Hessian part
+        are zeroed without a second unit diagonal (A's values carry it)."""
+        pat = self.pattern
+        vals_h = sparsity.assemble_values(pat, dfm.hvp_elem_mats(self.coords, self.elems, u * self.free, Lmbda))
+        fixed = self.free == 0  # (C, V)
+        mask = fixed[:, None, None, :] | fixed[:, pat.cols_t(fixed.device)][None]
+        vals_H = self.mgdata.vals[-1] + torch.where(mask, torch.zeros((), dtype=vals_h.dtype, device=vals_h.device),
+                                                    vals_h)
+        return lambda x: sparsity.spmv_cn(pat, vals_H, x)
+
+    def tensor_rhs(self, M):
+        return dfm.tensor_rhs(self.coords, self.elems, M, plan=self.vplan) * self.free
+
+    def grad_tensor(self, u):
+        return dfm.elem_grads_of(self.coords, self.elems, u)[0]
+
+    def z_update(self, u, lam, tau, sigma, norm_name):
+        return dfm.z_update(self.coords, self.elems, u, lam, tau, sigma, norm_name)
+
+    def dual_update(self, u, lam, q_proj, tau):
+        return dfm.dual_update(self.coords, self.elems, u, lam, q_proj, tau)
+
+    def max_grad_norm(self, u, norm_name):
+        if norm_name == "spectral":
+            return dfm.max_spectral_norm(self.coords, self.elems, u)
+        return dfm.max_frobenius_norm(self.coords, self.elems, u)
+
+    def norm_p1(self, f):
+        from .admm import l2_norm_p1
+
+        return l2_norm_p1(self.coords, self.elems, f)
+
+    def norm_pc(self, T):
+        from .admm import l2_norm_pc
+
+        return l2_norm_pc(self.coords, self.elems, T)
 
 
 @dataclasses.dataclass

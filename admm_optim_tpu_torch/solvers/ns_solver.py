@@ -15,10 +15,15 @@ J^T lambda = -dJ_drag/ds with the exact transpose of that preconditioner,
 the autograd vjp through the V-cycles (K5^T).  The shape gradient is the
 autograd gradient of J + lambda^T R in the coordinates.
 
+On the global (block-ELL) backend the velocity block is one Jacobi V(2,2)
+cycle of solvers.mg on the P1-iso-P2 space (ns_gmg_precond_data,
+ell_velocity_M) with the exact transposed values per level, so that its
+autograd transpose replays gathers only.
+
 Not ported: the monolithic jitted newton_solve / adjoint_solve (one
-host-stepped solver each is kept) and the block-ELL forms of the
-preconditioner data (ns_gmg_precond_data, ns_pcd_spaces,
-ns_pcd_precond_data, the ELL branch of ns_pcd_M).
+host-stepped solver each is kept) and the block-ELL PCD forms
+(ns_pcd_spaces, ns_pcd_precond_data, the ELL branch of ns_pcd_M; ROADMAP
+item 9b).
 """
 from __future__ import annotations
 
@@ -340,6 +345,36 @@ def ns_gmg_precond_data_patch(
         pre_ps, pre_struct_p, cw_p, lambda c: convdiff_corner_mats(c, visc), base_dense_fn, pre_tabs,
     )
     return pre_data, nsops.pressure_mass_lumped(ns_space, coords, visc)
+
+
+def ns_gmg_precond_data(ns_space, pre_space, pre_struct, coords, visc, s, adjoint: bool = False,
+                        with_transpose: bool = False):
+    """Global-backend velocity-block data: the conv-diff hierarchy of
+    pre_space (the P1 space over levels 0..L+1, whose level L+1 vertices
+    are the P2 velocity dofs of level L, so the velocity is the advecting
+    P1 field) at the once-refined coordinates, and the pressure block's
+    lumped mass / nu.  with_transpose stores each level's transposed
+    values (the adjoint's transposed cycle stays a gather).
+    Returns (pre_data, pdiag)."""
+    tr = pre_space.parents[-1]
+    p = tr.parents_t(coords.device)
+    Xf = 0.5 * (coords[p[:, 0]] + coords[p[:, 1]])
+    w, _ = ns_space.unpack(s)
+    w = -w if adjoint else w
+    pre_data = pre_space.assemble_mg_convdiff(pre_struct, Xf, w, visc, with_transpose=with_transpose)
+    return pre_data, nsops.pressure_mass_lumped(ns_space, coords, visc)
+
+
+def ell_velocity_M(pre_struct, pre_data):
+    """Velocity-block action zv ~= F^-1 rv on the global backend, (d, n_vel)
+    in and out: one V-cycle of solvers.mg (the JAX package's ns_gmg_M with
+    vel_M=None)."""
+    from . import mg
+
+    def zv_fn(rv):
+        return mg.vcycle(pre_struct, pre_data, rv.reshape(-1)).reshape(rv.shape)
+
+    return zv_fn
 
 
 def patch_velocity_M(pre_ps, pre_struct_p, pre_data, iters: int = 1):

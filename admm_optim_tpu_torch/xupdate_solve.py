@@ -7,6 +7,7 @@ bench.py's ``get_mesh`` + ``assemble_ctx`` + ``run_size``.
 
     ctx = prepare(hier, c_grad=2.0)         # the same without the assembly, any hierarchy
     data = assemble(ctx, X)                 # multigrid data on the mesh X (V, d)
+    ctx = prepare(hier, backend="global")   # block-ELL levels (solvers.mg): any mesh
 
 The mesh is the 3D geomgen channel refined ``num_refs`` times (refs=4 is
 bench.py's headline size: 947,970 vertices, 2,843,910 DoF, fine lattice
@@ -31,7 +32,9 @@ from .core.patches import PatchSet, build_patchset
 from .ops import patchstencil as st
 from .ops import sparsity
 from .ops.deformation import deformation_corner_block_fn, deformation_elem_mats
-from .solvers import patch_mg
+from .ops.p1space import P1VectorSpace
+from .ops.deformation import vertex_plan as dfm_vertex_plan
+from .solvers import mg, patch_mg
 
 DIRICHLET = ("inlet", "wall", "outlet")
 # bench.py run_size: cg_ir_p(rel_tol=1e-8, max_rounds=8, inner_rel=1e-5,
@@ -44,15 +47,21 @@ BENCH_SMOOTHING = dict(pre_smooth=2, post_smooth=2, cheb_lower=0.2)
 @dataclasses.dataclass
 class SolveContext:
     hier: Hierarchy
-    ps: PatchSet
-    struct: patch_mg.PatchMGStructure
-    tabs: list  # per level: st.LevelTables
+    ps: PatchSet | None  # None on the global backend
+    struct: patch_mg.PatchMGStructure | mg.MGStructure
+    tabs: list | None  # per level: st.LevelTables
     corner_fn: Callable  # the block protocol of the element matrices
     base_dense_fn: Callable  # (V0, d) level-0 coordinates -> dense base inverse
     data: patch_mg.PatchMGData | None  # assembled at coords by build; None after prepare
     coords: torch.Tensor  # (V, d) fine-mesh coordinates on the device
     host_seconds: float  # mesh hierarchy + patchset + level tables
     assembly_seconds: float  # assemble_patch_mg, synchronized
+    # the global backend: the deformation space, its operator coefficients
+    # (c_eps, c_grad, c_mass) and the fixed-order vertex sum of its fine
+    # elements (ops.deformation.vertex_plan)
+    space: P1VectorSpace | None = None
+    coeffs: tuple = ()
+    vplan: object = None
 
     @property
     def n_dofs(self) -> int:
@@ -65,15 +74,25 @@ def _sync(device):
 
 
 def prepare(hier: Hierarchy, device=None, dtype=torch.float32, c_eps: float = 1.0, c_grad: float = 1.0,
-            c_mass: float = 1.0, smoothing: dict = BENCH_SMOOTHING) -> SolveContext:
+            c_mass: float = 1.0, smoothing: dict = BENCH_SMOOTHING, backend: str = "patch") -> SolveContext:
     """Everything of the solve that does not depend on the mesh's
     coordinates: the patchset of hier, its level tables, the V-cycle
     structure (PatchMGStructure with the arguments in smoothing, bench.py's
     by default), the level-0 wiring of the dense base solve, and the
     operator c_eps eps(u):eps(w) + c_grad grad(u):grad(w) + c_mass u.w.
-    data stays None: assemble() makes it at any coordinates."""
+    data stays None: assemble() makes it at any coordinates.
+    backend "global": the P1VectorSpace of hier with its block-ELL
+    patterns and the solvers.mg structure (smoothing's arguments, the
+    space's V(3,3) Chebyshev cycle when empty), on any mesh."""
     device = resolve_device(device)
     t0 = time.perf_counter()
+    if backend == "global":
+        space = P1VectorSpace.build(hier, dirichlet=DIRICHLET)
+        coords = torch.as_tensor(hier.fine.coords, dtype=dtype, device=device)
+        vplan = dfm_vertex_plan(hier.fine.elems, hier.fine.num_vertices)
+        _sync(device)
+        return SolveContext(hier, None, space.mg_structure(**smoothing), None, None, None, None, coords,
+                            time.perf_counter() - t0, 0.0, space=space, coeffs=(c_eps, c_grad, c_mass), vplan=vplan)
     ps = build_patchset(hier)
     tabs = patch_mg.make_level_tables(ps, dtype, device)
     # level-0-only wiring of the base solve
@@ -100,9 +119,12 @@ def prepare(hier: Hierarchy, device=None, dtype=torch.float32, c_eps: float = 1.
     )
 
 
-def assemble(ctx: SolveContext, X: torch.Tensor) -> patch_mg.PatchMGData:
-    """The multigrid data (symmetric half stencils on every level, dense
-    base inverse) of ctx's operator on the mesh X (V, d)."""
+def assemble(ctx: SolveContext, X: torch.Tensor):
+    """The multigrid data of ctx's operator on the mesh X (V, d): symmetric
+    half stencils on every level and a dense base inverse (PatchMGData),
+    or on the global backend the block-ELL levels (mg.MGData)."""
+    if ctx.space is not None:
+        return ctx.space.assemble_mg(ctx.struct, X, *ctx.coeffs)
     return patch_mg.assemble_patch_mg(
         ctx.ps, ctx.struct, X.contiguous(), ctx.corner_fn, ctx.base_dense_fn, tabs=ctx.tabs, sym=True,
     )

@@ -5,10 +5,10 @@
     python3 chip_smoke.py --phase NAME[,NAME]   (build and kernels, then these phases)
     python3 chip_smoke.py --kernels-only        (= --phase kernels: phases 1-3, then stop)
 
-NAME is one of kernels, slice, admm, ns, step, pcd, small, cli (admm brings
-slice, whose refs=4 context it runs on); the default runs them all, and
-only the full run prints the {"ok": true, ...} line.  Run alone, step
-climbs its own viscosity ladder.
+NAME is one of kernels, slice, admm, ns, step, global, pcd, small, cli
+(admm brings slice, whose refs=4 context it runs on); the default runs them
+all, and only the full run prints the {"ok": true, ...} line.  Run alone,
+step and global climb their own viscosity ladder.
 
 Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
   1. device: the card's name and power limit;
@@ -72,23 +72,42 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      StepRecords; then one step at refs=1 from the cold start held
      against the port's float64 CPU run kept in
      tests/goldens/chip_step_refs1.npz;
-  8. pcd: ns_run.run(ctx, target_visc=0.02) at refs=2, float32, with the
-     PCD pressure block: the ladder (per rung: Newton and linear counts,
-     |R|, assembly seconds of the velocity data, the PCD data and the
-     Jacobian, seconds per linear iteration; the last |R| rechecked in
-     float64 with the plain residual), drag, adjoint (cut to 200
-     iterations) and J' at visc 0.02,
-     launches per phase, peak memory, and a profiled window of the Krylov
-     operators for the card's busy share and K5's share of device time;
-     then the 0.02 rung's Newton solve again from the rung before it with
-     2 velocity-block Richardson steps (vel_inner) beside the ladder's own
-     (scripts/torch_vel_inner.py runs 1 and 2 in turns);
-  9. small: refs=1 solve, ADMM run and PCD ladder to visc 0.02 (with
+  8. global: the global (block-ELL) backend, which launches no
+     hand-written kernel, at 3D refs=2, visc 0.02, float32 (the step's
+     configuration with backend="global"): global against patch on the
+     same mesh (the deformation operator A at X0, J x and J^T x at the ns
+     phase's 0.02 state, within 1e-5 of max |y|), spmv_flat_pair's backward
+     against the spmv on the transposed values and the transposed ELL
+     preconditioner's adjointness, and whether each operator repeats bit
+     for bit;
+     then one optimization step from the ns phase's 0.02 ladder state with
+     the launch counts set to 0 before and read after (every count must be
+     0), held to step_gates, to the patch step 0's accepting attempt and to
+     10% of its drag decrease, its seconds per phase, adjoint, linear
+     counts, peak memory and set-up beside the patch step 0's; the ELL
+     Jacobian's assembly timed at JAC_ELEM_CHUNKS elements per batch
+     (blocks within 1e-6 of max |W|, and whether bit for bit); then at 3D refs=1 sigma_sweep on the patch
+     backend with best_candidate, and geometry_sweep on the global backend
+     over X0 and X0 plus half the first sweep candidate's u, each candidate
+     against its single admm_inner call (equal counts, u within 1e-5 of
+     max |u|);
+  9. pcd: at refs=2, float32, with the PCD pressure block: one rung, the
+     Newton solve at visc 0.02 from the mass ladder's converged visc 0.04
+     state (alone: ns_run.run(ctx, target_visc=0.02), the whole ladder;
+     Newton and linear counts, |R|, assembly seconds of the velocity data,
+     the PCD data and the Jacobian, seconds per linear iteration; the last
+     |R| rechecked in float64 with the plain residual), drag, adjoint (cut
+     to 200 iterations) and J' at visc 0.02, the rung against the mass
+     ladder's, launches per phase, peak memory, and a profiled window of
+     the Krylov operators for the card's busy share and K5's share of
+     device time (scripts/torch_vel_inner.py runs the rung with 1 and 2
+     velocity-block Richardson steps in turns);
+  10. small: refs=1 solve, ADMM run and PCD ladder to visc 0.02 (with
      drag, adjoint and J') held against the port's float64 CPU runs: the
      solve and the ADMM run here, the ladder as kept in
      tests/goldens/chip_pcd_ladder_refs1.npz (made on the CPU, in minutes,
      by tests/goldens/make_chip_reference.py, which also makes the step's);
- 10. cli: python -m admm_optim_tpu_torch.cli -dim 3 -numRefs 1 -numSteps 1
+ 11. cli: python -m admm_optim_tpu_torch.cli -dim 3 -numRefs 1 -numSteps 1
      -visc 0.16 -admmSteps 40 -nsMaxIts 8 -tau 2 -bNewtonOutput 1
      -bActivateProfiler 1, called in this process: exit code 0, one
      accepted step, __Drag.txt, __Iterations_per_step.txt (9 columns),
@@ -96,8 +115,8 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      against the same argv with -x64 run on the CPU and kept in
      tests/goldens/chip_cli_refs1.npz (the same accepting attempt, the
      drags within STEP_DRAG_SHARE of the CPU step's decrease).
-Each path (solve, ADMM, NS, step, step 1 resumed, PCD, CLI) is driven with the launch counts set to 0
-just before it (the NS paths reset them before each of their phases) and
+Each path (solve, ADMM, NS, step, step 1 resumed, global step, PCD, CLI) is driven with the launch
+counts set to 0 just before it (the NS paths reset them before each of their phases) and
 read just after; each of its kernels must have launched.  The counts are
 printed per kernel and per kernel and lattice.
 The last three lines are the kernel table as one JSON object, the
@@ -184,7 +203,7 @@ REFERENCE_THREADS = 2
 # adjoint iterations of the mass-block and PCD phases at refs=2 (the step
 # phase runs its adjoint at visc 0.02 to the exit)
 NS_ADJOINT_BUDGET = 200
-PHASES = ("kernels", "slice", "admm", "ns", "step", "pcd", "small", "cli")
+PHASES = ("kernels", "slice", "admm", "ns", "step", "global", "pcd", "small", "cli")
 STEP_VISC = PCD_VISC  # 3d_admm.lua's default viscosity
 # the refs=1 step, card against CPU, at the ladder's first rung: one Newton
 # solve from the cold start, so the float64 CPU reference takes minutes
@@ -203,10 +222,9 @@ CLI_REFERENCE = pathlib.Path(__file__).resolve().parent / "tests" / "goldens" / 
 # cells per jacfwd batch of the NS Jacobian assembly (ops/ns_patchjac.py
 # JAC_CELL_CHUNK), timed at refs=2 in the ns phase
 JAC_CHUNKS = (4096, 16384, 65536)
-# the Newton solve of the PCD ladder's last rung, rerun with 2
-# velocity-block Richardson steps per preconditioner apply
-# (scripts/torch_vel_inner.py runs 1 and 2 in turns)
-VEL_INNER = 2
+# the PCD phase's one rung: from the mass ladder's state at PCD_FROM_VISC
+# to PCD_VISC (the ns phase covers the ladder itself)
+PCD_FROM_VISC = 0.04
 # the kernels each path must launch, and the TPU kernel each replaces
 PATHS = {
     "solve": ("apply_w_sym", "apply_w_pencil", "apply_w_df_sym"),
@@ -219,7 +237,19 @@ PATHS = {
     "resume": ("apply_w_sym/lanes", "apply_w_full", "apply_w_full_t"),
     # the CLI's refs=1 ladder rung and step
     "cli": ("apply_w_sym/lanes", "apply_w_full", "apply_w_full_t"),
+    # the global (block-ELL) step: no hand-written kernel, every count 0
+    "global": (),
 }
+# elements per jacfwd batch of the ELL Jacobian assembly (ops/ns_elljac.py
+# JAC_ELEM_CHUNK), timed at 3D refs=2 in the global phase; 86,016 is all
+JAC_ELEM_CHUNKS = (4096, 16384, 86016)
+# the sweeps at 3D refs=1: sigma_sweep's candidates, and geometry_sweep's
+# second mesh, X0 plus this share of the first candidate's u
+SWEEP_SIGMAS = (0.3, 0.15)
+GEOMETRY_SHARE = 0.5
+# global against patch: the share of the patch step 0's drag decrease the
+# global step's may differ by
+GLOBAL_DECREASE_SHARE = 0.1
 REPLACES = {
     "apply_w_sym": f"{PALLAS}:213",
     # what jax.vmap makes of the same kernel (admm_optim_tpu/optim/spaces.py:269-296)
@@ -928,9 +958,10 @@ def step_phase(launches, by_lattice, ladder_s=None):
     cfg = step_config(2, STEP_VISC)
     prob = ObstacleShapeOpt(cfg)
     sync()
+    setup0 = time.perf_counter() - t0
     log(f"[step] refs=2 n_state={prob.ns.n_state}, deformation lattice {prob.xu.ps.fine.lat_shape} x "
         f"{prob.xu.ps.P}, velocity lattice {prob.ns.pre_ps.fine.lat_shape} x {prob.ns.pre_ps.P}, visc {STEP_VISC}, "
-        f"x-update {STEP_ADMM}, set-up {time.perf_counter() - t0:.2f} s")
+        f"x-update {STEP_ADMM}, set-up {setup0:.2f} s")
     resume = None
     if ladder_s is not None:
         resume = dict(X=prob.X0, s=ladder_s, sigma=cfg.sigma_threshold, step=-1,
@@ -957,6 +988,7 @@ def step_phase(launches, by_lattice, ladder_s=None):
         step_gates("refs=2 step 0", prob, hist[0], prob.drag_init, log0)
         check(load_checkpoint(ckpt)["step"] == 0 and os.path.exists(ckpt + ".warm.npz"),
               "refs=2 step 0: the checkpoint and its warm sidecar were written")
+        patch0 = step_record(prob, hist[0], log0, setup0, seconds)
         drag_init = prob.drag_init
         del prob
         torch.cuda.empty_cache()
@@ -996,6 +1028,7 @@ def step_phase(launches, by_lattice, ladder_s=None):
     del prob
     torch.cuda.empty_cache()
     step_small()
+    return patch0
 
 
 def step_small_run(device, dtype):
@@ -1047,6 +1080,277 @@ def step_small():
     check(bool(g["accepted"]) and bool(c["accepted"]) and int(g["attempts"]) == int(c["attempts"]),
           "refs=1 step: card and CPU accept on the same attempt")
     check(gap <= STEP_DRAG_SHARE * float(c["drag_diff"]), "refs=1 step: the card's drag agrees with the CPU's")
+
+
+def step_record(prob, rec, log_, setup, seconds):
+    """What the global phase compares its step with: the accepting attempt,
+    the drag decrease, seconds per phase, adjoint, linear counts, peak
+    memory and set-up of one step."""
+    adj = log_["adjoint"]
+    return dict(
+        attempts=rec.attempts, drag_old=rec.drag + rec.drag_diff, drag_diff=rec.drag_diff,
+        seconds=dict(log_["seconds"]), wall=seconds, setup=setup, adjoint_iters=adj["iters"],
+        adjoint_ms=1e3 * log_["seconds"].get("adjoint", 0.0) / max(adj["iters"], 1),
+        ns_lin=[sum(n["lin_iters"]) for n in log_["ns"]], admm=rec.admm_iters, newton=rec.newton_iters,
+        krylov=rec.lin_iters, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+
+
+def rel_diff(a, b):
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def global_operator_checks(prob, ctx_ns, s):
+    """Global against patch on the same mesh and the ELL transposes, within
+    1e-5 of max |y| (the stencil kernels' limit): the deformation operator A
+    at X0 (the patch x-update's, K1, against GlobalOps' spmv), J x and J^T x
+    at the state s (the lattice Jacobian against the per-element one),
+    spmv_flat_pair's backward on the finest velocity level against the
+    spmv on its transposed values, and <M r, z> = <r, M^T z> for the ELL
+    block preconditioner and its transpose_M.  Each ELL operator is applied
+    twice: do the card's results repeat bit for bit?"""
+    from admm_optim_tpu_torch.ops import sparsity
+    from admm_optim_tpu_torch.optim.spaces import GlobalOps, PatchOps
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    X, a = prob.X0, prob.cfg.admm
+    hier = prob.hier
+    free = prob.ns.free_def
+    x = torch.randn(free.shape, generator=gen, device="cuda", dtype=free.dtype) * free
+    repeats = {}
+    gdata = xupdate_solve.assemble(prob.xu, X)
+    gops = GlobalOps(prob.xu.struct, gdata, X, prob.elems, free, prob.xu.vplan)
+    y_g = gops.A(x) * free
+    repeats["A"] = torch.equal(y_g, gops.A(x) * free)
+    repeats["ELL assembly"] = all(torch.equal(u, v) for u, v in zip(gdata.vals, xupdate_solve.assemble(prob.xu, X).vals))
+    pxu = xupdate_solve.prepare(hier, "cuda", X.dtype, a.c_eps, a.tau, a.c_mass, smoothing={})
+    pops = PatchOps(pxu.struct, xupdate_solve.assemble(pxu, X), st.to_patch(pxu.ps.fine, X.T))
+    y_p = st.from_patch(pxu.ps.fine, pops.A(st.to_patch(pxu.ps.fine, x)), X.shape[0], mode="owner")
+    errs = {"A at X0": rel_diff(y_g, y_p)}
+    del pxu, pops
+    v = torch.randn(prob.ns.n_state, generator=gen, device="cuda", dtype=X.dtype)
+    Wg, Wp = prob.ns.jac(X, s, STEP_VISC), ctx_ns.jac(X, s, STEP_VISC)
+    jv_g, jtv_g = prob.ns.jv(v, Wg), prob.ns.jtv(v, Wg)
+    errs["J x"] = rel_diff(jv_g, ctx_ns.jv(v, Wp))
+    errs["J^T x"] = rel_diff(jtv_g, ctx_ns.jtv(v, Wp))
+    repeats["J x"] = torch.equal(jv_g, prob.ns.jv(v, Wg))
+    repeats["J^T x"] = torch.equal(jtv_g, prob.ns.jtv(v, Wg))
+    repeats["ELL Jacobian"] = torch.equal(Wg, prob.ns.jac(X, s, STEP_VISC))
+    del Wp
+    m_args = prob.ns.pre_full(X, s, STEP_VISC)
+    pre = m_args[0]
+    pat = prob.ns.pre_space.patterns[-1]
+    xf = torch.randn(pat.n_flat, generator=gen, device="cuda", dtype=X.dtype).requires_grad_(True)
+    zf = torch.randn(pat.n_flat, generator=gen, device="cuda", dtype=X.dtype)
+    with torch.enable_grad():
+        yf = sparsity.spmv_flat_pair(pat, pre.vals[-1], pre.vals_t[-1], xf)
+    (gf,) = torch.autograd.grad(yf, xf, zf)
+    errs["pair backward vs spmv on vals_t"] = rel_diff(gf, sparsity.spmv_flat(pat, pre.vals_t[-1], zf))
+    lhs = float(torch.dot(yf.detach().double(), zf.double()))
+    rhs = float(torch.dot(xf.detach().double(), gf.double()))
+    errs["<Ax, y> - <x, A^T y>"] = abs(lhs - rhs) / float(torch.linalg.vector_norm(yf.detach())
+                                                           * torch.linalg.vector_norm(zf))
+    M = lambda r: prob.ns.M_fn(r, *m_args)  # noqa: E731
+    MT = transpose_M(M, prob.ns.n_state, X.dtype, X.device)
+    r = torch.randn(prob.ns.n_state, generator=gen, device="cuda", dtype=X.dtype)
+    z = torch.randn(prob.ns.n_state, generator=gen, device="cuda", dtype=X.dtype)
+    Mr, MTz = M(r), MT(z)
+    repeats["M"] = torch.equal(Mr, M(r))
+    repeats["M^T"] = torch.equal(MTz, MT(z))
+    errs["<M r, z> - <r, M^T z>"] = abs(float(torch.dot(Mr.double(), z.double()))
+                                        - float(torch.dot(r.double(), MTz.double()))) / float(
+        torch.linalg.vector_norm(Mr) * torch.linalg.vector_norm(z))
+    for what, e in errs.items():
+        log(f"[global] {what}: {e:.3e} (limit 1e-5)")
+    log(f"[global] bitwise repeat of a second call on the card: {repeats}")
+    for what, e in errs.items():
+        check(e <= 1e-5, f"global operator check {what}: {e:.3e}")
+    del m_args, pre, Wg
+    torch.cuda.empty_cache()
+
+
+def jac_elem_chunks(prob, s, reps=3):
+    """The ELL Jacobian's assembly (ns_elljac.assemble_ns_jacobian) at 3D
+    refs=2 and the state s at each elements-per-batch chunk of
+    JAC_ELEM_CHUNKS: median synchronized seconds of reps calls after a
+    warm-up and the peak temporaries above what was held before.  The
+    blocks are compared with the first chunk's: bit for bit (as on the CPU,
+    tests/test_torch_ns_elljac.py) is reported; on the card the batch's
+    size selects the batched products' kernels, and the blocks are held
+    to 1e-6 of max |W|, the limit of the lattice Jacobian's chunks
+    (jac_chunks).  The module's chunk is restored."""
+    from admm_optim_tpu_torch.ops import ns_elljac
+
+    keep = ns_elljac.JAC_ELEM_CHUNK
+    W_ref = None
+    try:
+        for chunk in JAC_ELEM_CHUNKS:
+            ns_elljac.JAC_ELEM_CHUNK = chunk
+            prob.ns.jac(prob.X0, s, STEP_VISC)
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                W = prob.ns.jac(prob.X0, s, STEP_VISC)
+                sync()
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() - base
+            same = W_ref is None or torch.equal(W, W_ref)
+            diff = 0.0 if W_ref is None else rel_diff(W, W_ref)
+            W_ref = W if W_ref is None else W_ref
+            E = W.shape[0]
+            log(f"[global] ELL Jacobian assembly, JAC_ELEM_CHUNK {chunk}: {E} elements in {-(-E // chunk)} "
+                f"batch(es), median {1e3 * statistics.median(times):.1f} ms of {[round(1e3 * t, 1) for t in times]}, "
+                f"peak {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before (W itself "
+                f"{W.numel() * W.element_size() / 2**30:.3f} GiB); bitwise equal to the first chunk's: {same}, "
+                f"max |W - W(first chunk)| / max |W| {diff:.3e}")
+            check(diff <= 1e-6, f"ELL Jacobian blocks agree at JAC_ELEM_CHUNK {chunk}")
+            del W
+    finally:
+        ns_elljac.JAC_ELEM_CHUNK = keep
+    del W_ref
+    torch.cuda.empty_cache()
+
+
+def global_phase(ctx_ns, launches, by_lattice, ladder_s=None, patch0=None):
+    """One optimization step on the global backend at 3D refs=2, visc
+    STEP_VISC, float32, from ladder_s (the ns phase's 0.02 ladder state,
+    where the patch step 0 started; without it run climbs its own ladder),
+    with the operator checks before it, then the ELL Jacobian's chunks and
+    the sweeps.  patch0 (the step phase's step_record) gives what the
+    global step is compared with."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(step_config(2, STEP_VISC), backend="global")
+    prob = ObstacleShapeOpt(cfg, device="cuda")
+    sync()
+    setup = time.perf_counter() - t0
+    pre = prob.ns.pre_space
+    log(f"[global] refs=2 n_state={prob.ns.n_state}, {prob.hier.fine.num_vertices} vertices, "
+        f"{prob.hier.fine.num_elems} elements, ELL Jacobian {prob.ns.ell.nloc}^2 x {prob.ns.ell.E} "
+        f"({prob.ns.ell.nloc ** 2 * prob.ns.ell.E * 4 / 1e6:.1f} MB in float32), velocity cycle on "
+        f"{len(pre.patterns)} levels, finest {pre.nv[-1]} vertices {len(pre.elems[-1])} elements (K = "
+        f"{pre.patterns[-1].K}); set-up {setup:.2f} s: host x-update space {prob.xu.host_seconds:.2f} s, NS side "
+        f"(velocity space patterns, Jacobian wiring, segment sums) {prob.ns.host_seconds:.2f} s")
+    check(not prob.use_patch and prob.xu.ps is None and prob.ns.ps is None,
+          "backend='global' selected the block-ELL pieces")
+    if ctx_ns is None:
+        ctx_ns = ns_run.build(device="cuda", visc=STEP_VISC, hier=prob.hier)
+    s_chk = ladder_s if ladder_s is not None else ns_run.initial_state(ctx_ns)
+    global_operator_checks(prob, ctx_ns, s_chk)
+    del ctx_ns
+    resume = None
+    if ladder_s is not None:
+        resume = dict(X=prob.X0, s=ladder_s, sigma=cfg.sigma_threshold, step=-1,
+                      drag_old=float(nsops.drag(prob.ns.space, prob.X0, ladder_s, STEP_VISC)))
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    prof = Profiler()
+    hist = prob.run(num_steps=1, resume=resume, profiler=prof)
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = dict(sk.launches)
+    by_lattice["global"] = dict(sk.launches_by_lattice)
+    launches["global"] = counts
+    if prob.ladder is not None:
+        report_rungs("global", prob.ladder.rungs)
+    log_step("global", prob, hist)
+    log(f"[global] run {seconds:.3f} s; kernel launches {counts}; profiler:\n{prof.report()}")
+    check(all(n == 0 for n in counts.values()), "the global step launched no hand-written kernel")
+    check(len(hist) == 1, "refs=2 global step accepted")
+    log_ = prob.step_log[-1]
+    g = step_record(prob, hist[0], log_, setup, seconds)
+    step_gates("refs=2 global step", prob, hist[0], prob.drag_init, log_)
+    if patch0 is not None:
+        log("[global] global / patch step 0 from the same state: seconds per phase "
+            + ", ".join(f"{k} {g['seconds'].get(k, 0.0):.3f} / {patch0['seconds'].get(k, 0.0):.3f}"
+                        for k in patch0["seconds"])
+            + f"; in the phases {sum(g['seconds'].values()):.3f} / {sum(patch0['seconds'].values()):.3f} s, wall "
+            f"{g['wall']:.3f} / {patch0['wall']:.3f} s; adjoint {g['adjoint_iters']} / {patch0['adjoint_iters']} "
+            f"iterations at {g['adjoint_ms']:.2f} / {patch0['adjoint_ms']:.2f} ms each; NS re-solve linear "
+            f"{g['ns_lin']} / {patch0['ns_lin']}; ADMM {g['admm']} / {patch0['admm']}, Newton {g['newton']} / "
+            f"{patch0['newton']}, Krylov {g['krylov']} / {patch0['krylov']}; attempts {g['attempts']} / "
+            f"{patch0['attempts']}; drag decrease {g['drag_diff']:.6e} / {patch0['drag_diff']:.6e}; peak device "
+            f"memory {g['peak_gib']:.2f} / {patch0['peak_gib']:.2f} GiB; set-up {g['setup']:.2f} / "
+            f"{patch0['setup']:.2f} s")
+        check(abs(g["drag_old"] - patch0["drag_old"]) <= 1e-6 * patch0["drag_old"],
+              "the global and patch steps start from the same drag")
+        check(g["attempts"] == patch0["attempts"], "the global step accepts on the patch step 0's attempt")
+        gap = abs(g["drag_diff"] - patch0["drag_diff"])
+        log(f"[global] drag decrease {gap / patch0['drag_diff']:.3e} of the patch step's apart (limit "
+            f"{GLOBAL_DECREASE_SHARE:g})")
+        check(gap <= GLOBAL_DECREASE_SHARE * patch0["drag_diff"],
+              "the global step's drag decrease within 10% of the patch step's")
+    else:
+        log("[global] the step phase did not run: no comparison with the patch step 0")
+    jac_elem_chunks(prob, prob.s_final)
+    del prob
+    torch.cuda.empty_cache()
+    sweep_phase()
+
+
+def sweep_jp(prob):
+    """A shape gradient (d, V) pointing into the obstacle, as
+    tests/test_sweep.py's."""
+    X = prob.X0
+    Jp = -X / torch.clamp_min(torch.linalg.vector_norm(X, dim=1, keepdim=True), 0.3)
+    return (Jp * prob.obstacle_vmask[:, None] * 0.15).T.contiguous()
+
+
+def same_candidate(tag, states, b, st):
+    """A sweep candidate against its single call: equal counts and flags, u
+    within 1e-5 of max |u|."""
+    got = (int(states.admm_it[b]), int(states.total_newton[b]), int(states.total_lin_iters[b]),
+           states.solver_iters[b].tolist(), bool(states.converged[b]), bool(states.failed[b]))
+    want = (st.admm_it, st.total_newton, st.total_lin_iters, list(st.solver_iters), st.converged, st.failed)
+    du = rel_diff(states.u[b], st.u) if float(st.u.abs().max()) > 0 else float(states.u[b].abs().max())
+    log(f"[sweep] {tag} candidate {b}: (ADMM, Newton, Krylov, per lane, converged, failed) {got}, single call "
+        f"{want}; u {du:.3e} of max |u| apart")
+    check(got == want and du <= 1e-5, f"{tag} candidate {b} equals its single admm_inner call")
+
+
+def sweep_phase():
+    """At 3D refs=1, visc NS_VISC: sigma_sweep on the patch backend over
+    SWEEP_SIGMAS and best_candidate from the cold-start Newton state;
+    geometry_sweep on the global backend over X0 and X0 + GEOMETRY_SHARE u
+    of the first candidate; each candidate against its single call."""
+    from admm_optim_tpu_torch.models import sweep
+    from admm_optim_tpu_torch.optim.admm import admm_inner_global
+
+    t0 = time.perf_counter()
+    pp = ObstacleShapeOpt(step_config(1, NS_VISC), device="cuda")
+    X, Jp = pp.X0, sweep_jp(pp)
+    nres, _ = ns_run.newton(pp.ns, recycle=pp._ns_recycle)
+    check(nres.converged, "refs=1 cold-start Newton converged")
+    t1 = time.perf_counter()
+    states = sweep.sigma_sweep(pp, X, Jp, SWEEP_SIGMAS)
+    sync()
+    t2 = time.perf_counter()
+    mg = xupdate_solve.assemble(pp.xu, X)
+    for b, sigma in enumerate(SWEEP_SIGMAS):
+        same_candidate("sigma_sweep (patch)", states, b, pp._admm(mg, X, Jp, sigma, 1.0))
+    idx, drags = sweep.best_candidate(pp, X, nres.s, states)
+    sync()
+    log(f"[sweep] refs=1 sigma_sweep over {SWEEP_SIGMAS} on the patch backend: {t2 - t1:.2f} s; best_candidate "
+        f"{idx}, drags {drags.tolist()} (start {pp._drag(X, nres.s):.10g}); set-up and Newton {t1 - t0:.2f} s")
+    check(np.isfinite(drags[idx]), "best_candidate found a candidate")
+    gp = ObstacleShapeOpt(dataclasses.replace(step_config(1, NS_VISC), backend="global"), device="cuda")
+    Xs = [X, (X + GEOMETRY_SHARE * states.u[0].T).contiguous()]
+    t3 = time.perf_counter()
+    gstates = sweep.geometry_sweep(gp, Xs, [Jp, Jp], sigma=SWEEP_SIGMAS[0])
+    sync()
+    log(f"[sweep] refs=1 geometry_sweep over 2 meshes on the global backend: {time.perf_counter() - t3:.2f} s")
+    for b, Xb in enumerate(Xs):
+        single = admm_inner_global(gp.cfg.admm, gp.xu.struct, xupdate_solve.assemble(gp.xu, Xb), Xb, gp.elems,
+                                   gp.ns.free_def, Jp, SWEEP_SIGMAS[0], 1.0, gp.ref_volume, gp.ref_barycenter,
+                                   vplan=gp.xu.vplan)
+        same_candidate("geometry_sweep (global)", gstates, b, single)
+    del pp, gp
+    torch.cuda.empty_cache()
 
 
 class _Tee(io.StringIO):
@@ -1119,16 +1423,21 @@ def cli_phase(launches, by_lattice):
 
 
 def pcd_phase(ctx, launches, by_lattice, mass_rungs):
-    """The PCD path at refs=2, float32: ns_run.run with a target runs the
-    cold-start ladder to PCD_VISC, then drag, adjoint and J' there; the
-    launch counts are reset before each of its phases and read after."""
+    """The PCD path at refs=2, float32: one PCD rung, the Newton solve at
+    PCD_VISC from the mass ladder's converged state at PCD_FROM_VISC (alone,
+    without the ns phase's ladder, the whole PCD ladder as ns_run.run with a
+    target), then drag, adjoint and J' there; the launch counts are reset
+    before each of its phases and read after."""
     torch.cuda.reset_peak_memory_stats()
     log(
         f"[pcd] refs=2 n_state={ctx.n_state} velocity lattice {ctx.pre_ps.fine.lat_shape} x "
         f"{ctx.pre_ps.P}, pressure lattice {ctx.ps.fine.lat_shape} x {ctx.ps.P}, host set-up "
         f"{ctx.host_seconds:.2f} s, target visc {PCD_VISC}, accept_tol {ctx.cfg.accept_tol:g}"
     )
-    out = ns_run.run(ctx, target_visc=PCD_VISC, adjoint_iters=NS_ADJOINT_BUDGET)
+    start = [r.newton.s for r in mass_rungs if r.nu == PCD_FROM_VISC and r.newton.converged]
+    if start:
+        log(f"[pcd] one PCD rung to visc {PCD_VISC} from the mass ladder's visc {PCD_FROM_VISC} state")
+    out = ns_run.run(ctx, target_visc=PCD_VISC, adjoint_iters=NS_ADJOINT_BUDGET, s0=start[-1] if start else None)
     ctx = ctx.at_visc(PCD_VISC)
     for phase, n in out.launches.items():
         log(f"[pcd] launches in the {phase} phase: {n}")
@@ -1139,7 +1448,7 @@ def pcd_phase(ctx, launches, by_lattice, mass_rungs):
     launches["pcd"] = path_launches("pcd", out.launches)
     lin, secs = report_rungs("pcd", out.rungs)
     inserted = [r.nu for r in out.rungs if r.inserted]
-    log(f"[pcd] ladder: {out.seconds['newton']:.3f} s, {len(out.rungs)} rungs attempted, inserted {inserted}, "
+    log(f"[pcd] Newton: {out.seconds['newton']:.3f} s, {len(out.rungs)} rungs attempted, inserted {inserted}, "
         f"{lin:.0f} linear iterations, {1e3 * secs / max(lin, 1):.2f} ms each outside assembly; K5 launches per "
         f"linear iteration {out.launches['newton']['apply_w_full'] / max(lin, 1):.2f} at C = 3, "
         f"{out.launches['newton']['apply_w_full/c1'] / max(lin, 1):.2f} at C = 1")
@@ -1154,9 +1463,9 @@ def pcd_phase(ctx, launches, by_lattice, mass_rungs):
         tp = r.seconds - sum(sum(a.values()) for a in r.assembly_seconds)
         tm = m.seconds - sum(sum(a.values()) for a in m.assembly_seconds)
         log(f"[pcd] rung nu={r.nu:.5g}: PCD {r.newton.iters} Newton, {lp} linear at {1e3 * tp / max(lp, 1):.2f} ms; "
-            f"mass {m.newton.iters} Newton, {lm} linear at {1e3 * tm / max(lm, 1):.2f} ms; PCD/mass linear "
-            f"iterations {lp / max(lm, 1):.3f}, ms per iteration {(tp / max(lp, 1)) / (tm / max(lm, 1)):.3f}, "
-            f"seconds outside assembly {tp / tm:.3f}")
+            f"mass {m.newton.iters} Newton, {lm} linear at {1e3 * tm / max(lm, 1):.2f} ms (the ladder's, its "
+            f"recycle space carried); PCD/mass linear iterations {lp / max(lm, 1):.3f}, ms per iteration "
+            f"{(tp / max(lp, 1)) / (tm / max(lm, 1)):.3f}, seconds outside assembly {tp / tm:.3f}")
     nw, adj = out.newton, out.adjoint
     r64 = float64_residual(ctx, nw.s)
     log(f"[pcd] visc {PCD_VISC}: |R| history {[f'{v:.3e}' for v in nw.res_history]}, final |R| "
@@ -1174,23 +1483,13 @@ def pcd_phase(ctx, launches, by_lattice, mass_rungs):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
     check(out.rungs[-1].nu == PCD_VISC and nw.converged and nw.res_norm <= ctx.cfg.accept_tol,
-          f"refs=2 PCD ladder converged at visc {PCD_VISC}")
-    check(set(ns_run.continuation_ladder(PCD_VISC)) <= {r.nu for r in out.rungs if r.newton.converged},
-          "every planned rung of the PCD ladder converged")
+          f"refs=2 PCD Newton converged at visc {PCD_VISC}")
+    if not start:
+        check(set(ns_run.continuation_ladder(PCD_VISC)) <= {r.nu for r in out.rungs if r.newton.converged},
+              "every planned rung of the PCD ladder converged")
     check(r64 <= ctx.cfg.accept_tol, f"refs=2 PCD float64 |R| {r64:.3e} <= accept_tol")
     check_adjoint_and_gradient("refs=2 PCD", ctx, adj, out.drag, out.jprime, ("target", "stagnation", "budget"))
     ns_profile("pcd", ctx, nw.s)
-    # the last rung again with VEL_INNER, beside the ladder's own (vel_inner
-    # 1, with the recycle space the rungs before it left): a finding, whose
-    # only gate is that it converges
-    conv = [r for r in out.rungs if r.newton.converged]
-    res, _, ms = vel_inner_rung(ctx, conv[-2].newton.s, VEL_INNER)
-    last = conv[-1]
-    lin = sum(last.newton.lin_iters)
-    ms1 = 1e3 * (last.seconds - sum(sum(a.values()) for a in last.assembly_seconds)) / max(lin, 1)
-    log(f"[pcd] vel_inner {VEL_INNER} against the ladder's own visc {PCD_VISC} rung (vel_inner 1, recycle space "
-        f"carried): linear {sum(res.lin_iters)} vs {lin}, {ms:.2f} vs {ms1:.2f} ms per linear iteration")
-    check(res.converged, f"vel_inner {VEL_INNER}: the visc {PCD_VISC} rung converged")
 
 
 def vel_inner_rung(ctx, s0, vel_inner, tag="pcd"):
@@ -1433,26 +1732,36 @@ def run_phases(kind, phases_run):
     torch.cuda.empty_cache()
 
     # 7. the optimization step at refs=2, from the mass ladder's state at STEP_VISC
+    at = [r.newton.s for r in mass_rungs if r.nu == STEP_VISC and r.newton.converged]
+    patch0 = None
     if "step" in phases_run:
-        at = [r.newton.s for r in mass_rungs if r.nu == STEP_VISC and r.newton.converged]
-        step_phase(launches, by_lattice, at[-1] if at else None)
-        del at
+        patch0 = step_phase(launches, by_lattice, at[-1] if at else None)
         torch.cuda.empty_cache()
         phase_done("step")
 
-    # 8. the PCD path at refs=2: ladder to visc 0.02, drag, adjoint, J'
+    # 8. the global (block-ELL) backend: one step from the same state, the sweeps
+    if "global" in phases_run:
+        ctx_mass = None if ctx_pcd is None else dataclasses.replace(
+            ctx_pcd, pressure_precond="mass", pcd_tabs=None, pcd_struct=None)
+        global_phase(ctx_mass, launches, by_lattice, at[-1] if at else None, patch0)
+        del ctx_mass
+        torch.cuda.empty_cache()
+        phase_done("global")
+    del at
+
+    # 9. the PCD path at refs=2: one rung to visc 0.02, drag, adjoint, J'
     if "pcd" in phases_run:
         pcd_phase(ctx_pcd, launches, by_lattice, mass_rungs)
         phase_done("pcd")
     del ctx_pcd, mass_rungs
     torch.cuda.empty_cache()
 
-    # 9. small-input agreement: GPU float32 vs the port's float64 CPU runs
+    # 10. small-input agreement: GPU float32 vs the port's float64 CPU runs
     if "small" in phases_run:
         small_phase()
         phase_done("small")
 
-    # 10. the CLI at 3D refs=1, against its float64 CPU run
+    # 11. the CLI at 3D refs=1, against its float64 CPU run
     if "cli" in phases_run:
         cli_phase(launches, by_lattice)
         phase_done("cli")

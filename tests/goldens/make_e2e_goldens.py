@@ -33,11 +33,20 @@ on the CPU in float64:
     __Iterations_per_step.txt kept in e2e_cli_2d.npz, held by
     tests/test_torch_cli.py.  The CLI's ObstacleShapeOpt is given the
     host-stepped loops as above (the port has only those).
+  * global: the global (block-ELL) backend, in tests/goldens/e2e_global.npz
+    (configurations in tests/torch_global_golden.py): two steps at 2D
+    refs=1 on the channel with alternating diagonals and at 3D refs=0 with
+    backend="global" (as run_e2e), one step on the .ugx file of that 2D
+    channel (grid_path), admm_inner at the undeformed 2D and 3D meshes with
+    a synthetic J', sigma_sweep, geometry_sweep and best_candidate at 2D,
+    and the JAX CLI with -backend global and with -grid; held by
+    tests/test_torch_admm_global.py, _obstacle_global*.py, _sweep.py and
+    _cli_global.py.
 
 The JAX stepped kernels compile for minutes on one CPU core.  Run from the
 repository root:
 
-    python tests/goldens/make_e2e_goldens.py [e2e] [adjoint] [ckpt] [cli]
+    python tests/goldens/make_e2e_goldens.py [e2e] [adjoint] [ckpt] [cli] [global]
 """
 import contextlib
 import io
@@ -60,7 +69,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 HERE = pathlib.Path(__file__).resolve().parent
-sys.path[:0] = [str(HERE.parents[1])]
+sys.path[:0] = [str(HERE.parents[1]), str(HERE.parent)]
 
 from admm_optim_tpu.models.obstacle import ObstacleShapeOpt, ProblemConfig  # noqa: E402
 from admm_optim_tpu.optim import admm  # noqa: E402
@@ -72,6 +81,7 @@ CKPT_OUT = HERE / "e2e_ckpt_2d.npz"
 SIDECAR_OUT = HERE / "e2e_ckpt_2d_sidecar.npz"
 TELEMETRY_OUT = HERE / "e2e_ckpt_2d_telemetry.npz"
 CLI_OUT = HERE / "e2e_cli_2d.npz"
+GLOBAL_OUT = HERE / "e2e_global.npz"
 CLI_ARGV = ["-dim", "2", "-numRefs", "1", "-numSteps", "2", "-admmSteps", "8", "-x64"]
 TELEMETRY_FILES = {"drag": "__Drag.txt", "iterations": "__Iterations_per_step.txt"}
 NUM_STEPS = 2
@@ -121,10 +131,11 @@ def parse_verbose(text):
     return steps
 
 
-def run_e2e(name, kw):
+def run_e2e(name, kw, num_steps=NUM_STEPS):
     cfg = problem_config(kw)
     prob = ObstacleShapeOpt(cfg)
-    assert prob.use_patch and prob.use_patch_ns and prob.use_ns_jac
+    glob = cfg.backend == "global" or cfg.grid_path is not None
+    assert prob.use_ns_jac and (not (prob.use_patch or prob.use_patch_ns) if glob else prob.use_patch and prob.use_patch_ns)
     prob._ns_stepped = True
     prob._admm_stepped_on = True
     after0, ladder = {}, {}
@@ -138,9 +149,9 @@ def run_e2e(name, kw):
 
     buf = Tee()
     with contextlib.redirect_stdout(buf):
-        hist = prob.run(num_steps=NUM_STEPS, verbose=True, callback=callback)
+        hist = prob.run(num_steps=num_steps, verbose=True, callback=callback)
     parsed = parse_verbose(buf.getvalue())
-    assert len(hist) == NUM_STEPS and len(parsed) == NUM_STEPS, (len(hist), parsed)
+    assert len(hist) == num_steps and len(parsed) == num_steps, (len(hist), parsed)
     # the drag after the ladder: drag_init of the resumed run
     drag_init = hist[0].drag + hist[0].drag_diff
     out = {f"{name}_{f}": np.asarray([getattr(r, f) for r in hist]) for f in RECORD}
@@ -215,8 +226,8 @@ def run_ckpt():
     return out
 
 
-def run_cli():
-    """The JAX CLI on CLI_ARGV with the host-stepped loops; its HOME (the
+def run_cli(argv=CLI_ARGV):
+    """The JAX CLI on argv with the host-stepped loops; its HOME (the
     compilation cache's root) is a temporary directory."""
     from admm_optim_tpu import cli
     from admm_optim_tpu.models import obstacle
@@ -233,13 +244,69 @@ def run_cli():
         os.environ["HOME"] = tmp
         try:
             out_dir = os.path.join(tmp, "out")
-            assert cli.main(CLI_ARGV + ["-outDir", out_dir]) == 0
+            assert cli.main(argv + ["-outDir", out_dir]) == 0
         finally:
             obstacle.ObstacleShapeOpt = orig
             if home is not None:
                 os.environ["HOME"] = home
         out = {k: np.asarray(open(os.path.join(out_dir, f)).read()) for k, f in TELEMETRY_FILES.items()}
     print(f"cli: {out}", flush=True)
+    return out
+
+
+def _state(prefix, st):
+    """An ADMMState, batched or not, as numpy arrays under prefix_*."""
+    return {f"{prefix}_{f}": np.asarray(getattr(st, f)) for f in (
+        "u", "lam", "Lambda", "scaling", "admm_it", "total_newton", "total_lin_iters", "solver_iters",
+        "converged", "failed", "stats")}
+
+
+def run_global():
+    """The global backend's goldens (tests/torch_global_golden.py)."""
+    import torch_global_golden as G
+    from admm_optim_tpu.core import geomgen, ugx
+    from admm_optim_tpu.models import sweep
+    from admm_optim_tpu.optim.spaces import GlobalOps
+
+    out = {}
+    for name, kw in G.CONFIGS.items():
+        out.update(run_e2e(name, kw))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, G.GRID_NAME)
+        G.write_channel_ugx(path, ugx, geomgen)
+        out.update(run_e2e("grid2d", dict(G.GRID_CONFIG, grid_path=path), num_steps=1))
+        cli_out = {"backend": run_cli(G.CLI_ARGVS["backend"]), "grid": run_cli(G.CLI_ARGVS["grid"] + ["-grid", path])}
+    for case, files in cli_out.items():
+        out.update({f"cli_{case}_{k}": v for k, v in files.items()})
+    for name, kw in G.CONFIGS.items():
+        prob = ObstacleShapeOpt(problem_config(kw))
+        X = prob.X0
+        Jp = jnp.asarray(G.jp_of(X, prob.obstacle_vmask))
+        def global_ops(mgdata, coords, prob=prob):
+            return GlobalOps(prob.struct, mgdata, coords, prob.elems, prob.free)
+
+        st = admm.admm_inner_stepped(
+            prob.cfg.admm, global_ops, (prob._assemble(X), X), Jp, G.ADMM_SIGMA, G.ADMM_SCALING,
+            prob.ref_volume, prob.ref_barycenter, prob._admm_kernel_cache,
+        )
+        out.update(_state(f"admm_{name}", st))
+        out[f"admm_{name}_Jp"] = np.asarray(Jp)
+        print(f"admm {name}: admm_it {int(st.admm_it)} newton {int(st.total_newton)} lin {int(st.total_lin_iters)} "
+              f"converged {bool(st.converged)} failed {bool(st.failed)}", flush=True)
+        if name != "2dg":
+            continue
+        prob._ns_stepped = True
+        states = sweep.sigma_sweep(prob, X, Jp, jnp.asarray(G.SWEEP_SIGMAS))
+        out.update(_state("sigma_sweep", states))
+        Xs = np.stack([np.asarray(X), np.asarray(X) + G.GEOMETRY_SHARE * np.asarray(states.u[0]).T])
+        gstates = sweep.geometry_sweep(prob, Xs, np.broadcast_to(np.asarray(Jp), (2,) + Jp.shape),
+                                       sigma=G.GEOMETRY_SIGMA)
+        out.update(_state("geometry_sweep", gstates))
+        s = jnp.asarray(out["2dg_ladder_s"])
+        idx, drags = sweep.best_candidate(prob, X, s, states)
+        out["best_index"], out["best_drags"] = np.asarray(idx), np.asarray(drags)
+        print(f"sweeps: sigma counts {np.asarray(states.admm_it)} geometry {np.asarray(gstates.admm_it)} "
+              f"best {idx} {drags}", flush=True)
     return out
 
 
@@ -257,11 +324,12 @@ def main(which):
             out.update(run_adjoint(name, dim, refs, gold))
         np.savez_compressed(ADJ_OUT, **out)
         print(f"wrote {ADJ_OUT} ({ADJ_OUT.stat().st_size} bytes)", flush=True)
-    for name, run, path in (("ckpt", run_ckpt, TELEMETRY_OUT), ("cli", run_cli, CLI_OUT)):
+    for name, run, path in (("ckpt", run_ckpt, TELEMETRY_OUT), ("cli", run_cli, CLI_OUT),
+                            ("global", run_global, GLOBAL_OUT)):
         if name in which:
             np.savez_compressed(path, **run())
             print(f"wrote {path}", flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["e2e", "adjoint", "ckpt", "cli"])
+    main(sys.argv[1:] or ["e2e", "adjoint", "ckpt", "cli", "global"])

@@ -9,7 +9,9 @@ writing the __Drag.txt and __Iterations_per_step.txt of the JAX CLI on
 that argv (tests/goldens/e2e_cli_2d.npz, made by
 tests/goldens/make_e2e_goldens.py cli).  Without -x64 the CLI takes the
 card, and without one it raises; the settings the port does not run yet
-raise ObstacleShapeOpt's NotImplementedError (ROADMAP item 9)."""
+raise ObstacleShapeOpt's NotImplementedError (ROADMAP item 9b).  The
+global backend's runs (-backend global, -grid) are in
+tests/test_torch_cli_global.py."""
 import pathlib
 import subprocess
 import sys
@@ -130,16 +132,15 @@ def test_without_x64_the_cli_takes_the_card(monkeypatch, tmp_path):
         cli.main(["-dim", "2", "-numRefs", "0", "-outDir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flags", [["-backend", "global"], ["-grid", "box.ugx"], ["-b2ndOrder", "1"],
-                                   ["-vorder", "1"]])
+@pytest.mark.parametrize("flags", [["-b2ndOrder", "1"], ["-vorder", "1"]])
 def test_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 9b"):
         cli.main(["-dim", "2", "-numRefs", "0", "-x64", "-outDir", str(tmp_path)] + flags)
 
 
 def test_module_entry_point_exits_nonzero_on_an_unported_flag(tmp_path):
     out = subprocess.run(
-        [sys.executable, "-m", "admm_optim_tpu_torch.cli", "-dim", "2", "-numRefs", "0", "-x64", "-backend",
-         "global", "-outDir", str(tmp_path)], cwd=REPO, capture_output=True, text=True, timeout=120,
+        [sys.executable, "-m", "admm_optim_tpu_torch.cli", "-dim", "2", "-numRefs", "0", "-x64", "-b2ndOrder",
+         "1", "-outDir", str(tmp_path)], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
-    assert out.returncode != 0 and "NotImplementedError" in out.stderr
+    assert out.returncode != 0 and "NotImplementedError" in out.stderr and "item 9b" in out.stderr

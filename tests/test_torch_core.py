@@ -92,7 +92,8 @@ def test_port_imports_without_jax():
         "for n in ('core.quadrature', 'core.spaces', 'ops.convdiff', 'ops.navier_stokes',\n"
         "          'ops.ns_patchjac', 'solvers.ns_solver', 'ns_run', 'models.obstacle',\n"
         "          'io.checkpoint', 'io.telemetry', 'io.vtk', 'io.resume', 'utils.debug',\n"
-        "          'utils.profiling', 'cli'):\n"
+        "          'utils.profiling', 'cli', 'solvers.mg', 'ops.p1space', 'ops.ns_elljac',\n"
+        "          'models.sweep'):\n"
         "    assert 'admm_optim_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
@@ -103,4 +104,4 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     # importing cli does not run main (which would print its parameters)
     assert "THE PARAMETERS" not in out.stdout
-    assert int(out.stdout.strip().splitlines()[-1]) >= 31
+    assert int(out.stdout.strip().splitlines()[-1]) >= 35

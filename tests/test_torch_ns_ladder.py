@@ -189,3 +189,27 @@ def test_run_with_a_target_runs_the_ladder_first(ctx, monkeypatch):
     state["calls"].clear()
     out = ns_run.run(ctx.at_visc(0.16))
     assert out.rungs is None and [c[0] for c in state["calls"]] == [None]
+
+
+def test_run_from_a_state_takes_one_rung(ctx, monkeypatch):
+    """run(ctx, target_visc, s0=s): one Newton solve at the target from s
+    with a recycle space of its own (no ladder), then drag, adjoint and J'
+    there; the one rung is the run's record."""
+    calls = []
+
+    def newton(c, s0=None, visc=None, recycle=None):
+        calls.append((c.visc, s0, visc, recycle))
+        res = ns_solver.NewtonResult(s0 + 1.0, 2, 0.0, True, [1.0], [50], [0.0])
+        return res, [{"velocity": 0.0}]
+
+    monkeypatch.setattr(ns_run, "newton", newton)
+    monkeypatch.setattr(ns_run, "solve_ladder", lambda c: pytest.fail("the ladder ran"))
+    monkeypatch.setattr(nsops, "drag", lambda space, X, s, visc: torch.tensor(visc, dtype=torch.float64))
+    monkeypatch.setattr(ns_run, "adjoint", lambda c, s: ns_solver.AdjointResult(s, 0.0, 0, "target", 1.0, 0))
+    monkeypatch.setattr(ns_run, "jprime", lambda c, s, lam: torch.ones(2, 3))
+    s0 = torch.zeros(3, dtype=torch.float64)
+    out = ns_run.run(ctx.at_visc(0.16), target_visc=0.02, s0=s0)
+    assert len(calls) == 1 and calls[0][0] == 0.02 and calls[0][1] is s0 and calls[0][3] == {}
+    assert [(r.nu, r.inserted) for r in out.rungs] == [(0.02, False)] and out.newton is out.rungs[-1].newton
+    assert out.rungs[0].seconds == out.seconds["newton"] and out.assembly_seconds == [{"velocity": 0.0}]
+    assert out.drag == 0.02 and bool((out.adjoint.lam == 1.0).all())

@@ -9,7 +9,7 @@ are in tests/test_torch_obstacle_3d*.py.  What is held and why:
 tests/torch_obstacle_golden.py.
 
 Also: the configuration and resume state converters, the float32 presets,
-and what the port refuses (NotImplementedError, naming the ROADMAP item).
+and what the port refuses (NotImplementedError, naming ROADMAP item 9b).
 ObstacleShapeOpt's outputs, checkpoints and profiler are held in
 tests/test_torch_obstacle_hooks.py and tests/test_torch_resume.py."""
 import dataclasses
@@ -108,15 +108,24 @@ def test_f32_presets_equal_the_jax_package(dim):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("backend", "global", "item 9"),
-    ("b2nd_order", True, "item 9"),
-    ("grid_path", "grids/box.ugx", "item 9"),
+    ("b2nd_order", True, "item 9b"),
+    ("vorder", 1, "item 9b"),
+    ("ns_assembled_jac", "off", "item 9b"),
 ])
 def test_unported_settings_raise(field, value, item):
-    """What comes with ROADMAP item 9 raises; the outputs, checkpoints and
-    the profiler work (tests/test_torch_obstacle_hooks.py)."""
+    """What comes with ROADMAP item 9b raises; the global backend and .ugx
+    grids run (tests/test_torch_obstacle_global*.py), the outputs,
+    checkpoints and the profiler work (tests/test_torch_obstacle_hooks.py)."""
     with pytest.raises(NotImplementedError, match=item):
         ObstacleShapeOpt(ProblemConfig(num_refs=0, **{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(pressure_precond="pcd"), dict(ns_jac_mem_cap=1.0)], ids=["pcd", "mem_cap"])
+def test_global_backend_refusals(kw):
+    """On the global backend PCD and the matrix-free jvp above the memory
+    cap raise, naming item 9b; no fallback to the patch path."""
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        ObstacleShapeOpt(ProblemConfig(num_refs=0, backend="global", **kw), device="cpu")
 
 
 def test_jacobian_above_the_memory_cap_raises():

@@ -128,6 +128,22 @@ def test_exchange_sum_df_bit_equal_to_jax(refs):
     np.testing.assert_array_equal(tl_.numpy(), np.asarray(jl_))
 
 
+@pytest.mark.parametrize("refs", [1, 2])
+def test_exchange_gpu_form_equals_index_add(refs):
+    """exchange_sum's fixed-order GPU form (exchange_groups, every duplicate
+    group summed from its group-size table) against its CPU form
+    (index_add_), on lanes of float64 fields: 2-member groups bit for bit,
+    larger ones to rounding."""
+    _, (th, tps) = _both(refs)
+    lvl = tps.fine
+    tab = st.make_tables(lvl, torch.float64)
+    x = torch.as_tensor(np.random.default_rng(20 + refs).normal(size=(2, 3) + lvl.lat_shape + (lvl.P,)))
+    want = st.exchange_sum(lvl, x, tab)
+    got = st.exchange_groups(tab, x.reshape(-1, tab.owner.numel())).reshape(x.shape)
+    assert _rel(got.numpy(), want.numpy()) <= 1e-15
+    assert sorted(int(b.shape[1]) for b in tab.dfg_bidx)[0] == 2
+
+
 def test_prolong_restrict_and_glue_exact():
     (jh, jps), (th, tps) = _both(2)
     rng = np.random.default_rng(3)

@@ -1,0 +1,64 @@
+"""What tests/goldens/make_e2e_goldens.py's ``global`` target runs on the
+JAX package's global (block-ELL) backend and the port's tests of that
+backend run again: the configurations, the synthetic shape gradient of
+the ADMM and sweep goldens, and the channel mesh written as a .ugx file.
+
+Imports neither JAX nor torch: the golden maker passes the JAX package's
+modules, the tests the port's."""
+import numpy as np
+
+# tests/test_e2e_2d.py:20-28 and tests/test_e2e_3d.py:22-33 on the global
+# backend: the 2D channel with alternating diagonals (no brick metadata)
+CONFIGS = {
+    "2dg": dict(dim=2, num_refs=1, visc=0.05, sigma_threshold=0.3, backend="global",
+                admm=dict(admm_steps=40, ns_max_its=8, tau=2.0, lin_max_iters=120)),
+    "3dg": dict(dim=3, num_refs=0, visc=0.1, sigma_threshold=0.3, backend="global",
+                admm=dict(admm_steps=60, ns_max_its=10, tau=2.0, lin_max_iters=400),
+                ns=dict(lin_max_iters=1200, lin_restart=100)),
+}
+# one step on the .ugx file of the coarse 2D "alt" channel, refined once
+GRID_CONFIG = dict(dim=2, num_refs=1, visc=0.05, sigma_threshold=0.3,
+                   admm=dict(admm_steps=40, ns_max_its=8, tau=2.0, lin_max_iters=120))
+GRID_NAME = "channel_2d_alt.ugx"
+# the ADMM goldens: admm_inner at the undeformed mesh with jp_of's J'
+ADMM_SIGMA, ADMM_SCALING = 0.3, 1.0
+# the sweep goldens on the 2dg problem: sigma_sweep over SWEEP_SIGMAS, then
+# geometry_sweep over X0 and X0 + GEOMETRY_SHARE * u of the first candidate
+SWEEP_SIGMAS = (0.15, 0.3)
+GEOMETRY_SHARE = 0.5
+GEOMETRY_SIGMA = 0.3
+# the CLI goldens: the JAX CLI's __Drag.txt and __Iterations_per_step.txt
+CLI_ARGVS = {
+    "backend": ["-dim", "2", "-numRefs", "1", "-numSteps", "1", "-admmSteps", "8", "-visc", "0.05",
+                "-backend", "global", "-x64"],
+    "grid": ["-dim", "2", "-numRefs", "1", "-numSteps", "1", "-admmSteps", "8", "-visc", "0.05", "-x64"],
+}
+
+
+def jp_of(X, obstacle_vmask):
+    """A shape gradient (C, V) pointing into the obstacle, as
+    tests/test_sweep.py's _jp: numpy in, numpy out."""
+    X = np.asarray(X, np.float64)
+    Jp = -X / np.maximum(np.linalg.norm(X, axis=1, keepdims=True), 0.3)
+    return (Jp * np.asarray(obstacle_vmask, np.float64)[:, None] * 0.15).T
+
+
+def write_channel_ugx(path, ugx, geomgen):
+    """The coarse 2D channel with alternating diagonals as a .ugx file,
+    its subsets with their vertices and edges (the P2 velocity's Dirichlet
+    edges), through the given package's core.ugx and core.geomgen."""
+    lvl = geomgen.channel_2d(diag="alt")
+    empty = np.zeros((0,), np.int32)
+    coords = np.zeros((lvl.num_vertices, 3))
+    coords[:, :2] = lvl.coords
+    subsets = {
+        name: ugx.SubsetInfo(
+            name=name, vertices=np.nonzero(mask)[0].astype(np.int32),
+            edges=np.nonzero(lvl.subset_edges[name])[0].astype(np.int32), faces=empty, volumes=empty,
+        )
+        for name, mask in lvl.subset_vertices.items()
+    }
+    ugx.write_ugx(str(path), ugx.UgxGrid(
+        name="channel", coords=coords, edges=np.asarray(lvl.edges, np.int32),
+        triangles=np.asarray(lvl.elems, np.int32), tetrahedrons=np.zeros((0, 4), np.int32), subsets=subsets,
+    ))

@@ -16,7 +16,9 @@ What is held and why (obstacle_golden):
   * the JAX package's e2e invariants on the final mesh: volume to 1e-6
     relative, barycenter to 1e-5, no inverted element, the obstacle moved.
 
-Imported by tests/test_torch_obstacle.py and tests/test_torch_obstacle_3d*.py."""
+Imported by tests/test_torch_obstacle.py and tests/test_torch_obstacle_3d*.py;
+the global-backend tests (tests/test_torch_obstacle_global*.py) hold their
+cases ("2dg", "3dg", "grid2d") against tests/goldens/e2e_global.npz."""
 import pathlib
 
 import numpy as np
@@ -32,6 +34,7 @@ from admm_optim_tpu_torch.ops.deformation import barycenter
 from admm_optim_tpu_torch.ops.geometry import elem_geometry
 
 GOLD = np.load(pathlib.Path(__file__).parent / "goldens" / "e2e_steps.npz")
+GLOBAL_GOLD = np.load(pathlib.Path(__file__).parent / "goldens" / "e2e_global.npz")
 # tests/test_e2e_2d.py:20-28 and tests/test_e2e_3d.py:22-33, as in make_e2e_goldens.py
 CONFIGS = {
     "2d": dict(dim=2, num_refs=1, visc=0.05, sigma_threshold=0.3,
@@ -43,8 +46,9 @@ CONFIGS = {
 # x-update Krylov counts, per step and per lane: exact in 2D; in 3D the
 # per-lane counts of the long BiCGStab runs move with the last bits (step
 # 1 of a run from the cold start: 652 against the JAX package's 664 in one
-# lane, 3,650 against 3,663 in all)
-KRYLOV_REL = {"2d": 0.0, "3d": 0.03}
+# lane, 3,650 against 3,663 in all; on the global backend lanes by up to
+# 3.1% over two steps, 645 -> 625)
+KRYLOV_REL = {"2d": 0.0, "3d": 0.03, "2dg": 0.0, "3dg": 0.05, "grid2d": 0.0}
 
 
 def jax_config(case, **kw):
@@ -58,13 +62,14 @@ def port(case, **kw):
 
 
 def golden(case, key):
-    return GOLD[f"{case}_{key}"]
+    return (GOLD if case in CONFIGS else GLOBAL_GOLD)[f"{case}_{key}"]
 
 
-def obstacle_golden(case, prob, hist, steps, drag_rel=1e-8):
+def obstacle_golden(case, prob, hist, steps, drag_rel=1e-8, krylov_rel=None):
     """Hold the records of hist, the port's steps `steps`, against the
     golden's (module docstring); drag_diff, a difference of two drags, to
-    twice drag_rel."""
+    twice drag_rel; the Krylov counts to krylov_rel (default
+    KRYLOV_REL[case])."""
     assert [r.step for r in hist] == list(steps)
     drag = golden(case, "drag")
     for r in hist:
@@ -72,7 +77,8 @@ def obstacle_golden(case, prob, hist, steps, drag_rel=1e-8):
         assert r.attempts == int(golden(case, "attempts")[i])
         assert (r.sigma, r.scaling) == (float(golden(case, "sigma")[i]), float(golden(case, "scaling")[i]))
         assert (r.admm_iters, r.newton_iters) == (int(golden(case, "admm_iters")[i]), int(golden(case, "newton_iters")[i]))
-        tol, gs = KRYLOV_REL[case], golden(case, "solver_iters")[i].tolist()
+        tol = KRYLOV_REL[case] if krylov_rel is None else krylov_rel
+        gs = golden(case, "solver_iters")[i].tolist()
         assert abs(r.lin_iters - int(golden(case, "lin_iters")[i])) <= tol * int(golden(case, "lin_iters")[i])
         assert len(r.solver_iters) == len(gs)
         assert all(abs(a - b) <= tol * b for a, b in zip(r.solver_iters, gs)), (r.solver_iters, gs)
