@@ -15,9 +15,10 @@ Extra flags beyond the reference: ``-dim`` (one entry point for both 2D/3D),
 ``-outDir``, ``-x64`` (CPU double precision), ``-vorder``.  Without
 ``-x64`` the run takes the card in float32 with f32_presets, and raises
 when there is none.  A ``-grid`` file, and ``-backend global``, run on the
-global (block-ELL) backend.  The flags the port does not run yet
-(``-b2ndOrder 1``, ``-vorder 1``) raise ObstacleShapeOpt's
-NotImplementedError naming ROADMAP item 9b.
+global (block-ELL) backend.  ``-b2ndOrder 1`` (the J'' term; it puts the
+x-update on the global backend), ``-vorder 1`` (P1/P1 with ``-stab``,
+matrix-free NS operators) and ``-pressurePrecond pcd`` on either backend
+run as in the JAX package.
 """
 from __future__ import annotations
 

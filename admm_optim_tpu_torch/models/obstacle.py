@@ -39,10 +39,13 @@ debug_nodal_positions, debug_nans).
 
 The port has only the host-stepped drivers, so the JAX package's
 ``num_elems > 20000`` switches between monolithic and stepped drivers are
-gone.  What is not ported raises NotImplementedError naming ROADMAP item
-9b: b2nd_order, vorder=1 and the matrix-free NS jvp/vjp (ns_assembled_jac
-"off", or a Jacobian above ns_jac_mem_cap under "auto"), and PCD on the
-global backend.
+gone.  The variants of obstacle.py:235-560 all run: ``b2nd_order`` (the
+J'' term in the x-update, the Hessian of drag + lambda^T R in X applied by
+double backward; it puts the x-update on the global backend, the NS side
+keeping the patch one on a brick mesh), ``vorder=1`` (P1/P1 with the
+``stab`` term, never an assembled Jacobian), the matrix-free NS jvp / vjp
+(``ns_assembled_jac="off"``, or a Jacobian above ``ns_jac_mem_cap`` under
+"auto"), and PCD on the global backend.
 """
 from __future__ import annotations
 
@@ -61,8 +64,6 @@ from ..core.ugx import SubsetInfo, UgxGrid, write_ugx
 from ..io.checkpoint import save_checkpoint
 from ..io.vtk import write_vtu
 from ..ops import navier_stokes as nsops
-from ..ops import ns_elljac as elljac
-from ..ops import ns_patchjac as nsjac
 from ..ops import patchstencil as st
 from ..ops import stencil_kernels as sk
 from ..ops.deformation import barycenter
@@ -160,22 +161,15 @@ class StepRecord:
 
 
 def _refuse(cfg: ProblemConfig):
-    """NotImplementedError for what the port does not have yet, naming
-    the ROADMAP item that brings it; ValueError for unknown settings."""
+    """ValueError for settings the JAX package refuses too."""
     if cfg.backend not in ("auto", "patch", "global"):
         raise ValueError(f"backend must be 'auto', 'patch' or 'global', got {cfg.backend!r}")
     if cfg.admm_failure_control not in ("auto", "sigma", "scaling"):
         raise ValueError(f"admm_failure_control must be 'auto', 'sigma' or 'scaling', got {cfg.admm_failure_control!r}")
     if cfg.ns_assembled_jac not in ("auto", "on", "off"):
         raise ValueError(f"ns_assembled_jac must be 'auto', 'on' or 'off', got {cfg.ns_assembled_jac!r}")
-    item9b = {
-        "b2nd_order=True (its forward-over-reverse J'' term)": cfg.b2nd_order,
-        "vorder=1": cfg.vorder != 2,
-        "ns_assembled_jac='off' (the matrix-free NS jvp/vjp)": cfg.ns_assembled_jac == "off",
-    }
-    for what, on in item9b.items():
-        if on:
-            raise NotImplementedError(f"{what}: comes with ROADMAP item 9b")
+    if cfg.vorder not in (1, 2):
+        raise ValueError(f"unsupported velocity order {cfg.vorder}")
 
 
 def _host(t) -> np.ndarray:
@@ -240,38 +234,32 @@ class ObstacleShapeOpt:
         if hier.dim != cfg.dim:
             raise ValueError(f"the mesh is {hier.dim}D, the configuration {cfg.dim}D")
         self.hier = hier
-        # backend selection (obstacle.py:245-251, :301-305, :364-388): the
-        # JAX package's use_patch_ns is use_patch here and its use_ell_jac
-        # is not use_patch (its matrix-free NS jvp waits for item 9b)
-        self.use_patch = cfg.backend in ("auto", "patch") and hier.levels[0].bricks is not None
+        # backend selection (obstacle.py:245-251, :301-305, :357-416): the
+        # NS side is the patch one on a brick mesh (use_patch_ns); the
+        # x-update too, unless b2nd_order, whose J'' term lives on global
+        # fields and puts the x-update on the global backend
+        bricks = cfg.backend in ("auto", "patch") and hier.levels[0].bricks is not None
+        self.use_patch_ns = bricks
+        self.use_patch = bricks and not cfg.b2nd_order
         if cfg.backend == "patch" and not self.use_patch:
-            raise ValueError("backend='patch' needs brick metadata (a geomgen mesh)")
-        backend = "patch" if self.use_patch else "global"
-        if backend == "global" and cfg.pressure_precond == "pcd":
-            raise NotImplementedError("pressure_precond='pcd' on the global backend: the block-ELL PCD forms "
-                                      "come with ROADMAP item 9b")
+            raise ValueError("backend='patch' needs brick metadata (a geomgen mesh) and b2nd_order=False")
         a = cfg.admm
         # the x-update: deformation operator with the loop's coefficients
         # (c_grad = tau) and the default V(3,3) Chebyshev cycle
         # (obstacle.py:318-340); assembled at X on every attempt
         self.xu = xupdate_solve.prepare(hier, self.device, dtype, a.c_eps, a.tau, a.c_mass, smoothing={},
-                                        backend=backend)
-        # the NS side shares the level-k patchset and its fine tables
-        # (obstacle.py:349-352, :398-405)
+                                        backend="patch" if self.use_patch else "global")
+        # the NS side shares the level-k patchset and its fine tables with
+        # a patch x-update (obstacle.py:349-352, :398-405); the Jacobian is
+        # assembled or matrix-free by ns_assembled_jac, ns_jac_mem_cap and
+        # vorder (ns_run.build)
         self.ns = ns_run.build(
             device=self.device, dtype=dtype, visc=cfg.visc, cfg=cfg.ns, stab=cfg.stab,
-            pressure_precond=cfg.pressure_precond, vel_inner=cfg.vel_inner, hier=hier, ps=self.xu.ps,
-            tab_c=self.xu.tabs[-1] if self.use_patch else None, do_nothing=cfg.do_nothing, diameter=cfg.diameter,
-            backend=backend,
+            pressure_precond=cfg.pressure_precond, vel_inner=cfg.vel_inner, hier=hier,
+            ps=self.xu.ps if self.use_patch else None, tab_c=self.xu.tabs[-1] if self.use_patch else None,
+            do_nothing=cfg.do_nothing, diameter=cfg.diameter, backend="patch" if self.use_patch_ns else "global",
+            vorder=cfg.vorder, ns_assembled_jac=cfg.ns_assembled_jac, ns_jac_mem_cap=cfg.ns_jac_mem_cap,
         )
-        itemsize = torch.finfo(dtype).bits // 8
-        need = (nsjac.jac_memory_bytes(self.xu.ps, self.ns.wiring, itemsize) if self.use_patch
-                else elljac.jac_memory_bytes(self.ns.ell, itemsize))
-        if cfg.ns_assembled_jac == "auto" and need > cfg.ns_jac_mem_cap:
-            raise NotImplementedError(
-                f"the assembled NS Jacobian needs {need:.3e} bytes, above ns_jac_mem_cap "
-                f"{cfg.ns_jac_mem_cap:.3e}: the matrix-free jvp comes with ROADMAP item 9b"
-            )
         fine = hier.fine
         self.X0 = self.ns.coords
         self.elems = torch.as_tensor(fine.elems.astype(np.int64), device=self.device)
@@ -312,7 +300,8 @@ class ObstacleShapeOpt:
         if not self.use_patch:
             return admm.admm_inner_global(
                 self.cfg.admm, self.xu.struct, mgdata, X, self.elems, self.ns.free_def, Jp, sigma, scaling,
-                self.ref_volume, self.ref_barycenter, vplan=self.xu.vplan, iter_cb=iter_cb, **hooks)
+                self.ref_volume, self.ref_barycenter, vplan=self.xu.vplan, iter_cb=iter_cb,
+                extra_hvp=self._extra_hvp(X) if self.cfg.b2nd_order else None, **hooks)
         ps = self.xu.ps
 
         def to_global(up):
@@ -328,6 +317,19 @@ class ObstacleShapeOpt:
             for k in ("Lu", "rhs_large", "du"):
                 debug_out[k] = to_global(debug_out[k])
         return dataclasses.replace(res, u=to_global(res.u))
+
+    def _extra_hvp(self, X):
+        """The J'' term of b2nd_order at X (obstacle.py:911-929): x (d, V)
+        -> high_order_scaling times the directional derivative along x of
+        the masked shape gradient at the step's frozen state and adjoint."""
+        ns, free = self.ns, self.ns.free_def
+        hvp = ns_solver.shape_hvp(ns.space, X, self._cur_s, self._cur_lam_adj, self.cfg.visc, self.cfg.stab,
+                                  self.obstacle_vmask)
+
+        def extra(x):
+            return self.cfg.high_order_scaling * (hvp(x.T.contiguous()).T * free)
+
+        return extra
 
     def _write_mesh_ugx(self, path: str, X) -> None:
         """Per-step mesh dump at the current (deformed) coordinates: the

@@ -18,19 +18,27 @@ space with its transposed values, the same Krylov loops).
     lad = solve_ladder(ctx)       # 0.16 -> 0.08 -> 0.04 -> 0.02, recycling
     out = run(ctx, target_visc=0.02)   # ladder, then drag, adjoint, J' at 0.02
 
+    build(2, ns_assembled_jac="off")          # matrix-free jvp / vjp
+    build(2, vorder=1, stab=0.05)             # P1/P1, Brezzi-Pitkaranta
+
 The mesh is the 3D geomgen channel (or the 2D one with dim=2) refined
 ``num_refs`` times; the velocity V-cycle runs on the once more refined
-P1-iso-P2 lattice.  refs=2 is 3d_admm.lua's default size: 383,400 NS
-unknowns, fine velocity lattice 9^3 x 224, pressure lattice 5^3 x 224.
-float32 runs take ``f32_presets``.
+P1-iso-P2 lattice (vorder=1: on the NS level's own).  refs=2 is
+3d_admm.lua's default size: 383,400 NS unknowns, fine velocity lattice
+9^3 x 224, pressure lattice 5^3 x 224.  float32 runs take ``f32_presets``.
 
 The pressure block of the preconditioner is ``pressure_precond``: "mass"
 (lumped mass / nu, the Stokes surrogate) or "pcd" (the Kay-Loghin-Wathen
 pressure convection-diffusion Schur approximation Mp^-1 Fp Ap^-1, whose
-scalar stencils run through the full-stencil kernel at C = 1).  ``run``
-without a target solves at ``ctx.visc`` from the cold start, the first rung
-of the JAX package's continuation when visc is 0.16; with a target it runs
-the whole cold-start ladder first.
+scalar stencils run through the full-stencil kernel at C = 1 on the patch
+backend, and through the ELL forms on the global one).  The Jacobian is
+assembled (``ns_assembled_jac`` "on", or "auto" while its bytes stay under
+``ns_jac_mem_cap``; never with vorder=1) or matrix-free: then the Newton
+matvec is the jvp of the residual, the adjoint's J^T one vjp per solve, and
+the preconditioner's B^T the residual's affine pressure term
+(ns_solver._bt_coupling).  ``run`` without a target solves at ``ctx.visc``
+from the cold start, the first rung of the JAX package's continuation when
+visc is 0.16; with a target it runs the whole cold-start ladder first.
 """
 from __future__ import annotations
 
@@ -111,6 +119,13 @@ class NSContext:
     backend: str = "patch"
     pre_space: P1VectorSpace | None = None
     ell: elljac.EllJacWiring | None = None
+    # PCD on the global backend: the scalar inlet-Dirichlet P1 pressure
+    # space (pcd_struct is then its mg.MGStructure)
+    p_space: P1VectorSpace | None = None
+    # False: no assembled Jacobian (vorder=1, ns_assembled_jac "off", or
+    # above ns_jac_mem_cap under "auto"): jvp / vjp and _bt_coupling
+    assembled: bool = True
+    jac_bytes: int = 0  # what the assembled Jacobian needs (0 with vorder=1)
 
     @property
     def n_state(self) -> int:
@@ -158,9 +173,12 @@ class NSContext:
         """Per-iterate data of the preconditioner and the Newton matvec,
         assembled at the viscosity nu of the current rung (obstacle.py
         _pre_full): (pre_data, pdiag, X, W) with the mass block,
-        (pre_data, ap_data, W_fp, mp, X, W) with PCD; W is the assembled
-        Jacobian.  seconds, when given, receives the synchronized assembly
-        time of each part under "velocity", "pcd" and "jacobian"."""
+        (pre_data, ap_data, W_fp, mp, X, W) with PCD on the patch backend,
+        (pre_data, ap_data, fp_vals, mp, fp_vals_t, X, W) on the global
+        one; W is the assembled Jacobian, or without one the B^T closure
+        of ns_solver._bt_coupling.  seconds, when given, receives the
+        synchronized assembly time of each part under "velocity", "pcd"
+        and "jacobian" (or "coupling")."""
         def timed(name, fn):
             if seconds is None:
                 return fn()
@@ -171,44 +189,63 @@ class NSContext:
             seconds[name] = time.perf_counter() - t0
             return out
 
+        p2_iso = self.space.vorder == 2
         if self.backend == "global":
             # the transposed values too: the adjoint's transposed cycle
             # stays a gather (obstacle.py _vel_pre, with_transpose=True)
             pre_data, pdiag = timed("velocity", lambda: ns_solver.ns_gmg_precond_data(
-                self.space, self.pre_space, self.pre_struct, X, nu, s, with_transpose=True))
+                self.space, self.pre_space, self.pre_struct, X, nu, s, with_transpose=True, p2_iso=p2_iso))
         else:
             pre_data, pdiag = timed("velocity", lambda: ns_solver.ns_gmg_precond_data_patch(
                 self.space, self.pre_ps, self.pre_struct, self.pre_tabs, self.base_dense_fn,
-                self.parents_fine, X, nu, s=s,
+                self.parents_fine, X, nu, s=s, p2_iso=p2_iso,
             ))
         mid = (pdiag,)
-        if self.pressure_precond == "pcd":
+        if self.pressure_precond == "pcd" and self.backend == "global":
+            mid = timed("pcd", lambda: ns_solver.ns_pcd_precond_data(
+                self.space, self.p_space, self.pcd_struct, X, nu, s=s, with_transpose=True))
+        elif self.pressure_precond == "pcd":
             mid = timed("pcd", lambda: ns_solver.ns_pcd_precond_data_patch(
                 self.space, self.ps, self.pcd_struct, self.pcd_tabs, self.ap_base_dense_fn, X, nu, s=s,
             ))
-        W = timed("jacobian", lambda: self.jac(X, s, nu))
+        if self.assembled:
+            W = timed("jacobian", lambda: self.jac(X, s, nu))
+        else:
+            # the coupling is viscosity-free: the JAX package builds it at cfg.visc
+            W = timed("coupling", lambda: ns_solver._bt_coupling(self.space, X, self.visc, self.stab, X)[0])
         return (pre_data,) + tuple(mid) + (X, W)
 
     def M_fn(self, r, pre_data, *rest):
-        """The block-triangular preconditioner with the assembled B^T
-        (the viscosity-free coupling, exact on every rung): ns_gmg_M with
-        the mass block, ns_pcd_M with PCD."""
+        """The block-triangular preconditioner with the assembled B^T (the
+        viscosity-free coupling, exact on every rung), or the residual's
+        without an assembled Jacobian: ns_gmg_M with the mass block,
+        ns_pcd_M with PCD."""
         W = rest[-1]
-        bt = _bt(self)
+        if self.assembled:
+            bt = _bt(self)
+            bt_fn = lambda zp: bt(zp, W)  # noqa: E731
+        else:
+            bt_fn = W
         if self.backend == "global":
             vel_M = ns_solver.ell_velocity_M(self.pre_struct, pre_data)
         else:
             vel_M = ns_solver.patch_velocity_M(self.pre_ps, self.pre_struct, pre_data, iters=self.vel_inner)
-        if self.pressure_precond == "pcd":
+        if self.pressure_precond == "pcd" and self.backend == "global":
+            schur = ns_solver.pcd_schur_ell_M(self.p_space, self.pcd_struct, *rest[:4])
+        elif self.pressure_precond == "pcd":
             ap_data, W_fp, mp = rest[:3]
             schur = ns_solver.pcd_schur_patch_M(
                 self.space, self.ps, self.pcd_struct, self.pcd_tabs, ap_data, W_fp, mp,
             )
-            return ns_solver.ns_pcd_M(self.space, schur, vel_M, bt_fn=lambda zp: bt(zp, W))(r)
-        return ns_solver.ns_gmg_M(self.space, rest[0], vel_M, bt_fn=lambda zp: bt(zp, W))(r)
+        else:
+            return ns_solver.ns_gmg_M(self.space, rest[0], vel_M, bt_fn=bt_fn)(r)
+        return ns_solver.ns_pcd_M(self.space, schur, vel_M, bt_fn=bt_fn)(r)
 
 
 def _matvecs(ctx):
+    """(jv, jtv) of the assembled Jacobian; newton and adjoint take the
+    matrix-free forms (jvp, ns_solver.residual_vjp) where ctx.assembled is
+    False."""
     if ctx.backend == "global":
         return elljac.make_matvec_fns(ctx.space, ctx.ell)
     return nsjac.make_matvec_fns(ctx.space, ctx.ps, ctx.pre_ps, ctx.wiring, ctx.pre_tabs[-1], ctx.tab_c)
@@ -240,7 +277,8 @@ def build(num_refs: int | None = None, device=None, dtype=torch.float32, visc: f
           cfg: NewtonConfig | None = None, stab: float = 0.0, pressure_precond: str = "mass",
           vel_inner: int = 1, *, hier: Hierarchy | None = None, ps: PatchSet | None = None,
           tab_c: st.LevelTables | None = None, do_nothing: bool = True, diameter: float = 6.0,
-          backend: str = "patch") -> NSContext:
+          backend: str = "patch", vorder: int = 2, ns_assembled_jac: str = "auto",
+          ns_jac_mem_cap: float = 6e9) -> NSContext:
     """Host hierarchy, NS space, the level-k and once-refined patchsets
     with their device tables, and the level-0 wiring of the dense base
     solves.  device defaults to the card (an error without one); cfg
@@ -253,14 +291,18 @@ def build(num_refs: int | None = None, device=None, dtype=torch.float32, visc: f
     share the x-update's (models/obstacle.py:349-352, :398-405).
     do_nothing=False adds the outlet to the velocity's Dirichlet set.
     backend "global" takes the block-ELL pieces on any mesh (ps, tab_c and
-    vel_inner are not used; PCD on it raises, ROADMAP item 9b)."""
+    vel_inner are not used).  vorder 1 is P1/P1 velocity (with stab, the
+    Brezzi-Pitkaranta term), whose velocity cycle runs on the NS levels
+    themselves and which never assembles its Jacobian; ns_assembled_jac
+    "on" / "off" / "auto" (assembled while the Jacobian's bytes stay under
+    ns_jac_mem_cap) picks the assembled or the matrix-free operators
+    (obstacle.py:357-416)."""
     if pressure_precond not in ("mass", "pcd"):
         raise ValueError(f"pressure_precond must be 'mass' or 'pcd', got {pressure_precond!r}")
     if backend not in ("patch", "global"):
         raise ValueError(f"backend must be 'patch' or 'global', got {backend!r}")
-    if backend == "global" and pressure_precond == "pcd":
-        raise NotImplementedError("pressure_precond='pcd' on the global backend: the block-ELL PCD forms come "
-                                  "with ROADMAP item 9b")
+    if ns_assembled_jac not in ("auto", "on", "off"):
+        raise ValueError(f"ns_assembled_jac must be 'auto', 'on' or 'off', got {ns_assembled_jac!r}")
     device = resolve_device(device)
     t0 = time.perf_counter()
     if hier is None:
@@ -268,10 +310,14 @@ def build(num_refs: int | None = None, device=None, dtype=torch.float32, visc: f
     dim = hier.dim
     ns_dir = NS_DIR + (() if do_nothing else ("outlet",))
     lvl = hier.fine
-    space = nsops.NSSpace.build(lvl, vorder=2, do_nothing=do_nothing, diameter=diameter)
-    fine_pre = refine(lvl)
+    space = nsops.NSSpace.build(lvl, vorder=vorder, do_nothing=do_nothing, diameter=diameter)
+    # the velocity cycle's hierarchy: P1-iso-P2 on the once-refined level,
+    # or the NS levels themselves for P1 velocity (obstacle.py:235-238)
+    fine_pre = refine(lvl) if vorder == 2 else None
+    pre_hier = Hierarchy(hier.levels + [fine_pre]) if vorder == 2 else hier
     if cfg is None:
         cfg = f32_presets(NewtonConfig()) if dtype == torch.float32 else NewtonConfig()
+    itemsize = torch.finfo(dtype).bits // 8
     common = dict(
         hier=hier, space=space,
         coords=torch.as_tensor(lvl.coords, dtype=dtype, device=device),
@@ -280,18 +326,33 @@ def build(num_refs: int | None = None, device=None, dtype=torch.float32, visc: f
         visc=float(visc), stab=float(stab), cfg=cfg, host_seconds=0.0, pressure_precond=pressure_precond,
         vel_inner=int(vel_inner),
     )
+
+    def assembled(need):
+        """The JAX package's use_ns_jac / use_ell_jac decision."""
+        if vorder != 2 or ns_assembled_jac == "off":
+            return False
+        return ns_assembled_jac == "on" or need <= ns_jac_mem_cap
+
     if backend == "global":
-        pre_space = P1VectorSpace.build(Hierarchy(hier.levels + [fine_pre]), dirichlet=ns_dir)
+        pre_space = P1VectorSpace.build(pre_hier, dirichlet=ns_dir)
         # jacobi smoothing: the conv-diff operator is nonsymmetric
         pre_struct = dataclasses.replace(pre_space.mg_structure(pre_smooth=2, post_smooth=2), smoother="jacobi")
-        ell = elljac.build_wiring(space)
-        ell.tables(device)  # the segment sums, on the host once
+        ell = elljac.build_wiring(space) if vorder == 2 else None
+        need = elljac.jac_memory_bytes(ell, itemsize) if ell is not None else 0
+        on = assembled(need)
+        if on:
+            ell.tables(device)  # the segment sums, on the host once
+        p_space = pcd_struct = None
+        if pressure_precond == "pcd":
+            p_space, pcd_struct = ns_solver.ns_pcd_spaces(hier, do_nothing)
         ctx = NSContext(ps=None, pre_ps=None, pre_struct=pre_struct, pre_tabs=None, tab_c=None, wiring=None,
-                        base0=None, parents_fine=None, backend="global", pre_space=pre_space, ell=ell, **common)
+                        base0=None, parents_fine=None, backend="global", pre_space=pre_space,
+                        ell=ell if on else None, p_space=p_space, pcd_struct=pcd_struct, assembled=on,
+                        jac_bytes=need, **common)
         _sync(device)
         ctx.host_seconds = time.perf_counter() - t0
         return ctx
-    pre_ps = build_patchset(Hierarchy(hier.levels + [fine_pre]), dirichlet=ns_dir)
+    pre_ps = build_patchset(pre_hier, dirichlet=ns_dir)
     pre_struct = patch_mg.PatchMGStructure(
         pre_ps, pre_smooth=2, post_smooth=2, smoother="jacobi", smoother_w="f32"
     )
@@ -299,6 +360,8 @@ def build(num_refs: int | None = None, device=None, dtype=torch.float32, visc: f
     if ps is None:
         ps = build_patchset(hier)
         tab_c = st.make_tables(ps.fine, dtype, device)
+    wiring = nsjac.build_wiring(ps) if vorder == 2 else None
+    need = nsjac.jac_memory_bytes(ps, wiring, itemsize) if wiring is not None else 0
     lvl0 = hier.levels[0]
     base0 = dict(
         elems=torch.as_tensor(lvl0.elems.astype(np.int64), device=device),
@@ -317,9 +380,9 @@ def build(num_refs: int | None = None, device=None, dtype=torch.float32, visc: f
         )
     ctx = NSContext(
         ps=ps, pre_ps=pre_ps, pre_struct=pre_struct, pre_tabs=pre_tabs,
-        tab_c=tab_c, wiring=nsjac.build_wiring(ps), base0=base0,
-        parents_fine=torch.as_tensor(fine_pre.parents.astype(np.int64), device=device),
-        pcd_tabs=pcd_tabs, pcd_struct=pcd_struct, **common,
+        tab_c=tab_c, wiring=wiring, base0=base0,
+        parents_fine=None if fine_pre is None else torch.as_tensor(fine_pre.parents.astype(np.int64), device=device),
+        pcd_tabs=pcd_tabs, pcd_struct=pcd_struct, assembled=assembled(need), jac_bytes=need, **common,
     )
     _sync(device)
     ctx.host_seconds = time.perf_counter() - t0
@@ -350,8 +413,8 @@ def newton(ctx: NSContext, s0=None, visc: float | None = None, recycle: dict | N
         return ctx.pre_full(X, s, nu, seconds=assembly[-1])
 
     res = ns_solver.newton_solve_stepped(
-        ctx.space, X, s0, nu, ctx.stab, ctx.cfg, M_fn=ctx.M_fn, jv_fn=ctx.jv, pre_fn=pre_fn,
-        recycle=recycle,
+        ctx.space, X, s0, nu, ctx.stab, ctx.cfg, M_fn=ctx.M_fn, jv_fn=ctx.jv if ctx.assembled else None,
+        pre_fn=pre_fn, recycle=recycle,
     )
     return res, assembly
 
@@ -419,13 +482,18 @@ def adjoint(ctx: NSContext, s, X=None, lam0=None, recycle: dict | None = None):
     """The adjoint on the mesh X (default ctx.coords) at the state s and at
     ctx.visc with the exact transpose of the forward preconditioner built
     at s (obstacle.py _adjoint_stepped); lam0 and recycle are its warm
-    start (ns_solver.adjoint_solve_stepped)."""
+    start (ns_solver.adjoint_solve_stepped).  Without an assembled
+    Jacobian J^T is ns_solver.residual_vjp at s."""
     X = ctx.coords if X is None else X
     m_args = ctx.pre_full(X, s, ctx.visc)
     W = m_args[-1]
     MT = ns_solver.transpose_M(lambda r: ctx.M_fn(r, *m_args), ctx.n_state, X.dtype, X.device)
+    if ctx.assembled:
+        Jt = lambda v: ctx.jtv(v, W)  # noqa: E731
+    else:
+        Jt = ns_solver.residual_vjp(ctx.space, X, s, ctx.visc, ctx.stab)
     return ns_solver.adjoint_solve_stepped(
-        ctx.space, X, s, ctx.visc, lambda v: ctx.jtv(v, W), MT, ctx.cfg, lam0=lam0, recycle=recycle,
+        ctx.space, X, s, ctx.visc, Jt, MT, ctx.cfg, lam0=lam0, recycle=recycle, stab=ctx.stab,
     )
 
 

@@ -1,6 +1,7 @@
 """Steady incompressible Navier-Stokes residual and drag (port of
 admm_optim_tpu/ops/navier_stokes.py: NSSpace, vel_dof_coords,
-inlet_values, ns_elem_residual, ns_residual, drag, pressure_mass_lumped).
+inlet_values, ns_elem_residual, ns_residual, drag, diag_preconditioner,
+pressure_mass_lumped).
 
 Taylor-Hood P2/P1 Galerkin weak form
     nu*(grad v, grad w) + ((v.grad)v, w) - (p, div w) + (div v, psi) = 0
@@ -10,6 +11,14 @@ differentiate these functions with torch.autograd.
 
 State is a packed vector s = [v (dim, n_vel) component-major, p (V)].
 Element axes are LAST on every batched tensor, as in ops.geometry.
+
+Every element -> dof sum (the residual's two, the lumped pressure mass, the
+diagonal preconditioner's) goes through a sparsity.SegmentSum over all
+elements (NSSpace.plans): on the GPU a fixed-order gather-sum, so that two
+identical calls agree bit for bit, where index_add would add in atomic
+order; on the CPU index_add_ in index order.  Both forms are plain
+indexing and sums, so forward AD (the matrix-free Newton jvp) and double
+backward (the J'' term of b2nd_order) pass through them.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from ..core.mesh import MeshLevel
 from ..core.quadrature import simplex_rule
 from ..core.spaces import p1_tab, p2_elem_dofs, p2_tab
 from .geometry import corner_geometry, elem_geometry, p1_phys_grads
+from .sparsity import segment_plan
 
 
 @dataclasses.dataclass
@@ -122,6 +132,18 @@ class NSSpace:
             )
         return self._cache[key]
 
+    def plans(self):
+        """(velocity, vertex) SegmentSums of element-local contributions,
+        (nbv, E) into the n_vel velocity dofs and (d+1, E) into the
+        vertices, flattened dof-major as ``vel_dofs.T`` and ``elems.T``
+        (built once; each caches its tables per device)."""
+        if "plans" not in self._cache:
+            self._cache["plans"] = (
+                segment_plan(np.asarray(self.vel_dofs).T.reshape(-1), self.n_vel),
+                segment_plan(np.asarray(self.elems).T.reshape(-1), self.n_vertices),
+            )
+        return self._cache["plans"]
+
     # -- packing ---------------------------------------------------------
     def pack(self, v, p):
         """v (dim, n_vel) component-major, p (V,) -> flat state."""
@@ -156,7 +178,13 @@ def inlet_values(space: NSSpace, coords):
     return torch.cat([g0[None], g0.new_zeros((space.dim - 1, space.n_vel))], dim=0)
 
 
-NS_ELEM_CHUNK = 16384  # element block size: bounds quadrature temporaries
+# element block size: bounds the quadrature temporaries.  On the H100 at
+# 3D refs=2 (86,016 elements, float32) the residual took 30.5 ms in 6
+# blocks of the JAX package's TPU value 16384 and 5.6 ms in one, its jvp
+# 54.0 and 14.2 ms, the vjp's apply 41.0 and 39.7 ms, at the same peak
+# memory of a matrix-free adjoint (2.45 GiB above what it started from):
+# host-bound, so one block up to 2^17 elements (PERF.md, PR 11)
+NS_ELEM_CHUNK = 131072
 
 
 def _elem_chunks(E: int):
@@ -205,22 +233,24 @@ def ns_elem_residual(space: NSSpace, x, ve, pe, visc, stab: float = 0.0):
 
 def ns_residual(space: NSSpace, coords, s, visc, stab: float = 0.0):
     """Packed Galerkin residual with Dirichlet rows replaced by (v - g).
-    Elements go in NS_ELEM_CHUNK blocks (the JAX package's lax.map), each
-    scattered with index_add."""
+    Elements go in NS_ELEM_CHUNK blocks (the JAX package's lax.map), whose
+    contributions are summed into the dofs by NSSpace.plans."""
     d = space.dim
     t = space.tables(coords.dtype, coords.device)
+    vplan, pplan = space.plans()
     v, p = space.unpack(s)
     E = t.elems.shape[0]
     _, block = _elem_chunks(E)
-    r_mom = v.new_zeros((d, space.n_vel))
-    r_div = p.new_zeros((space.n_vertices,))
+    rms, rds = [], []
     for e0 in range(0, E, block):
         el = t.elems[e0 : e0 + block].T  # (nl, Eb)
         vd = t.vel_dofs[e0 : e0 + block].T  # (nbv, Eb)
         x = coords.T[:, el]  # (d, nl, Eb)
         rm, rd = ns_elem_residual(space, x, v[:, vd], p[el], visc, stab)
-        r_mom = r_mom.index_add(1, vd.reshape(-1), rm.reshape(d, -1))
-        r_div = r_div.index_add(0, el.reshape(-1), rd.reshape(-1))
+        rms.append(rm)
+        rds.append(rd)
+    r_mom = vplan(torch.cat(rms, dim=-1).reshape(d, -1))
+    r_div = pplan(torch.cat(rds, dim=-1).reshape(-1))
     g = inlet_values(space, coords)
     r_mom = torch.where(t.vel_fixed[None, :], v - g, r_mom)
     return space.pack(r_mom, r_div)
@@ -239,12 +269,35 @@ def drag(space: NSSpace, coords, s, visc):
     return 0.5 * visc * torch.einsum("qe,cdqe,cdqe->", wdet, gradv, gradv)
 
 
+def diag_preconditioner(space: NSSpace, coords, visc):
+    """Block-diagonal preconditioner: velocity ~ diag(nu*K + M), pressure ~
+    lumped mass / nu (the Stokes Schur surrogate); the stepped drivers'
+    default when no preconditioner is given."""
+    d = space.dim
+    t = space.tables(coords.dtype, coords.device)
+    vplan, _ = space.plans()
+    _, detJ, Jinv, _ = elem_geometry(coords, t.elems)
+    gv = torch.einsum("qbr,rde->qbde", t.gref_v, Jinv)
+    wdet = t.qw[:, None] * detJ.abs()[None, :] / _dfact(d)
+    kdiag_e = torch.einsum("qe,qbde,qbde->be", wdet, gv, gv)
+    mdiag_e = torch.einsum("qe,qb,qb->be", wdet, t.val_v, t.val_v)
+    kdiag = vplan((visc * kdiag_e + mdiag_e).reshape(-1))
+    kdiag = torch.where(t.vel_fixed, torch.ones_like(kdiag), kdiag)
+    pdiag = pressure_mass_lumped(space, coords, visc)
+
+    def M(r):
+        rv, rp = space.unpack(r)
+        return space.pack(rv / kdiag[None, :], rp / pdiag)
+
+    return M
+
+
 def pressure_mass_lumped(space: NSSpace, coords, visc):
     """(V,) lumped pressure mass / nu, the Stokes Schur-complement
     surrogate."""
     d = space.dim
     t = space.tables(coords.dtype, coords.device)
+    _, pplan = space.plans()
     _, _, _, vol = elem_geometry(coords, t.elems)
     per = (vol[None, :] / (d + 1.0)).expand(t.elems.T.shape)
-    pm = vol.new_zeros((space.n_vertices,)).index_add(0, t.elems.T.reshape(-1), per.reshape(-1))
-    return pm / visc
+    return pplan(per.reshape(-1)) / visc

@@ -12,6 +12,9 @@ Reference parity map (2d_admm.lua):
      - S_ij = B_i . t_j ;  DLambda = S^-1 (g - B^T st)
      - Du = -st - sum_j DLambda_j t_j
      - convergence on |DLambda| / abs / rel defect norms (2d:1163-1169)
+ * -b2ndOrder           -> extra_hvp (2d:86, 389-419): the J'' term joins
+     the x-update operator and its defect L_u; the matvec is then
+     A x + Lambda^T g'' x + J'' x lane by lane, not the assembled hess_fn
  * dual ascent          -> ops_.dual_update (2d:1181-1185)
  * convergence + "fake convergence" scaling*=2 restart (2d:1226-1250)
 
@@ -175,13 +178,32 @@ class NewtonResult(NamedTuple):
     krylov_seconds: float
 
 
+def _hess_apply(ops_, u, Lambda, ref_volume, ref_barycenter, extra_hvp):
+    """x -> (A + Lambda^T g'' + J'') x with the J'' term extra_hvp(x*free)
+    * free, for one field or lane by lane for (1+m, ...) (extra_hvp takes
+    one field, as the JAX package's jax.vmap hands it one lane)."""
+    hvp = ops_.hvp_fn(u, Lambda, ref_volume, ref_barycenter)
+    free = ops_.free
+
+    def one(x):
+        return ops_.A(x) + hvp(x) + extra_hvp(x * free) * free
+
+    def apply(x):
+        return one(x) if x.dim() == free.dim() else torch.stack([one(xi) for xi in x])
+
+    return apply
+
+
 def newton_xupdate_ops(
     cfg: ADMMConfig, ops_, Jp_base, scaling, lam, q_proj, ref_volume, ref_barycenter,
-    u0, Lambda0, sols0=None,
+    u0, Lambda0, sols0=None, extra_hvp=None,
 ) -> NewtonResult:
     """Constrained Newton (KKT via the dense m x m Schur complement) on a
     representation adapter (optim.spaces.GlobalOps / PatchOps).  sols0: optional
-    (1+m, ...) warm start of the st / t_i solves."""
+    (1+m, ...) warm start of the st / t_i solves.  extra_hvp(x) -> J'' x,
+    one field in and out (b2nd_order): it joins the stationarity residual
+    L_u and the Krylov matvec, which then is _hess_apply instead of the
+    assembled ops_.hess_fn."""
     free = ops_.free
     m = Lambda0.shape[0]
     r_lin = scaling * Jp_base * free + ops_.tensor_rhs(lam - cfg.tau * q_proj)
@@ -200,12 +222,19 @@ def newton_xupdate_ops(
         g = ops_.constraints(u, ref_volume, ref_barycenter)
         B = ops_.constraint_grads(u, ref_volume, ref_barycenter)
         Lu = (ops_.A(u) + r_lin + torch.tensordot(Lambda, B, dims=1)) * free
+        if extra_hvp is not None:
+            # the J'' term is part of the x-update operator (2d:389), so the
+            # defect carries it too, or Newton converges to the first-order point
+            Lu = Lu + extra_hvp(u * free) * free
         rhs = torch.cat([Lu[None], B])  # (1+m, ...)
         # H x = b for the 1+m lanes at once, warm-started from the previous
         # Newton iteration's solutions; the constraint Hessian is assembled
         # into the stencil once per iterate
         t0 = _clock(u)
-        hess = ops_.hess_fn(u, Lambda, ref_volume, ref_barycenter)
+        if extra_hvp is None:
+            hess = ops_.hess_fn(u, Lambda, ref_volume, ref_barycenter)
+        else:
+            hess = _hess_apply(ops_, u, Lambda, ref_volume, ref_barycenter, extra_hvp)
         t1 = _clock(u)
         res = solver(
             hess, rhs, x0=sols, M=ops_.M, max_iters=cfg.lin_max_iters,
@@ -261,11 +290,12 @@ def newton_xupdate_ops(
 
 
 def admm_iteration(cfg: ADMMConfig, ops_, Jp_base, sigma: float, ref_volume, ref_barycenter,
-                   st: ADMMState, xsols=None):
+                   st: ADMMState, xsols=None, extra_hvp=None):
     """One ADMM iteration from st: z-update + projection, the Newton
     x-update warm-started from xsols (the previous iteration's st / t_i
-    solutions; None = zeros), dual ascent and the convergence logic
-    (2d:1226-1250).  Returns (new state, new xsols, NewtonResult, stats row)."""
+    solutions; None = zeros) with extra_hvp (newton_xupdate_ops), dual
+    ascent and the convergence logic (2d:1226-1250).  Returns (new state,
+    new xsols, NewtonResult, stats row)."""
     q_proj = ops_.z_update(st.u, st.lam, cfg.tau, sigma, cfg.norm_name)
     if cfg.relax_alpha != 1.0:
         # over-relaxation: q_hat enters the x-update and dual ascent
@@ -278,7 +308,7 @@ def admm_iteration(cfg: ADMMConfig, ops_, Jp_base, sigma: float, ref_volume, ref
     # (2d:1068-1142); they are zeroed only by a fresh admm_inner call
     nr = newton_xupdate_ops(
         cfg, ops_, Jp_base, st.scaling, st.lam, q_hat, ref_volume, ref_barycenter,
-        st.u, st.Lambda, sols0=xsols,
+        st.u, st.Lambda, sols0=xsols, extra_hvp=extra_hvp,
     )
     lam, lam_inc = ops_.dual_update(nr.u, st.lam, q_hat, cfg.tau)
     u_diff = float(ops_.norm_p1(nr.u - st.u_old))
@@ -326,8 +356,12 @@ def admm_inner(
     newton_hist_out: list | None = None,
     full_stats_out: list | None = None,
     debug_out: dict | None = None,
+    extra_hvp=None,
 ) -> ADMMState:
     """The ADMM loop of one optimization step; returns the final state.
+
+    extra_hvp(x) -> J'' x (b2nd_order): newton_xupdate_ops's hook, one
+    field (C, V) in and out.
 
     iter_cb(k, u): called after every ADMM iteration with the running
     iteration count k (monotone across fake-convergence restarts) and the
@@ -343,7 +377,7 @@ def admm_inner(
     rows, nr = [], None
     while not st.converged and not st.failed and st.admm_it < cfg.admm_steps:
         st, xsols, nr, row = admm_iteration(
-            cfg, ops_, Jp_base, sigma, ref_volume, ref_barycenter, st, xsols
+            cfg, ops_, Jp_base, sigma, ref_volume, ref_barycenter, st, xsols, extra_hvp
         )
         if iter_cb is not None:
             iter_cb(len(rows), st.u)
@@ -365,7 +399,7 @@ def admm_inner_global(cfg: ADMMConfig, struct, mgdata, coords, elems, free, Jp_b
     package's admm_inner(cfg, struct, mgdata, coords, elems, free, ...)).
     vplan: the fixed-order vertex sum of elems (ops.deformation
     .vertex_plan); hooks: admm_inner's iter_cb, newton_hist_out,
-    full_stats_out and debug_out."""
+    full_stats_out, debug_out and extra_hvp."""
     from .spaces import GlobalOps
 
     ops_ = GlobalOps(struct, mgdata, coords, elems, free, vplan)

@@ -79,8 +79,17 @@ class GlobalOps:
                                   x * self.free, plan=self.vplan) * self.free
 
     def hvp_fn(self, u, Lmbda, ref_volume, ref_barycenter):
-        """x -> (sum_k Lambda_k g_k'') x at the fixed Newton iterate."""
-        return lambda x: self.constraint_hvp(u, Lmbda, ref_volume, ref_barycenter, x)
+        """x -> (sum_k Lambda_k g_k'') x at the fixed Newton iterate, one
+        field (C, V): constraint_hvp with its element matrices built once
+        per iterate (the matvec of the x-update with b2nd_order's term)."""
+        H = dfm.hvp_elem_mats(self.coords, self.elems, u, Lmbda)
+        V = self.coords.shape[0]
+
+        def apply(x):
+            xe = (x * self.free)[:, self.elems.T]
+            return dfm.vertex_sum(torch.einsum("cfabe,fbe->cae", H, xe), self.elems, V, self.vplan) * self.free
+
+        return apply
 
     def hess_fn(self, u, Lmbda, ref_volume, ref_barycenter):
         """x -> (A + sum_k Lambda_k g_k'') x with the constraint Hessian

@@ -1,29 +1,35 @@
 """Newton solver for steady NS, the discrete adjoint and the shape gradient
-(port of the patch-backend parts of admm_optim_tpu/solvers/ns_solver.py,
-with the host-stepped adjoint driver of models/obstacle.py:713-839).
+(port of admm_optim_tpu/solvers/ns_solver.py, with the host-stepped
+adjoint driver of models/obstacle.py:713-839).
 
 Newton with the acceptBest backtracking line search; each linear solve is
-flexible GMRES on the assembled lattice Jacobian (ops.ns_patchjac), stepped
-from the host in chunks of ``lin_exec_chunk`` Arnoldi steps with GCRO-DR
-recycling.  The preconditioner is block triangular: for the pressure,
-lumped pressure mass / nu (ns_gmg_M) or the PCD Schur approximation
-Mp^-1 Fp Ap^-1 (ns_pcd_M: one scalar Jacobi V-cycle on the pressure
-Laplacian, then the pressure convection-diffusion stencil, K5 at C = 1 on
-the GPU); for the velocity, one Jacobi-smoothed conv-diff V-cycle on the
-once-refined P1-iso-P2 lattice (K5 at C = 3).  The adjoint solves
-J^T lambda = -dJ_drag/ds with the exact transpose of that preconditioner,
-the autograd vjp through the V-cycles (K5^T).  The shape gradient is the
-autograd gradient of J + lambda^T R in the coordinates.
+flexible GMRES, stepped from the host in chunks of ``lin_exec_chunk``
+Arnoldi steps with GCRO-DR recycling, on the assembled Jacobian (the
+lattice one of ops.ns_patchjac or the per-element one of ops.ns_elljac) or
+matrix-free: the forward-mode jvp of ns_residual in the state for Newton,
+one reverse-mode vjp per adjoint solve whose closure every iteration
+re-applies (residual_vjp).  The preconditioner is block triangular: for
+the pressure, lumped pressure mass / nu (ns_gmg_M) or the PCD Schur
+approximation Mp^-1 Fp Ap^-1 (ns_pcd_M: one scalar Jacobi V-cycle on the
+pressure Laplacian, then the pressure convection-diffusion operator; on
+the patch backend K5 at C = 1, on the global backend the ELL forms of
+ns_pcd_precond_data); for the velocity, one Jacobi-smoothed conv-diff
+V-cycle on the once-refined P1-iso-P2 lattice or space (K5 at C = 3 on the
+patch backend), or on the NS level itself for P1/P1 velocity (vorder=1).
+The coupling B^T is the assembled one, or without an assembled Jacobian
+the affine pressure dependence of the residual (_bt_coupling).  The
+adjoint solves J^T lambda = -dJ_drag/ds with the exact transpose of that
+preconditioner, the autograd vjp through the V-cycles (K5^T).  The shape
+gradient is the autograd gradient of J + lambda^T R in the coordinates;
+shape_hvp differentiates it once more for the J'' term of b2nd_order.
 
 On the global (block-ELL) backend the velocity block is one Jacobi V(2,2)
-cycle of solvers.mg on the P1-iso-P2 space (ns_gmg_precond_data,
-ell_velocity_M) with the exact transposed values per level, so that its
-autograd transpose replays gathers only.
+cycle of solvers.mg (ns_gmg_precond_data, ell_velocity_M) with the exact
+transposed values per level, so that its autograd transpose replays
+gathers only; the PCD Ap hierarchy and Fp carry theirs too.
 
 Not ported: the monolithic jitted newton_solve / adjoint_solve (one
-host-stepped solver each is kept) and the block-ELL PCD forms
-(ns_pcd_spaces, ns_pcd_precond_data, the ELL branch of ns_pcd_M; ROADMAP
-item 9b).
+host-stepped solver each is kept).
 """
 from __future__ import annotations
 
@@ -100,28 +106,36 @@ class NewtonResult(NamedTuple):
 
 
 def newton_solve_stepped(
-    space, coords, s0, visc, stab, cfg: NewtonConfig, M_fn, jv_fn, pre_fn,
+    space, coords, s0, visc, stab, cfg: NewtonConfig, M_fn=None, jv_fn=None, pre_fn=None,
     recycle: dict | None = None,
 ) -> NewtonResult:
     """Host-stepped Newton with the acceptBest line search.
 
-    pre_fn(s) -> m_args builds the per-iterate data, whose last element is
-    the assembled Jacobian W; M_fn(r, *m_args) is the preconditioner and
-    jv_fn(x, W) the Jacobian apply (the JAX package's jv_from_m wiring).
-    Each linear solve runs FGMRES cycles of _chunked_rl steps, reading the
-    residual estimate after every lin_exec_chunk steps, with GCRO-DR
-    recycling carried across Newton iterates.  recycle is the caller's
-    dict that carries the recycle space further, across continuation rungs
-    and optimization steps: its "U" seeds the first iterate (re-imaged
-    against that iterate's Jacobian at the cost of lin_recycle_k applies)
-    and is replaced by the space the last iterate left."""
+    pre_fn(s) -> m_args builds the per-iterate data; M_fn(r, *m_args) is
+    the preconditioner (default: nsops.diag_preconditioner at coords) and
+    jv_fn(x, W) the Jacobian apply with W the last element of m_args (the
+    JAX package's jv_from_m wiring); without jv_fn the apply is matrix-free,
+    the jvp of ns_residual at the iterate.  Each linear solve runs FGMRES
+    cycles of _chunked_rl steps, reading the residual estimate after every
+    lin_exec_chunk steps, with GCRO-DR recycling carried across Newton
+    iterates.  recycle is the caller's dict that carries the recycle space
+    further, across continuation rungs and optimization steps: its "U"
+    seeds the first iterate (re-imaged against that iterate's Jacobian at
+    the cost of lin_recycle_k applies) and is replaced by the space the
+    last iterate left."""
 
     def R(ss):
         return nsops.ns_residual(space, coords, ss, visc, stab)
 
-    def wiring(m_args):
-        W = m_args[-1]
-        return (lambda x: jv_fn(x, W)), (lambda x: M_fn(x, *m_args))
+    M_diag = nsops.diag_preconditioner(space, coords, visc) if M_fn is None else None
+
+    def wiring(s, m_args):
+        if jv_fn is not None:
+            W = m_args[-1]
+            Jv = lambda x: jv_fn(x, W)  # noqa: E731
+        else:
+            Jv = lambda x: torch.func.jvp(R, (s,), (x,))[1]  # noqa: E731
+        return Jv, (M_diag if M_fn is None else (lambda x: M_fn(x, *m_args)))
 
     n, isz = s0.numel(), s0.element_size()
     rl = _chunked_rl(cfg, n, isz)
@@ -136,7 +150,7 @@ def newton_solve_stepped(
     U_carry = recycle.get("U") if recycle is not None else None
     while nrm > cfg.abs_tol and it < cfg.max_iters:
         t0 = time.perf_counter()
-        Jv, Mx = wiring(pre_fn(s))
+        Jv, Mx = wiring(s, pre_fn(s) if pre_fn is not None else ())
         b = -R(s)
         # inexact-Newton target fixed from this iterate's residual
         target = max(cfg.lin_abs_tol, 0.1 * cfg.accept_tol, cfg.lin_rel_tol * nrm)
@@ -231,6 +245,35 @@ def shape_gradient(space, coords, s, lam, visc, stab, obstacle_vmask):
     return g * obstacle_vmask[:, None]
 
 
+def shape_hvp(space, coords, s, lam, visc, stab, obstacle_vmask):
+    """v (V, d) -> the directional derivative of shape_gradient in X along
+    v at fixed (s, lambda): the Hessian of L = J_drag + lambda^T R in X
+    applied to v, masked to the obstacle surface (the J'' term of
+    b2nd_order; the JAX package's jax.jvp of the frozen J').  The gradient
+    of L is recorded once with its graph; each call differentiates
+    <grad L, v> again (the Hessian of a scalar is symmetric, so this
+    reverse-over-reverse product is the jvp)."""
+    X = coords.detach().requires_grad_(True)
+    s, lam = s.detach(), lam.detach()
+    with torch.enable_grad():
+        L = nsops.drag(space, X, s, visc) + torch.sum(lam * nsops.ns_residual(space, X, s, visc, stab))
+        g = torch.autograd.grad(L, X, create_graph=True)[0]
+
+    def hvp(v):
+        with torch.enable_grad():
+            return torch.autograd.grad(g, X, v, retain_graph=True)[0] * obstacle_vmask[:, None]
+
+    return hvp
+
+
+def residual_vjp(space, coords, s, visc, stab):
+    """x -> J(s)^T x, the matrix-free transpose: one reverse-mode vjp of
+    ns_residual at s, whose closure (the residual's saved tensors) every
+    call re-applies."""
+    _, vjp = torch.func.vjp(lambda ss: nsops.ns_residual(space, coords, ss, visc, stab), s.detach())
+    return lambda x: vjp(x)[0]
+
+
 class AdjointResult(NamedTuple):
     lam: torch.Tensor
     res_norm: float  # true residual norm where the loop stopped
@@ -241,8 +284,8 @@ class AdjointResult(NamedTuple):
 
 
 def adjoint_solve_stepped(
-    space, coords, s, visc, Jt: Callable, MT: Callable, cfg: NewtonConfig = NewtonConfig(),
-    lam0=None, recycle: dict | None = None,
+    space, coords, s, visc, Jt: Callable | None = None, MT: Callable | None = None,
+    cfg: NewtonConfig = NewtonConfig(), lam0=None, recycle: dict | None = None, stab: float = 0.0,
 ) -> AdjointResult:
     """J^T lambda = -dJ_drag/ds by host-stepped FGMRES with GCRO-DR (the
     JAX package's models/obstacle.py _adjoint_stepped).
@@ -256,7 +299,13 @@ def adjoint_solve_stepped(
     recycle is the caller's dict that carries the recycle space: a "U" of
     the full rank adj_recycle_k is re-imaged against this Jt first (k
     applies, charged to the budget), and the space the solve leaves is put
-    back under "U"."""
+    back under "U".  Without Jt the apply is matrix-free (residual_vjp
+    at s, with stab); without MT the preconditioner is the symmetric
+    nsops.diag_preconditioner (the JAX package's adjoint_solve defaults)."""
+    if Jt is None:
+        Jt = residual_vjp(space, coords, s, visc, stab)
+    if MT is None:
+        MT = nsops.diag_preconditioner(space, coords, visc)
     gJ = drag_gradient(space, coords, s, visc)
     b = -gJ
     target = max(cfg.lin_abs_tol, cfg.adj_rel_tol * float(_norm(gJ)))
@@ -323,7 +372,7 @@ def adjoint_solve_stepped(
 
 def ns_gmg_precond_data_patch(
     ns_space, pre_ps, pre_struct_p, pre_tabs, base_dense_fn, parents_fine, coords, visc, s,
-    adjoint: bool = False,
+    adjoint: bool = False, p2_iso: bool = True,
 ):
     """Velocity-block conv-diff hierarchy on the once-refined lattice and
     the pressure block's lumped mass / nu.
@@ -332,12 +381,13 @@ def ns_gmg_precond_data_patch(
     current velocity is the P1 advecting field of every level's operator;
     geometry and velocity travel together as the stacked [coords | w]
     lattice array.  base_dense_fn receives that array at level 0, (V0, 2d).
-    adjoint negates the advecting field (kept for parity; the adjoint
-    solve transposes the forward preconditioner instead).
-    Returns (pre_data, pdiag)."""
+    p2_iso=False is the P1/P1 velocity (vorder=1): the lattice is the NS
+    level's own and parents_fine is not used.  adjoint negates the
+    advecting field (kept for parity; the adjoint solve transposes the
+    forward preconditioner instead).  Returns (pre_data, pdiag)."""
     from ..ops.convdiff import convdiff_corner_mats
 
-    Xf = 0.5 * (coords[parents_fine[:, 0]] + coords[parents_fine[:, 1]])
+    Xf = 0.5 * (coords[parents_fine[:, 0]] + coords[parents_fine[:, 1]]) if p2_iso else coords
     w, _ = ns_space.unpack(s)
     w = -w if adjoint else w
     cw_p = pst.to_patch_tab(pre_tabs[-1], torch.cat([Xf.T, w], dim=0))
@@ -348,17 +398,20 @@ def ns_gmg_precond_data_patch(
 
 
 def ns_gmg_precond_data(ns_space, pre_space, pre_struct, coords, visc, s, adjoint: bool = False,
-                        with_transpose: bool = False):
+                        with_transpose: bool = False, p2_iso: bool = True):
     """Global-backend velocity-block data: the conv-diff hierarchy of
     pre_space (the P1 space over levels 0..L+1, whose level L+1 vertices
     are the P2 velocity dofs of level L, so the velocity is the advecting
     P1 field) at the once-refined coordinates, and the pressure block's
-    lumped mass / nu.  with_transpose stores each level's transposed
-    values (the adjoint's transposed cycle stays a gather).
-    Returns (pre_data, pdiag)."""
-    tr = pre_space.parents[-1]
-    p = tr.parents_t(coords.device)
-    Xf = 0.5 * (coords[p[:, 0]] + coords[p[:, 1]])
+    lumped mass / nu.  p2_iso=False: P1/P1 velocity (vorder=1), pre_space
+    over the NS levels themselves at coords.  with_transpose stores each
+    level's transposed values (the adjoint's transposed cycle stays a
+    gather).  Returns (pre_data, pdiag)."""
+    if p2_iso:
+        p = pre_space.parents[-1].parents_t(coords.device)
+        Xf = 0.5 * (coords[p[:, 0]] + coords[p[:, 1]])
+    else:
+        Xf = coords
     w, _ = ns_space.unpack(s)
     w = -w if adjoint else w
     pre_data = pre_space.assemble_mg_convdiff(pre_struct, Xf, w, visc, with_transpose=with_transpose)
@@ -398,16 +451,49 @@ def patch_velocity_M(pre_ps, pre_struct_p, pre_data, iters: int = 1):
     return zv_fn
 
 
-def ns_gmg_M(ns_space, pdiag, vel_M, bt_fn=None):
+def _bt_coupling(ns_space, coords, visc, stab, like):
+    """The off-diagonal actions from the affine structure of the residual,
+    each one residual evaluation: bt(zp) = B^T zp = R_mom(0, zp) -
+    R_mom(0, 0), (n_p,) -> (d, n_vel), and b(zv) = B zv = R_div(zv, 0) -
+    R_div(0, 0).  Exact for any visc (the coupling blocks do not depend on
+    it); the Dirichlet rows cancel in the difference.  like gives the
+    dtype."""
+    zero_v = torch.zeros((ns_space.dim, ns_space.n_vel), dtype=like.dtype, device=coords.device)
+    zero_p = torch.zeros((ns_space.n_pressure,), dtype=like.dtype, device=coords.device)
+    r_zero = nsops.ns_residual(ns_space, coords, ns_space.pack(zero_v, zero_p), visc, stab)
+
+    def bt(zp):
+        out, _ = ns_space.unpack(nsops.ns_residual(ns_space, coords, ns_space.pack(zero_v, zp), visc, stab) - r_zero)
+        return out
+
+    def b(zv):
+        _, out = ns_space.unpack(nsops.ns_residual(ns_space, coords, ns_space.pack(zv, zero_p), visc, stab) - r_zero)
+        return out
+
+    return bt, b
+
+
+def _coupling(ns_space, bt_fn, coords, visc, stab):
+    """bt_fn, or without it _bt_coupling's B^T when coords and visc are
+    given (the triangular form), else None (block diagonal)."""
+    if bt_fn is not None or coords is None or visc is None:
+        return bt_fn
+    return _bt_coupling(ns_space, coords, visc, stab, coords)[0]
+
+
+def ns_gmg_M(ns_space, pdiag, vel_M, bt_fn=None, coords=None, visc=None, stab: float = 0.0):
     """Block preconditioner: z_p = r_p / pdiag, then z_v = vel_M(r_v -
-    B^T z_p) (block triangular with bt_fn, the assembled B^T of
-    ops.ns_patchjac.make_bt_fn; block diagonal without)."""
+    B^T z_p).  Block triangular with bt_fn (the assembled B^T of
+    ops.ns_patchjac / ns_elljac.make_bt_fn) or, without it, with coords
+    and visc given, the B^T of _bt_coupling (one residual evaluation per
+    application); block diagonal otherwise."""
+    bt = _coupling(ns_space, bt_fn, coords, visc, stab)
 
     def M(r):
         rv, rp = ns_space.unpack(r)
         zp = rp / pdiag
-        if bt_fn is not None:
-            rv = rv - bt_fn(zp)
+        if bt is not None:
+            rv = rv - bt(zp)
         return ns_space.pack(vel_M(rv), zp)
 
     return M
@@ -492,19 +578,86 @@ def pcd_schur_patch_M(ns_space, ps, p_struct_p, p_tabs, ap_data, W_fp, mp):
     return S_inv
 
 
-def ns_pcd_M(ns_space, schur_fn, vel_M, bt_fn=None):
+def ns_pcd_spaces(hier, do_nothing: bool = True):
+    """The scalar pressure space of the global-backend PCD block: P1 on
+    the NS levels (Taylor-Hood pressure), inlet-Dirichlet (Kay-Loghin-Wathen
+    with Dirichlet rows where the flow enters, measured best by the JAX
+    package on the channel), and its Jacobi V(2,2) structure.
+    do_nothing is accepted for parity; the Dirichlet set does not depend
+    on it.  Returns (p_space, p_struct)."""
+    from ..ops.p1space import P1VectorSpace
+
+    p_space = P1VectorSpace.build(hier, dirichlet=("inlet",), ncomp=1)
+    p_struct = dataclasses.replace(p_space.mg_structure(pre_smooth=2, post_smooth=2), smoother="jacobi")
+    return p_space, p_struct
+
+
+def ns_pcd_precond_data(ns_space, p_space, p_struct, coords, visc, s=None, adjoint: bool = False,
+                        with_transpose: bool = False):
+    """PCD Schur data on the global backend: the unit-viscosity pressure
+    Laplacian hierarchy Ap (w = 0, so the artificial diffusion adds
+    nothing), the fine-level plain Galerkin pressure convection-diffusion
+    operator Fp at the frozen velocity and at visc, baked inlet-Dirichlet,
+    and the lumped pressure mass Mp (not nu-scaled: Fp carries the
+    physics), summed by the NS space's fixed-order vertex plan.
+    with_transpose stores the transposed values of every Ap level and of
+    Fp, so that transpose_M's replay of the Schur block is gathers only.
+    Returns (ap_data, fp_vals, mp, fp_vals_t), fp_vals_t None without
+    with_transpose (the JAX package returns the first three)."""
+    from ..ops import sparsity
+    from ..ops.convdiff import convdiff_elem_mats
+
+    d = ns_space.dim
+    if s is None:
+        w = coords.new_zeros((d, ns_space.n_vel))
+    else:
+        w, _ = ns_space.unpack(s)
+        w = -w if adjoint else w
+    # P2 nodal coefficients are interpolatory and the vertex dofs come first
+    w_p1 = w[:, : ns_space.n_vertices]
+    ap_data = p_space.assemble_mg_convdiff(p_struct, coords, torch.zeros_like(w_p1), 1.0,
+                                           with_transpose=with_transpose)
+    pat = p_space.fine_pattern
+    elems, fixed = p_space.level_tensors(len(p_space.patterns) - 1, coords.device)
+    em = convdiff_elem_mats(coords, elems, w_p1, visc, art_diff=False, ncomp=1)
+    fp_vals = sparsity.bake_dirichlet(pat, sparsity.assemble_values(pat, em), fixed)
+    fp_vals_t = sparsity.transpose_values(pat, fp_vals, p_space.transpose_maps()[-1]) if with_transpose else None
+    mp = torch.clamp_min(nsops.pressure_mass_lumped(ns_space, coords, 1.0), 1e-30)
+    return ap_data, fp_vals, mp, fp_vals_t
+
+
+def pcd_schur_ell_M(p_space, p_struct, ap_data, fp_vals, mp, fp_vals_t=None):
+    """S^-1 ~= Mp^-1 Fp Ap^-1 on the global backend, (n_p,) in and out: one
+    scalar V-cycle of solvers.mg on Ap, then the ELL Fp (with its
+    transposed values a spmv_flat_pair, whose backward is a gather)."""
+    from ..ops import sparsity
+    from . import mg
+
+    pat = p_space.fine_pattern
+
+    def S_inv(rp):
+        yp = mg.vcycle(p_struct, ap_data, rp)
+        if fp_vals_t is None:
+            return sparsity.spmv_flat(pat, fp_vals, yp) / mp
+        return sparsity.spmv_flat_pair(pat, fp_vals, fp_vals_t, yp) / mp
+
+    return S_inv
+
+
+def ns_pcd_M(ns_space, schur_fn, vel_M, bt_fn=None, coords=None, visc=None, stab: float = 0.0):
     """Block-triangular preconditioner with the PCD Schur approximation:
-    z_p = schur_fn(r_p) = Mp^-1 Fp Ap^-1 r_p (one scalar V-cycle), then
-    z_v = vel_M(r_v - B^T z_p) (one conv-diff V-cycle), with bt_fn the
-    assembled B^T; block diagonal without it, which stalls GMRES at low
-    viscosity (the JAX package's measurement).  The patch form of the JAX
-    package's ns_pcd_M with schur_fn, vel_M and bt_fn given."""
+    z_p = schur_fn(r_p) = Mp^-1 Fp Ap^-1 r_p (pcd_schur_patch_M or
+    pcd_schur_ell_M), then z_v = vel_M(r_v - B^T z_p) (one conv-diff
+    V-cycle), with bt_fn the assembled B^T or, without it, with coords and
+    visc given, _bt_coupling's; block diagonal otherwise, which stalls GMRES
+    at low viscosity (the JAX package's measurement)."""
+    bt = _coupling(ns_space, bt_fn, coords, visc, stab)
 
     def M(r):
         rv, rp = ns_space.unpack(r)
         zp = schur_fn(rp)
-        if bt_fn is not None:
-            rv = rv - bt_fn(zp)
+        if bt is not None:
+            rv = rv - bt(zp)
         return ns_space.pack(vel_M(rv), zp)
 
     return M

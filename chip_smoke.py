@@ -5,7 +5,7 @@
     python3 chip_smoke.py --phase NAME[,NAME]   (build and kernels, then these phases)
     python3 chip_smoke.py --kernels-only        (= --phase kernels: phases 1-3, then stop)
 
-NAME is one of kernels, slice, admm, ns, step, global, pcd, small, cli
+NAME is one of kernels, slice, admm, ns, step, global, pcd, variants, small, cli
 (admm brings slice, whose refs=4 context it runs on); the default runs them
 all, and only the full run prints the {"ok": true, ...} line.  Run alone,
 step and global climb their own viscosity ladder.
@@ -97,17 +97,33 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      Newton and linear counts, |R|, assembly seconds of the velocity data,
      the PCD data and the Jacobian, seconds per linear iteration; the last
      |R| rechecked in float64 with the plain residual), drag, adjoint (cut
-     to 200 iterations) and J' at visc 0.02, the rung against the mass
+     to 100 iterations) and J' at visc 0.02, the rung against the mass
      ladder's, launches per phase, peak memory, and a profiled window of
      the Krylov operators for the card's busy share and K5's share of
      device time (scripts/torch_vel_inner.py runs the rung with 1 and 2
      velocity-block Richardson steps in turns);
-  10. small: refs=1 solve, ADMM run and PCD ladder to visc 0.02 (with
+  10. variants: ROADMAP item 9b at 3D refs=2, float32, from the ns phase's
+     mass ladder states (alone: its own ladder on the global backend):
+     (a) the matrix-free J x (torch.func.jvp) and J^T x (torch.func.vjp)
+     against the assembled ELL forms within 1e-5 of max |y|, their ms at
+     NS_ELEM_CHUNK 16384 (6 element blocks) and 131072 (one), and one
+     adjoint cut to 200 iterations with each form (100 at 6 blocks; ms per iteration, peak
+     memory); (b) vorder=1, stab 0.05 on the patch backend: a Newton solve
+     at visc 0.16 (converged, float64 |R| <= accept_tol, drag within 25% of
+     the P2 drag) and a cut adjoint, K5 and K5^T on the level-k lattice,
+     the path's launches counted from 0; (c) b2nd_order with
+     high_order_scaling 1: one global step from the 0.02 state, held to
+     step_gates, beside the first-order global step; (d) PCD on the global
+     backend: the rung 0.04 -> 0.02 twice (the counts must repeat), beside
+     the global mass rung and the patch PCD rung; (e) two ns_residual and
+     pressure_mass_lumped calls bitwise equal, the global NS re-solve on
+     the global step's mesh twice (the counts must repeat), J' twice;
+  11. small: refs=1 solve, ADMM run and PCD ladder to visc 0.04 (with
      drag, adjoint and J') held against the port's float64 CPU runs: the
      solve and the ADMM run here, the ladder as kept in
      tests/goldens/chip_pcd_ladder_refs1.npz (made on the CPU, in minutes,
      by tests/goldens/make_chip_reference.py, which also makes the step's);
- 11. cli: python -m admm_optim_tpu_torch.cli -dim 3 -numRefs 1 -numSteps 1
+ 12. cli: python -m admm_optim_tpu_torch.cli -dim 3 -numRefs 1 -numSteps 1
      -visc 0.16 -admmSteps 40 -nsMaxIts 8 -tau 2 -bNewtonOutput 1
      -bActivateProfiler 1, called in this process: exit code 0, one
      accepted step, __Drag.txt, __Iterations_per_step.txt (9 columns),
@@ -115,7 +131,7 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      against the same argv with -x64 run on the CPU and kept in
      tests/goldens/chip_cli_refs1.npz (the same accepting attempt, the
      drags within STEP_DRAG_SHARE of the CPU step's decrease).
-Each path (solve, ADMM, NS, step, step 1 resumed, global step, PCD, CLI) is driven with the launch
+Each path (solve, ADMM, NS, step, step 1 resumed, global step, PCD, variants, CLI) is driven with the launch
 counts set to 0 just before it (the NS paths reset them before each of their phases) and
 read just after; each of its kernels must have launched.  The counts are
 printed per kernel and per kernel and lattice.
@@ -195,15 +211,19 @@ F32_FLOPS = 67e12
 F64_FLOPS = 34e12
 NS_VISC = 0.16  # the first rung of the JAX package's cold-start ladder
 PCD_VISC = 0.02  # its last: the reference's default viscosity
-# refs=1 PCD ladder, card float32 against CPU float64, relative (pcd_small says why)
+# the refs=1 PCD ladder of the small phase climbs to the pcd phase's start
+# (0.16 -> 0.08 -> 0.04; to 0.02 before PR 11, whose variants phase it pays
+# for); card float32 against CPU float64, relative (pcd_small says why)
+SMALL_VISC = 0.04
 DRAG_TOL = 2e-4
 JPRIME_TOL = 3e-4
 SMALL_REFERENCE = pathlib.Path(__file__).resolve().parent / "tests" / "goldens" / "chip_pcd_ladder_refs1.npz"
 REFERENCE_THREADS = 2
-# adjoint iterations of the mass-block and PCD phases at refs=2 (the step
-# phase runs its adjoint at visc 0.02 to the exit)
-NS_ADJOINT_BUDGET = 200
-PHASES = ("kernels", "slice", "admm", "ns", "step", "global", "pcd", "small", "cli")
+# adjoint iterations of the mass-block and PCD phases at refs=2, one
+# Arnoldi chunk (200 before PR 11's variants phase; the step phase runs its
+# adjoint at visc 0.02 to the exit)
+NS_ADJOINT_BUDGET = 100
+PHASES = ("kernels", "slice", "admm", "ns", "step", "global", "pcd", "variants", "small", "cli")
 STEP_VISC = PCD_VISC  # 3d_admm.lua's default viscosity
 # the refs=1 step, card against CPU, at the ladder's first rung: one Newton
 # solve from the cold start, so the float64 CPU reference takes minutes
@@ -239,17 +259,28 @@ PATHS = {
     "cli": ("apply_w_sym/lanes", "apply_w_full", "apply_w_full_t"),
     # the global (block-ELL) step: no hand-written kernel, every count 0
     "global": (),
+    # vorder=1 on the patch backend: the velocity block on the level-k lattice
+    "variants": ("apply_w_full", "apply_w_full_t"),
 }
 # elements per jacfwd batch of the ELL Jacobian assembly (ops/ns_elljac.py
 # JAC_ELEM_CHUNK), timed at 3D refs=2 in the global phase; 86,016 is all
 JAC_ELEM_CHUNKS = (4096, 16384, 86016)
-# the sweeps at 3D refs=1: sigma_sweep's candidates, and geometry_sweep's
+# the sweeps at 3D refs=1: sigma_sweep's candidates (one since PR 11, whose
+# variants phase it pays for; PR 10 ran (0.3, 0.15)), and geometry_sweep's
 # second mesh, X0 plus this share of the first candidate's u
-SWEEP_SIGMAS = (0.3, 0.15)
+SWEEP_SIGMAS = (0.3,)
 GEOMETRY_SHARE = 0.5
 # global against patch: the share of the patch step 0's drag decrease the
 # global step's may differ by
 GLOBAL_DECREASE_SHARE = 0.1
+# the variants phase (ROADMAP item 9b): P1/P1's Brezzi-Pitkaranta weight,
+# its drag against the P2 drag at NS_VISC (tests/test_ns.py:91-106), the
+# cut adjoints, and NS_ELEM_CHUNK at 6 element blocks and at one (86,016
+# elements, ops/navier_stokes.py's chunk)
+VARIANT_STAB = 0.05
+P1_DRAG_SHARE = 0.25
+VARIANT_ADJOINT_BUDGET = 200
+VARIANT_ELEM_CHUNKS = (16384, 131072)
 REPLACES = {
     "apply_w_sym": f"{PALLAS}:213",
     # what jax.vmap makes of the same kernel (admm_optim_tpu/optim/spaces.py:269-296)
@@ -659,7 +690,7 @@ def device_ms(prof):
     return (total / 1e3, k5 / 1e3, k5c1 / 1e3, top) if total > 0 else None
 
 
-def ns_profile(tag, ctx, s, reps=5):
+def ns_profile(tag, ctx, s, reps=2):
     """The Krylov operators of an NS path at the state s: wall and device
     time of reps x (M, then J) and of reps x (M^T, then J^T), untraced and
     under torch.profiler, and K5's share of the device time."""
@@ -731,7 +762,8 @@ def report_rungs(tag, rungs):
     for r in rungs:
         nw = r.newton
         lin = sum(nw.lin_iters)
-        asm = {k: sum(a.get(k, 0.0) for a in r.assembly_seconds) for k in ("velocity", "pcd", "jacobian")}
+        asm = {k: sum(a.get(k, 0.0) for a in r.assembly_seconds)
+               for k in ("velocity", "pcd", "jacobian", "coupling")}
         outside = r.seconds - sum(asm.values())
         if nw.converged:
             lin_all += lin
@@ -769,9 +801,9 @@ def ns_phase(ctx_pcd, launches, by_lattice):
     on the tables of the PCD context: the cold-start ladder to PCD_VISC
     for the comparison with PCD, then drag, adjoint and J' at its first
     rung, the cold-start solve at NS_VISC.  The adjoint gets
-    NS_ADJOINT_BUDGET iterations, a third of what its stagnation exit takes
-    there, to leave the time to the PCD phase, which runs its adjoint to
-    the exit.  Returns the ladder's records."""
+    NS_ADJOINT_BUDGET iterations (one Arnoldi chunk), a seventh of what its
+    stagnation exit takes there: the step phase runs its adjoints to the
+    exit.  Returns the ladder's records."""
     ctx = dataclasses.replace(ctx_pcd, pressure_precond="mass", pcd_tabs=None, pcd_struct=None)
     log(f"[ns] refs=2 n_state={ctx.n_state}, mass pressure block, ladder {NS_VISC} -> {PCD_VISC}")
     by_phase, seconds = {}, {}
@@ -823,7 +855,7 @@ def ns_phase(ctx_pcd, launches, by_lattice):
     return rungs
 
 
-def jac_chunks(ctx, s, reps=3):
+def jac_chunks(ctx, s, reps=1):
     """The refs=2 NS Jacobian assembly (ctx.jac, what every Newton iterate
     and the adjoint assemble) at the state s, timed at each cells-per-batch
     chunk of JAC_CHUNKS: median synchronized seconds of reps calls after a
@@ -1170,7 +1202,7 @@ def global_operator_checks(prob, ctx_ns, s):
     torch.cuda.empty_cache()
 
 
-def jac_elem_chunks(prob, s, reps=3):
+def jac_elem_chunks(prob, s, reps=1):
     """The ELL Jacobian's assembly (ns_elljac.assemble_ns_jacobian) at 3D
     refs=2 and the state s at each elements-per-batch chunk of
     JAC_ELEM_CHUNKS: median synchronized seconds of reps calls after a
@@ -1221,7 +1253,8 @@ def global_phase(ctx_ns, launches, by_lattice, ladder_s=None, patch0=None):
     where the patch step 0 started; without it run climbs its own ladder),
     with the operator checks before it, then the ELL Jacobian's chunks and
     the sweeps.  patch0 (the step phase's step_record) gives what the
-    global step is compared with."""
+    global step is compared with.  Returns the problem, its step_record and
+    ladder_s for the variants phase."""
     t0 = time.perf_counter()
     cfg = dataclasses.replace(step_config(2, STEP_VISC), backend="global")
     prob = ObstacleShapeOpt(cfg, device="cuda")
@@ -1288,9 +1321,9 @@ def global_phase(ctx_ns, launches, by_lattice, ladder_s=None, patch0=None):
     else:
         log("[global] the step phase did not run: no comparison with the patch step 0")
     jac_elem_chunks(prob, prob.s_final)
-    del prob
     torch.cuda.empty_cache()
     sweep_phase()
+    return dict(prob=prob, record=g, ladder_s=ladder_s)
 
 
 def sweep_jp(prob):
@@ -1427,7 +1460,8 @@ def pcd_phase(ctx, launches, by_lattice, mass_rungs):
     PCD_VISC from the mass ladder's converged state at PCD_FROM_VISC (alone,
     without the ns phase's ladder, the whole PCD ladder as ns_run.run with a
     target), then drag, adjoint and J' there; the launch counts are reset
-    before each of its phases and read after."""
+    before each of its phases and read after.  Returns the last rung's
+    linear iterations and ms per iteration outside assembly."""
     torch.cuda.reset_peak_memory_stats()
     log(
         f"[pcd] refs=2 n_state={ctx.n_state} velocity lattice {ctx.pre_ps.fine.lat_shape} x "
@@ -1490,6 +1524,10 @@ def pcd_phase(ctx, launches, by_lattice, mass_rungs):
     check(r64 <= ctx.cfg.accept_tol, f"refs=2 PCD float64 |R| {r64:.3e} <= accept_tol")
     check_adjoint_and_gradient("refs=2 PCD", ctx, adj, out.drag, out.jprime, ("target", "stagnation", "budget"))
     ns_profile("pcd", ctx, nw.s)
+    last = out.rungs[-1]
+    lin_last = sum(last.newton.lin_iters)
+    outside = last.seconds - sum(sum(a.values()) for a in last.assembly_seconds)
+    return dict(nu=last.nu, lin=lin_last, ms=1e3 * outside / max(lin_last, 1))
 
 
 def vel_inner_rung(ctx, s0, vel_inner, tag="pcd"):
@@ -1511,16 +1549,256 @@ def vel_inner_rung(ctx, s0, vel_inner, tag="pcd"):
     return res, secs, ms
 
 
+def rung_summary(res, asm, secs):
+    """(linear iterations, ms per linear iteration outside assembly) of one
+    Newton solve."""
+    lin = sum(res.lin_iters)
+    return lin, 1e3 * (secs - sum(sum(a.values()) for a in asm)) / max(lin, 1)
+
+
+def timed_newton(ctx, s0, visc, X=None):
+    """ns_run.newton from s0 with no recycle space: (result, assembly
+    seconds, synchronized seconds)."""
+    sync()
+    t0 = time.perf_counter()
+    res, asm = ns_run.newton(ctx, s0, visc=visc, recycle={}, X=X)
+    sync()
+    return res, asm, time.perf_counter() - t0
+
+
+def timed_adjoint(ctx, s, budget):
+    """ns_run.adjoint at s with its budget cut to about budget iterations:
+    (result, seconds, peak device memory above what was held before, GiB)."""
+    cut = dataclasses.replace(ctx, cfg=dataclasses.replace(ctx.cfg, lin_max_iters=budget // 4))
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    adj = ns_run.adjoint(cut, s)
+    sync()
+    return adj, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def matfree_checks(gctx, s, reps=5):
+    """(a) on the global backend at the state s, visc STEP_VISC: the
+    matrix-free J x (torch.func.jvp of ns_residual) and J^T x (one
+    torch.func.vjp, re-applied) against the assembled ELL forms within
+    1e-5 of max |y|, each apply's median ms; then one adjoint cut to
+    VARIANT_ADJOINT_BUDGET iterations with each form (ms per iteration,
+    peak memory), the matrix-free one at NS_ELEM_CHUNK 16384 (6 element
+    blocks at refs=2) and with all elements in one block (the module's
+    chunk)."""
+    from admm_optim_tpu_torch.solvers import ns_solver
+
+    X, visc = gctx.coords, STEP_VISC
+    mf = dataclasses.replace(gctx, assembled=False)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    v = torch.randn(gctx.n_state, generator=gen, device="cuda", dtype=X.dtype)
+
+    def R(ss):
+        return nsops.ns_residual(gctx.space, X, ss, visc, gctx.stab)
+
+    W = gctx.jac(X, s, visc)
+    jv_a, jtv_a = gctx.jv(v, W), gctx.jtv(v, W)
+    jv_m = torch.func.jvp(R, (s,), (v,))[1]
+    Jt = ns_solver.residual_vjp(gctx.space, X, s, visc, gctx.stab)
+    jtv_m = Jt(v)
+    errs = {"J x": rel_diff(jv_m, jv_a), "J^T x": rel_diff(jtv_m, jtv_a)}
+    for what, e in errs.items():
+        log(f"[variants] (a) matrix-free {what} against the assembled ELL form: {e:.3e} of max |y| (limit 1e-5)")
+        check(e <= 1e-5, f"(a) matrix-free {what} within 1e-5 of the assembled form")
+    ms = {"assembled J x": call_ms(lambda: gctx.jv(v, W), reps),
+          "assembled J^T x": call_ms(lambda: gctx.jtv(v, W), reps)}
+    keep = nsops.NS_ELEM_CHUNK
+    E = gctx.space.elems.shape[0]
+    adjoints = {}
+    try:
+        for chunk in VARIANT_ELEM_CHUNKS:
+            nsops.NS_ELEM_CHUNK = chunk
+            blocks = nsops._elem_chunks(E)[0]
+            ms[f"jvp, {blocks} block(s)"] = call_ms(lambda: torch.func.jvp(R, (s,), (v,))[1], reps)
+            Jt = ns_solver.residual_vjp(gctx.space, X, s, visc, gctx.stab)
+            ms[f"vjp apply, {blocks} block(s)"] = call_ms(lambda: Jt(v), reps)
+            ms[f"residual, {blocks} block(s)"] = call_ms(lambda: R(s), reps)
+            del Jt
+            torch.cuda.empty_cache()
+            # the module's chunk takes the full cut; the comparison chunk half of it
+            budget = VARIANT_ADJOINT_BUDGET if chunk == keep else VARIANT_ADJOINT_BUDGET // 2
+            adjoints[f"matrix-free, {blocks} block(s)"] = timed_adjoint(mf, s, budget)
+    finally:
+        nsops.NS_ELEM_CHUNK = keep
+    del W
+    torch.cuda.empty_cache()
+    adjoints["assembled"] = timed_adjoint(gctx, s, VARIANT_ADJOINT_BUDGET)
+    log(f"[variants] (a) ms per apply, median of {reps} event intervals around one call on an idle card "
+        f"(host time included), at 3D refs=2 (E = {E}): "
+        + ", ".join(f"{k} {t:.3f}" for k, t in ms.items()))
+    for label, (adj, secs, peak) in adjoints.items():
+        log(f"[variants] (a) adjoint, {label}: {adj.iters} iterations ({adj.exit}), |r| {adj.res_norm:.3e}, "
+            f"{secs:.3f} s, {1e3 * secs / max(adj.iters, 1):.2f} ms per iteration, peak {peak:.3f} GiB above the "
+            f"memory held before")
+        check(bool(torch.isfinite(adj.lam).all()), f"(a) adjoint {label}: finite")
+    return adjoints["assembled"][0].lam
+
+
+def variants_phase(gvars, mass_rungs, pcd_rec, launches, by_lattice):
+    """The settings of ROADMAP item 9b at 3D refs=2, float32, f32_presets:
+    (a) the matrix-free J x / J^T x and adjoint against the assembled ones
+    on the global backend; (b) vorder=1 with stab VARIANT_STAB on the patch
+    backend, a Newton solve at NS_VISC (K5 and K5^T on the level-k lattice);
+    (c) b2nd_order, one global step from the 0.02 state beside the
+    first-order global step; (d) PCD on the global backend, one rung
+    PCD_FROM_VISC -> PCD_VISC, twice; (e) the NS residual's fixed-order
+    sums: two calls bitwise equal, the global NS re-solve twice with equal
+    counts, J' twice.  gvars is what global_phase returned (its problem,
+    step record and start state); without it, and without the ns phase's
+    ladder, the phase builds its own and climbs its own ladder."""
+    from admm_optim_tpu_torch.solvers import ns_solver
+
+    t_phase = time.perf_counter()
+    if gvars is None:
+        gprob = ObstacleShapeOpt(dataclasses.replace(step_config(2, STEP_VISC), backend="global"))
+        grec = None
+    else:
+        gprob, grec = gvars["prob"], gvars["record"]
+    gctx = gprob.ns.at_visc(STEP_VISC)
+    X = gprob.X0
+    states = {r.nu: r.newton.s for r in mass_rungs if r.newton.converged}
+    if not {NS_VISC, PCD_FROM_VISC, STEP_VISC} <= set(states):
+        lad = ns_run.solve_ladder(gctx)
+        report_rungs("variants", lad.rungs)
+        states = {r.nu: r.newton.s for r in lad.rungs if r.newton.converged}
+        log("[variants] the ns phase did not run: the global mass ladder above is this phase's own")
+    s16, s04, s02 = states[NS_VISC], states[PCD_FROM_VISC], states[STEP_VISC]
+    log(f"[variants] refs=2 n_state={gctx.n_state}, global backend, ELL Jacobian {gctx.jac_bytes / 1e6:.1f} MB "
+        f"(ns_jac_mem_cap {gprob.cfg.ns_jac_mem_cap:.3g}), states from the mass ladder at {NS_VISC}, "
+        f"{PCD_FROM_VISC}, {STEP_VISC}")
+
+    # (e) first: two identical residual calls
+    r1 = nsops.ns_residual(gctx.space, X, s02, STEP_VISC)
+    r2 = nsops.ns_residual(gctx.space, X, s02, STEP_VISC)
+    pm1, pm2 = (nsops.pressure_mass_lumped(gctx.space, X, STEP_VISC) for _ in range(2))
+    log(f"[variants] (e) two identical ns_residual calls bitwise equal: {torch.equal(r1, r2)}; "
+        f"pressure_mass_lumped: {torch.equal(pm1, pm2)}")
+    check(torch.equal(r1, r2) and torch.equal(pm1, pm2), "(e) ns_residual and pressure_mass_lumped repeat bit for bit")
+    del r1, r2
+
+    # (a) matrix-free against assembled
+    sk.reset_launches()
+    lam02 = matfree_checks(gctx, s02)
+    check(sum(sk.launches.values()) == 0, "(a) the global matrix-free operators launched no hand-written kernel")
+
+    # (b) vorder=1 on the patch backend: K5 and K5^T on the level-k lattice
+    t0 = time.perf_counter()
+    ctx1 = ns_run.build(device="cuda", visc=NS_VISC, hier=gprob.hier, vorder=1, stab=VARIANT_STAB)
+    setup1 = time.perf_counter() - t0
+    lat = {}
+    (res1, asm1), secs1, n_newton = counted(lambda: ns_run.newton(ctx1, recycle={}), lat)
+    lat_newton = dict(lat)
+    lat = {}
+    cut1 = dataclasses.replace(ctx1, cfg=dataclasses.replace(ctx1.cfg, lin_max_iters=VARIANT_ADJOINT_BUDGET // 8))
+    adj1, secs_adj1, n_adj = counted(lambda: ns_run.adjoint(cut1, res1.s), lat)
+    by_lattice["variants"] = sum_lattices({"newton": lat_newton, "adjoint": lat})
+    launches["variants"] = path_launches("variants", {"newton": n_newton, "adjoint": n_adj})
+    log_lattices("variants", lat_newton, "vorder=1 Newton")
+    log_lattices("variants", lat, "vorder=1 adjoint")
+    r64 = float64_residual(ctx1, res1.s)
+    drag1 = float(nsops.drag(ctx1.space, X, res1.s, NS_VISC))
+    drag2 = float(nsops.drag(gctx.space, X, s16, NS_VISC))
+    lin1, ms1 = rung_summary(res1, asm1, secs1)
+    log(f"[variants] (b) vorder=1, stab {VARIANT_STAB}, patch backend, velocity lattice "
+        f"{ctx1.pre_ps.fine.lat_shape} x {ctx1.pre_ps.P} (set-up {setup1:.2f} s), n_state {ctx1.n_state}: Newton "
+        f"at visc {NS_VISC} from the cold start: converged {res1.converged}, {res1.iters} Newton, linear "
+        f"{res1.lin_iters} ({lin1}) at {ms1:.2f} ms outside assembly, |R| {res1.res_norm:.3e} (float64 recheck "
+        f"{r64:.3e}), {secs1:.3f} s; drag {drag1:.10g} against the P2 drag {drag2:.10g} "
+        f"({(drag1 - drag2) / drag2:+.3e}, limit {P1_DRAG_SHARE:g}); adjoint cut to {VARIANT_ADJOINT_BUDGET // 2} "
+        f"iterations: {adj1.iters} ({adj1.exit}) in {secs_adj1:.3f} s; launches Newton {n_newton}, adjoint {n_adj}")
+    check(res1.converged and r64 <= ctx1.cfg.accept_tol, f"(b) vorder=1 Newton converged, float64 |R| {r64:.3e}")
+    check(abs(drag1 - drag2) <= P1_DRAG_SHARE * drag2, "(b) the P1/P1 drag within 25% of the P2 drag")
+    del ctx1, res1, adj1
+    torch.cuda.empty_cache()
+
+    # (c) b2nd_order: one global step from the 0.02 state
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(step_config(2, STEP_VISC), backend="global", b2nd_order=True, high_order_scaling=1.0)
+    prob2 = ObstacleShapeOpt(cfg2)
+    sync()
+    setup2 = time.perf_counter() - t0
+    resume = dict(X=prob2.X0, s=s02, sigma=cfg2.sigma_threshold, step=-1,
+                  drag_old=float(nsops.drag(prob2.ns.space, prob2.X0, s02, STEP_VISC)))
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    hist2 = prob2.run(num_steps=1, resume=resume, profiler=Profiler())
+    sync()
+    secs2 = time.perf_counter() - t0
+    check(sum(sk.launches.values()) == 0, "(c) the b2nd_order global step launched no hand-written kernel")
+    log_step("variants b2nd", prob2, hist2)
+    check(len(hist2) == 1, "(c) refs=2 b2nd_order step accepted")
+    log2 = prob2.step_log[-1]
+    b = step_record(prob2, hist2[0], log2, setup2, secs2)
+    step_gates("(c) refs=2 b2nd_order step", prob2, hist2[0], prob2.drag_init, log2)
+    if grec is not None:
+        log("[variants] (c) b2nd_order / first-order global step from the same state: attempts "
+            f"{b['attempts']} / {grec['attempts']}, ADMM {b['admm']} / {grec['admm']}, Newton {b['newton']} / "
+            f"{grec['newton']}, Krylov {b['krylov']} / {grec['krylov']}, drag decrease {b['drag_diff']:.6e} / "
+            f"{grec['drag_diff']:.6e}; seconds per phase "
+            + ", ".join(f"{k} {b['seconds'].get(k, 0.0):.3f} / {grec['seconds'].get(k, 0.0):.3f}" for k in grec["seconds"])
+            + f"; wall {b['wall']:.3f} / {grec['wall']:.3f} s; peak {b['peak_gib']:.2f} / {grec['peak_gib']:.2f} GiB")
+    else:
+        log(f"[variants] (c) b2nd_order step: {b}; the global phase did not run, no first-order record beside it")
+    del prob2, hist2
+    torch.cuda.empty_cache()
+
+    # (d) PCD on the global backend, one rung from the 0.04 state, twice
+    p_space, p_struct = ns_solver.ns_pcd_spaces(gprob.hier)
+    pctx = dataclasses.replace(gctx, pressure_precond="pcd", p_space=p_space, pcd_struct=p_struct)
+    runs = [timed_newton(pctx, s04, PCD_VISC) for _ in range(2)]
+    mass = timed_newton(gctx, s04, PCD_VISC)
+    for i, (res, asm, secs) in enumerate(runs):
+        lin, ms = rung_summary(res, asm, secs)
+        log(f"[variants] (d) global PCD rung {PCD_FROM_VISC} -> {PCD_VISC}, call {i + 1}: converged {res.converged}, "
+            f"{res.iters} Newton, linear {res.lin_iters} ({lin}) at {ms:.2f} ms outside assembly, |R| "
+            f"{res.res_norm:.3e}, {secs:.3f} s, PCD data {sum(a.get('pcd', 0.0) for a in asm):.3f} s")
+    lin_m, ms_m = rung_summary(*mass)
+    log(f"[variants] (d) global mass rung from the same state: converged {mass[0].converged}, linear "
+        f"{mass[0].lin_iters} ({lin_m}) at {ms_m:.2f} ms" + (
+            f"; patch PCD rung (pcd phase): {pcd_rec['lin']} at {pcd_rec['ms']:.2f} ms" if pcd_rec else
+            "; the pcd phase did not run"))
+    check(all(r[0].converged for r in runs), "(d) the global PCD rung converged")
+    check(runs[0][0].lin_iters == runs[1][0].lin_iters and runs[0][0].iters == runs[1][0].iters,
+          "(d) the global PCD rung's counts repeat on a second call")
+    del pctx, runs, mass
+    torch.cuda.empty_cache()
+
+    # (e) the global NS re-solve twice, J' twice
+    X_new = gprob.X_final if gvars is not None else X
+    s_from = gvars["ladder_s"] if gvars is not None and gvars["ladder_s"] is not None else s02
+    re = [timed_newton(gctx, s_from, STEP_VISC, X=X_new) for _ in range(2)]
+    same = re[0][0].lin_iters == re[1][0].lin_iters and re[0][0].iters == re[1][0].iters
+    log(f"[variants] (e) the global NS re-solve on the {'step' if gvars is not None else 'undeformed'} mesh, twice: "
+        f"linear {re[0][0].lin_iters} / {re[1][0].lin_iters}, |R| {re[0][0].res_norm:.3e} / {re[1][0].res_norm:.3e}, "
+        f"states bitwise equal {torch.equal(re[0][0].s, re[1][0].s)}")
+    check(same, "(e) the global NS re-solve repeats its counts")
+    jp1, jp2 = (ns_run.jprime(gctx, s02, lam02) for _ in range(2))
+    log(f"[variants] (e) J' twice at the 0.02 state: bitwise equal {torch.equal(jp1, jp2)}, max |diff| / max |J'| "
+        f"{rel_diff(jp1, jp2):.3e} (its backward scatters the element gathers)")
+    log(f"[variants] phase {time.perf_counter() - t_phase:.1f} s")
+    del gprob, gctx, re
+    torch.cuda.empty_cache()
+
+
 def small_reference():
-    """The refs=1 PCD ladder to PCD_VISC with drag, adjoint and J', in
+    """The refs=1 PCD ladder to SMALL_VISC with drag, adjoint and J', in
     float64 on the CPU with the float32 presets and REFERENCE_THREADS
     threads: what pcd_small holds the card's float32 run to, as numpy
     arrays.  tests/goldens/make_chip_reference.py runs it once (minutes on
     the CPU) and keeps it in SMALL_REFERENCE."""
     torch.set_num_threads(REFERENCE_THREADS)
     cfg = ns_run.f32_presets(NewtonConfig())
-    ctx = ns_run.build(1, "cpu", torch.float64, visc=PCD_VISC, cfg=cfg, pressure_precond="pcd")
-    out = ns_run.run(ctx, target_visc=PCD_VISC)
+    ctx = ns_run.build(1, "cpu", torch.float64, visc=SMALL_VISC, cfg=cfg, pressure_precond="pcd")
+    out = ns_run.run(ctx, target_visc=SMALL_VISC)
     rungs = small_summary(out)["rungs"]
     return dict(
         nu=np.array([r[0] for r in rungs]), converged=np.array([r[1] for r in rungs]),
@@ -1551,15 +1829,16 @@ def small_summary(out):
 
 
 def pcd_small():
-    """refs=1 PCD ladder to PCD_VISC with drag, adjoint and J', card
+    """refs=1 PCD ladder to SMALL_VISC with drag, adjoint and J', card
     float32 against the port's CPU float64 run kept in SMALL_REFERENCE,
     both with the float32 presets.  The Newton |R| history
     amplifies rounding (tests/test_torch_ns_slice_newton.py) and |R| lands
     near accept_tol, so which iteration first accepts, and with it the state
     the next rung starts from, differs with the last bits: two float64 CPU
-    runs of this ladder with other thread counts gave Newton 5 and 4 on the
-    first rung, first linear counts 416 and 366 on the last, rung totals up
-    to 22% apart (564 and 464 at visc 0.04), and drags 1.0e-6 apart; the float32 CPU run lay
+    runs of the ladder to visc 0.02 with other thread counts gave Newton 5
+    and 4 on the first rung, first linear counts 416 and 366 on the last,
+    rung totals up to 22% apart (564 and 464 at visc 0.04), and drags 1.0e-6
+    apart; the float32 CPU run lay
     2.5e-7 (drag) and 5.0e-6 of max|J'| (J') from the second.  At visc 0.16
     with the mass block float32 alone moved them 2.0e-5 and 2.6e-5.  Held:
     the same rungs converge on both, the first linear count from the cold
@@ -1568,8 +1847,8 @@ def pcd_small():
     differences seen."""
     cfg = ns_run.f32_presets(NewtonConfig())
     t0 = time.perf_counter()
-    out = ns_run.run(ns_run.build(1, dtype=torch.float32, visc=PCD_VISC, cfg=cfg, pressure_precond="pcd"),
-                     target_visc=PCD_VISC)
+    out = ns_run.run(ns_run.build(1, dtype=torch.float32, visc=SMALL_VISC, cfg=cfg, pressure_precond="pcd"),
+                     target_visc=SMALL_VISC)
     g = small_summary(out)
     log(f"[small] refs=1 PCD ladder on the card, float32: {time.perf_counter() - t0:.1f} s")
     c = load_small_reference()
@@ -1579,7 +1858,7 @@ def pcd_small():
             f"linear {gl} vs {cl}, |R| {gr:.3e} vs {cr:.3e}")
     ddrag = abs(g["drag"] - c["drag"]) / abs(c["drag"])
     djp = float(np.abs(out.jprime.double().cpu().numpy() - c["jprime"]).max() / np.abs(c["jprime"]).max())
-    log(f"[small] refs=1 PCD at visc {PCD_VISC} GPU f32 vs CPU f64: adjoint {g['adjoint']} vs {c['adjoint']}, "
+    log(f"[small] refs=1 PCD at visc {SMALL_VISC} GPU f32 vs CPU f64: adjoint {g['adjoint']} vs {c['adjoint']}, "
         f"drag {g['drag']:.10g} vs {c['drag']:.10g} (rel diff {ddrag:.3e}, limit {DRAG_TOL:g}), |J'| "
         f"{g['jprime_norm']:.6e} vs {c['jprime_norm']:.6e}, J' rel max diff {djp:.3e} (limit {JPRIME_TOL:g})")
     check([r[:2] for r in g["rungs"]] == [r[:2] for r in c["rungs"]] and all(r[1] for r in g["rungs"]),
@@ -1740,28 +2019,37 @@ def run_phases(kind, phases_run):
         phase_done("step")
 
     # 8. the global (block-ELL) backend: one step from the same state, the sweeps
+    gvars = None
     if "global" in phases_run:
         ctx_mass = None if ctx_pcd is None else dataclasses.replace(
             ctx_pcd, pressure_precond="mass", pcd_tabs=None, pcd_struct=None)
-        global_phase(ctx_mass, launches, by_lattice, at[-1] if at else None, patch0)
+        gvars = global_phase(ctx_mass, launches, by_lattice, at[-1] if at else None, patch0)
         del ctx_mass
         torch.cuda.empty_cache()
         phase_done("global")
     del at
 
     # 9. the PCD path at refs=2: one rung to visc 0.02, drag, adjoint, J'
+    pcd_rec = None
     if "pcd" in phases_run:
-        pcd_phase(ctx_pcd, launches, by_lattice, mass_rungs)
+        pcd_rec = pcd_phase(ctx_pcd, launches, by_lattice, mass_rungs)
         phase_done("pcd")
-    del ctx_pcd, mass_rungs
+    del ctx_pcd
     torch.cuda.empty_cache()
 
-    # 10. small-input agreement: GPU float32 vs the port's float64 CPU runs
+    # 10. ROADMAP item 9b: matrix-free, vorder=1, b2nd_order, global PCD, the repair
+    if "variants" in phases_run:
+        variants_phase(gvars, mass_rungs, pcd_rec, launches, by_lattice)
+        phase_done("variants")
+    del gvars, mass_rungs
+    torch.cuda.empty_cache()
+
+    # 11. small-input agreement: GPU float32 vs the port's float64 CPU runs
     if "small" in phases_run:
         small_phase()
         phase_done("small")
 
-    # 11. the CLI at 3D refs=1, against its float64 CPU run
+    # 12. the CLI at 3D refs=1, against its float64 CPU run
     if "cli" in phases_run:
         cli_phase(launches, by_lattice)
         phase_done("cli")

@@ -2,7 +2,8 @@
 from the port itself in float64 on the CPU with the float32 presets:
 
   * pcd: tests/goldens/chip_pcd_ladder_refs1.npz, the refs=1 PCD ladder
-    to visc 0.02 with drag, adjoint and J' (chip_smoke.small_reference);
+    to visc 0.04 (chip_smoke.SMALL_VISC) with drag, adjoint and J'
+    (chip_smoke.small_reference);
   * step: tests/goldens/chip_step_refs1.npz, one optimization step at 3D
     refs=1 from the cold start (chip_smoke.step_reference);
   * cli: tests/goldens/chip_cli_refs1.npz, the CLI on chip_smoke.CLI_ARGV

@@ -42,11 +42,18 @@ on the CPU in float64:
     and the JAX CLI with -backend global and with -grid; held by
     tests/test_torch_admm_global.py, _obstacle_global*.py, _sweep.py and
     _cli_global.py.
+  * variants: tests/goldens/e2e_variants.npz (configurations in
+    tests/torch_variants_golden.py): one step each with b2nd_order, PCD on
+    the global backend, ns_assembled_jac "off" and vorder 1, and the NS
+    path alone matrix-free and P1/P1; held by
+    tests/test_torch_obstacle_variants.py and test_torch_ns_matfree.py.
+    The b2nd_order step runs the JAX package's monolithic ADMM loop, the
+    one that passes its J'' term (its host-stepped ADMM driver has none).
 
 The JAX stepped kernels compile for minutes on one CPU core.  Run from the
 repository root:
 
-    python tests/goldens/make_e2e_goldens.py [e2e] [adjoint] [ckpt] [cli] [global]
+    python tests/goldens/make_e2e_goldens.py [e2e] [adjoint] [ckpt] [cli] [global] [variants]
 """
 import contextlib
 import io
@@ -82,6 +89,7 @@ SIDECAR_OUT = HERE / "e2e_ckpt_2d_sidecar.npz"
 TELEMETRY_OUT = HERE / "e2e_ckpt_2d_telemetry.npz"
 CLI_OUT = HERE / "e2e_cli_2d.npz"
 GLOBAL_OUT = HERE / "e2e_global.npz"
+VARIANTS_OUT = HERE / "e2e_variants.npz"
 CLI_ARGV = ["-dim", "2", "-numRefs", "1", "-numSteps", "2", "-admmSteps", "8", "-x64"]
 TELEMETRY_FILES = {"drag": "__Drag.txt", "iterations": "__Iterations_per_step.txt"}
 NUM_STEPS = 2
@@ -131,13 +139,15 @@ def parse_verbose(text):
     return steps
 
 
-def run_e2e(name, kw, num_steps=NUM_STEPS):
+def run_e2e(name, kw, num_steps=NUM_STEPS, admm_stepped=True, check=True):
     cfg = problem_config(kw)
     prob = ObstacleShapeOpt(cfg)
     glob = cfg.backend == "global" or cfg.grid_path is not None
-    assert prob.use_ns_jac and (not (prob.use_patch or prob.use_patch_ns) if glob else prob.use_patch and prob.use_patch_ns)
+    if check:
+        assert prob.use_ns_jac and (not (prob.use_patch or prob.use_patch_ns) if glob
+                                    else prob.use_patch and prob.use_patch_ns)
     prob._ns_stepped = True
-    prob._admm_stepped_on = True
+    prob._admm_stepped_on = admm_stepped
     after0, ladder = {}, {}
 
     def callback(step, X, s, rec):
@@ -310,6 +320,51 @@ def run_global():
     return out
 
 
+def run_ns_alone(name, kw):
+    """The NS path alone at V.NS_VISC from the cold start, with the
+    host-stepped drivers: Newton's linear counts per iteration, drag, the
+    adjoint's count and J'."""
+    import torch_variants_golden as V
+
+    prob = ObstacleShapeOpt(problem_config(kw))
+    assert not prob.use_ns_jac
+    prob._ns_stepped = True
+    X = prob.X0
+    buf = Tee()
+    with contextlib.redirect_stdout(buf):
+        s, it, nrm, conv = prob._ns_solve(X, prob.initial_state(X), visc=V.NS_VISC, verbose=True)
+    lin = [int(v) for v in re.findall(r"\((\d+) lin\)", buf.getvalue())]
+    lam, adj_res, adj_it = prob._adjoint(X, s)
+    out = dict(newton_iters=int(it), res_norm=float(nrm), converged=bool(conv), lin_iters=np.asarray(lin),
+               drag=float(prob._drag(X, s)), adj_iters=int(adj_it), adj_res=float(adj_res),
+               jprime=np.asarray(prob._jprime(X, s, lam)), s=np.asarray(s))
+    print(f"{name}: newton {int(it)} lin {lin} |R| {float(nrm):.3e} drag {out['drag']!r} adjoint {int(adj_it)}",
+          flush=True)
+    return {f"{name}_{k}": np.asarray(v) for k, v in out.items()}
+
+
+def run_variants():
+    """The variants' goldens (tests/torch_variants_golden.py)."""
+    import torch_variants_golden as V
+
+    out = {}
+    for name, kw in V.CONFIGS.items():
+        out.update(run_e2e(name, kw, num_steps=1, admm_stepped=name != "b2nd", check=False))
+    for name, kw in V.NS_CASES.items():
+        out.update(run_ns_alone(name, kw))
+    # the JAX package's monolithic newton_solve with its default
+    # block-diagonal preconditioner and matrix-free jvp, on the P1/P1 space
+    prob = ObstacleShapeOpt(problem_config(V.NS_CASES["ns_p1"]))
+    X = prob.X0
+    s, it, nrm, conv = ns_solver.newton_solve(prob.ns_space, X, prob.initial_state(X), V.NS_VISC, stab=V.P1_STAB)
+    out.update(p1_mono_newton_iters=np.asarray(int(it)), p1_mono_res_norm=np.asarray(float(nrm)),
+               p1_mono_converged=np.asarray(bool(conv)), p1_mono_drag=np.asarray(float(prob._drag(X, s))),
+               p1_mono_s=np.asarray(s))
+    print(f"p1_mono: newton {int(it)} |R| {float(nrm):.3e} converged {bool(conv)} drag {float(prob._drag(X, s))!r}",
+          flush=True)
+    return out
+
+
 def main(which):
     if "e2e" in which:
         out = {}
@@ -325,11 +380,11 @@ def main(which):
         np.savez_compressed(ADJ_OUT, **out)
         print(f"wrote {ADJ_OUT} ({ADJ_OUT.stat().st_size} bytes)", flush=True)
     for name, run, path in (("ckpt", run_ckpt, TELEMETRY_OUT), ("cli", run_cli, CLI_OUT),
-                            ("global", run_global, GLOBAL_OUT)):
+                            ("global", run_global, GLOBAL_OUT), ("variants", run_variants, VARIANTS_OUT)):
         if name in which:
             np.savez_compressed(path, **run())
             print(f"wrote {path}", flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["e2e", "adjoint", "ckpt", "cli", "global"])
+    main(sys.argv[1:] or ["e2e", "adjoint", "ckpt", "cli", "global", "variants"])

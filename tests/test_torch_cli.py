@@ -8,8 +8,8 @@ of the JAX package's verify notes
 writing the __Drag.txt and __Iterations_per_step.txt of the JAX CLI on
 that argv (tests/goldens/e2e_cli_2d.npz, made by
 tests/goldens/make_e2e_goldens.py cli).  Without -x64 the CLI takes the
-card, and without one it raises; the settings the port does not run yet
-raise ObstacleShapeOpt's NotImplementedError (ROADMAP item 9b).  The
+card, and without one it raises; -b2ndOrder 1 and -vorder 1 run, in the
+process and through the module entry point.  The
 global backend's runs (-backend global, -grid) are in
 tests/test_torch_cli_global.py."""
 import pathlib
@@ -132,15 +132,29 @@ def test_without_x64_the_cli_takes_the_card(monkeypatch, tmp_path):
         cli.main(["-dim", "2", "-numRefs", "0", "-outDir", str(tmp_path)])
 
 
+# a one-step run at 2D refs=0, visc 0.16, one attempt with a small x-update
+VARIANT_ARGV = ["-dim", "2", "-numRefs", "0", "-numSteps", "1", "-visc", "0.16", "-admmSteps", "3", "-nsMaxIts", "3",
+                "-tau", "2", "-x64"]
+
+
 @pytest.mark.parametrize("flags", [["-b2ndOrder", "1"], ["-vorder", "1"]])
-def test_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        cli.main(["-dim", "2", "-numRefs", "0", "-x64", "-outDir", str(tmp_path)] + flags)
+def test_unported_flags_raise(tmp_path, capsys, flags):
+    """The flags that ROADMAP item 9b brought run: exit code 0, the ladder
+    and the step's telemetry written."""
+    assert cli.main(VARIANT_ARGV + ["-outDir", str(tmp_path)] + flags) == 0
+    assert "DONE:" in capsys.readouterr().out
+    assert (tmp_path / "checkpoint.npz").exists()
 
 
 def test_module_entry_point_exits_nonzero_on_an_unported_flag(tmp_path):
+    """python -m admm_optim_tpu_torch.cli with -b2ndOrder 1, which raised
+    before ROADMAP item 9b, exits 0; an unknown choice still exits nonzero."""
     out = subprocess.run(
-        [sys.executable, "-m", "admm_optim_tpu_torch.cli", "-dim", "2", "-numRefs", "0", "-x64", "-b2ndOrder",
-         "1", "-outDir", str(tmp_path)], cwd=REPO, capture_output=True, text=True, timeout=120,
+        [sys.executable, "-m", "admm_optim_tpu_torch.cli"] + VARIANT_ARGV + ["-b2ndOrder", "1", "-outDir",
+                                                                             str(tmp_path)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
     )
-    assert out.returncode != 0 and "NotImplementedError" in out.stderr and "item 9b" in out.stderr
+    assert out.returncode == 0 and "DONE:" in out.stdout, out.stderr[-2000:]
+    bad = subprocess.run([sys.executable, "-m", "admm_optim_tpu_torch.cli", "-vorder", "3"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert bad.returncode != 0 and "-vorder" in bad.stderr

@@ -9,7 +9,11 @@ are in tests/test_torch_obstacle_3d*.py.  What is held and why:
 tests/torch_obstacle_golden.py.
 
 Also: the configuration and resume state converters, the float32 presets,
-and what the port refuses (NotImplementedError, naming ROADMAP item 9b).
+and the settings that ROADMAP item 9b brought (b2nd_order, vorder=1, the
+matrix-free NS operators, PCD on the global backend), each run through one
+attempt at 2D refs=0 (their parity with the JAX package is held in
+tests/test_torch_b2nd_order.py, _obstacle_variants.py, _pcd_global.py and
+_ns_matfree.py).
 ObstacleShapeOpt's outputs, checkpoints and profiler are held in
 tests/test_torch_obstacle_hooks.py and tests/test_torch_resume.py."""
 import dataclasses
@@ -24,6 +28,7 @@ from admm_optim_tpu.solvers import ns_solver as jns
 from admm_optim_tpu_torch import convert
 from admm_optim_tpu_torch.models import obstacle
 from admm_optim_tpu_torch.models.obstacle import ObstacleShapeOpt, ProblemConfig
+from admm_optim_tpu_torch.optim.admm import ADMMConfig
 from torch_obstacle_golden import golden, mesh_invariants, obstacle_golden, port
 
 torch.set_num_threads(1)
@@ -107,33 +112,56 @@ def test_f32_presets_equal_the_jax_package(dim):
     assert obstacle.f32_presets(convert.problem_config(cfg)) == convert.problem_config(jobstacle.f32_presets(cfg))
 
 
+def _one_attempt(**kw):
+    """One optimization step's first attempt at 2D refs=0, visc 0.16, with
+    a small x-update budget: what the setting runs, not its parity."""
+    cfg = ProblemConfig(num_refs=0, visc=0.16, max_attempts_per_step=1,
+                        admm=ADMMConfig(admm_steps=3, ns_max_its=3, tau=2.0, lin_max_iters=20), **kw)
+    prob = ObstacleShapeOpt(cfg, device="cpu", dtype=torch.float64)
+    hist = prob.run(num_steps=1)
+    assert prob.ladder.rungs[-1].newton.converged and len(hist) <= 1
+    log = prob.step_log[0]
+    assert log["adjoint"]["exit"] == "target" and len(log["attempts"]) == 1
+    return prob
+
+
 @pytest.mark.parametrize("field,value,item", [
     ("b2nd_order", True, "item 9b"),
     ("vorder", 1, "item 9b"),
     ("ns_assembled_jac", "off", "item 9b"),
 ])
 def test_unported_settings_raise(field, value, item):
-    """What comes with ROADMAP item 9b raises; the global backend and .ugx
-    grids run (tests/test_torch_obstacle_global*.py), the outputs,
-    checkpoints and the profiler work (tests/test_torch_obstacle_hooks.py)."""
-    with pytest.raises(NotImplementedError, match=item):
-        ObstacleShapeOpt(ProblemConfig(num_refs=0, **{field: value}), device="cpu")
+    """What ROADMAP item 9b brought runs: the ladder, the adjoint and one
+    attempt, on the path the JAX package takes
+    (b2nd_order: the x-update on the global backend, the NS side on the
+    patch one; vorder=1 and ns_assembled_jac="off": no assembled Jacobian)."""
+    assert item == "item 9b"
+    prob = _one_attempt(**{field: value})
+    assert prob.use_patch_ns and prob.use_patch == (field != "b2nd_order")
+    assert prob.ns.assembled == (field == "b2nd_order")
+    assert prob.ns.space.vorder == (1 if field == "vorder" else 2)
 
 
 @pytest.mark.parametrize("kw", [dict(pressure_precond="pcd"), dict(ns_jac_mem_cap=1.0)], ids=["pcd", "mem_cap"])
 def test_global_backend_refusals(kw):
-    """On the global backend PCD and the matrix-free jvp above the memory
-    cap raise, naming item 9b; no fallback to the patch path."""
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        ObstacleShapeOpt(ProblemConfig(num_refs=0, backend="global", **kw), device="cpu")
+    """On the global backend PCD (the ELL forms) and the matrix-free jvp
+    above the memory cap run; no fallback to the patch path."""
+    prob = _one_attempt(backend="global", **kw)
+    assert not prob.use_patch and not prob.use_patch_ns and prob.ns.pre_ps is None
+    assert prob.ns.assembled == ("ns_jac_mem_cap" not in kw)
+    assert (prob.ns.p_space is not None) == ("pressure_precond" in kw)
 
 
 def test_jacobian_above_the_memory_cap_raises():
-    """No fallback to the matrix-free jvp: above ns_jac_mem_cap "auto"
-    raises, "on" assembles."""
-    with pytest.raises(NotImplementedError, match="ns_jac_mem_cap"):
-        ObstacleShapeOpt(ProblemConfig(num_refs=0, ns_jac_mem_cap=1.0), device="cpu")
-    ObstacleShapeOpt(ProblemConfig(num_refs=0, ns_jac_mem_cap=1.0, ns_assembled_jac="on"), device="cpu")
+    """Above ns_jac_mem_cap "auto" falls back to the matrix-free jvp, as the
+    JAX package does (obstacle.py:369-416); "on" assembles, "off" does not
+    even under the cap."""
+    ctx = ObstacleShapeOpt(ProblemConfig(num_refs=0, ns_jac_mem_cap=1.0), device="cpu").ns
+    assert not ctx.assembled and ctx.jac_bytes > 1.0
+    assert ObstacleShapeOpt(ProblemConfig(num_refs=0, ns_jac_mem_cap=1.0, ns_assembled_jac="on"),
+                            device="cpu").ns.assembled
+    assert not ObstacleShapeOpt(ProblemConfig(num_refs=0, ns_assembled_jac="off"), device="cpu").ns.assembled
+    assert ObstacleShapeOpt(ProblemConfig(num_refs=0), device="cpu").ns.assembled
 
 
 def test_entry_point_defaults_to_the_card():

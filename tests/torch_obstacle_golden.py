@@ -18,7 +18,9 @@ What is held and why (obstacle_golden):
 
 Imported by tests/test_torch_obstacle.py and tests/test_torch_obstacle_3d*.py;
 the global-backend tests (tests/test_torch_obstacle_global*.py) hold their
-cases ("2dg", "3dg", "grid2d") against tests/goldens/e2e_global.npz."""
+cases ("2dg", "3dg", "grid2d") against tests/goldens/e2e_global.npz, the
+variants' (tests/torch_variants_golden.py: "b2nd", "pcdg", "jacoff", "p1")
+against tests/goldens/e2e_variants.npz."""
 import pathlib
 
 import numpy as np
@@ -35,6 +37,8 @@ from admm_optim_tpu_torch.ops.geometry import elem_geometry
 
 GOLD = np.load(pathlib.Path(__file__).parent / "goldens" / "e2e_steps.npz")
 GLOBAL_GOLD = np.load(pathlib.Path(__file__).parent / "goldens" / "e2e_global.npz")
+VARIANTS_GOLD = np.load(pathlib.Path(__file__).parent / "goldens" / "e2e_variants.npz")
+VARIANTS = ("b2nd", "pcdg", "jacoff", "p1")
 # tests/test_e2e_2d.py:20-28 and tests/test_e2e_3d.py:22-33, as in make_e2e_goldens.py
 CONFIGS = {
     "2d": dict(dim=2, num_refs=1, visc=0.05, sigma_threshold=0.3,
@@ -48,7 +52,8 @@ CONFIGS = {
 # 1 of a run from the cold start: 652 against the JAX package's 664 in one
 # lane, 3,650 against 3,663 in all; on the global backend lanes by up to
 # 3.1% over two steps, 645 -> 625)
-KRYLOV_REL = {"2d": 0.0, "3d": 0.03, "2dg": 0.0, "3dg": 0.05, "grid2d": 0.0}
+KRYLOV_REL = {"2d": 0.0, "3d": 0.03, "2dg": 0.0, "3dg": 0.05, "grid2d": 0.0,
+              "b2nd": 0.0, "pcdg": 0.0, "jacoff": 0.0, "p1": 0.0}
 
 
 def jax_config(case, **kw):
@@ -62,7 +67,8 @@ def port(case, **kw):
 
 
 def golden(case, key):
-    return (GOLD if case in CONFIGS else GLOBAL_GOLD)[f"{case}_{key}"]
+    gold = GOLD if case in CONFIGS else VARIANTS_GOLD if case in VARIANTS else GLOBAL_GOLD
+    return gold[f"{case}_{key}"]
 
 
 def obstacle_golden(case, prob, hist, steps, drag_rel=1e-8, krylov_rel=None):
