@@ -39,6 +39,7 @@ def level_tables(tab, lvl: PatchLevel, device) -> st.LevelTables:
     def idx(a):
         return tensor(np.asarray(a).astype(np.int64), device)
 
+    dfg_bidx = tuple(idx(b) for b in (tab.dfg_bidx or ()))
     return st.LevelTables(
         owner=tensor(tab.owner, device),
         free=tensor(tab.free, device),
@@ -46,7 +47,8 @@ def level_tables(tab, lvl: PatchLevel, device) -> st.LevelTables:
         bslots=idx(lvl.bslots),
         bseg=idx(lvl.bseg),
         nseg=int(lvl.nseg),
-        dfg_bidx=tuple(idx(b) for b in (tab.dfg_bidx or ())),
+        dfg_bidx=dfg_bidx,
+        kmax=max((b.shape[1] for b in dfg_bidx), default=0),
     )
 
 

@@ -17,14 +17,23 @@ between bricks ("consistent"); operator application yields per-patch
 partial sums ("additive"); ``exchange_sum`` restores consistency by summing
 duplicates.
 
+Sharded patch axis (``SpmdCtx``): under torch.distributed each rank holds
+the contiguous patch block [rank * Pl, (rank + 1) * Pl) of every field and
+of its level's tables (``make_tables(..., shard=)``); the exchanges send
+only the duplicate groups whose members live on several ranks, and dots
+and the base-solve glue all-reduce their partial results.
+
 Left out on purpose: the TPU memory workarounds (``p_chunk``/``row_chunk``
 assembly, the row-chunked DF apply), the roll/slab exchange fast paths,
-which were tuned on the TPU, and the SPMD paths.  The stencil applies
-themselves live in ops.stencil_kernels (CUDA kernels + plain twins).
+which were tuned on the TPU, and with them the slab and point-to-point
+halo forms of the sharded exchange (the cross-shard groups alone carry
+the same halo-sized traffic).  The stencil applies themselves live in
+ops.stencil_kernels (CUDA kernels + plain twins).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -228,8 +237,57 @@ def apply_w_df(ps: PatchSet, W, xh, xl):
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
+class SpmdCtx:
+    """The patch axis P sharded over the ranks of a torch.distributed
+    group: the counterpart of the JAX package's (axis, nshards) inside
+    shard_map.  Rank ``rank`` owns the contiguous patch block
+    [rank * Pl, (rank + 1) * Pl) of every level (geomgen emits bricks
+    x-major, so a block is a slab of the channel).  psum and pmax become
+    ``all_reduce``, the tiled all_gather ``all_gather_p``.  Every rank must
+    reach every collective, in the same order: loop decisions are taken on
+    all-reduced values, which gloo hands every rank bit for bit equal."""
+
+    group: Any  # torch.distributed ProcessGroup; None = the default group
+    rank: int  # this rank's index in group: its patch block
+    nshards: int
+    sent_bytes: int = 0  # bytes this rank handed to its collectives
+
+    def offset(self, Pl: int) -> int:
+        """First global patch index of this rank's block of Pl patches."""
+        return self.rank * Pl
+
+    def all_reduce(self, t, op: str = "sum"):
+        """Sum (or max) of t over the ranks, in place: t must be a fresh
+        tensor of the caller's."""
+        import torch.distributed as dist
+
+        reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        dist.all_reduce(t, op=reduce_op, group=self.group)
+        self.sent_bytes += t.numel() * t.element_size()
+        return t
+
+    def all_gather_p(self, t):
+        """(..., Pl) blocks of every rank -> (..., P), concatenated in rank
+        order along the last axis: each rank puts its block into a zero
+        buffer and the buffers are summed, which is exact (adding zeros is
+        error-free) and needs of the backend only all_reduce."""
+        Pl = t.shape[-1]
+        out = t.new_zeros(t.shape[:-1] + (Pl * self.nshards,))
+        off = self.offset(Pl)
+        out[..., off : off + Pl] = t
+        return self.all_reduce(out)
+
+    def take_block(self, t):
+        """This rank's contiguous (..., Pl) block of a full (..., P) array."""
+        Pl = t.shape[-1] // self.nshards
+        off = self.offset(Pl)
+        return t[..., off : off + Pl].contiguous()
+
+
+@dataclasses.dataclass
 class LevelTables:
-    """Device-side exchange/ownership tables for one patch level."""
+    """Device-side exchange/ownership tables for one patch level (of one
+    rank's patch block when the level is sharded)."""
 
     owner: torch.Tensor  # (*lat, P) 1.0 at owned sites
     free: torch.Tensor  # (*lat, P) 0.0 at Dirichlet sites
@@ -242,6 +300,16 @@ class LevelTables:
     dfg_bidx: tuple = ()
     # exchange_groups' two tables, made from dfg_bidx at first use
     groups: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    # the largest group size of the whole level: the width exchange_groups
+    # pads every 3+-member group to (0 = the widest table of dfg_bidx)
+    kmax: int = 0
+    # sharded level: the members of the groups that span ranks travel in an
+    # (n, n_remote) buffer, all-reduced; send_src are this rank's flat
+    # slots of such members, send_pos their columns in the buffer.  The
+    # slot tables above index the rank's flat sites followed by that buffer
+    send_src: torch.Tensor | None = None
+    send_pos: torch.Tensor | None = None
+    n_remote: int = 0
 
 
 def _df_group_tables(lvl: PatchLevel) -> list:
@@ -272,22 +340,110 @@ def _df_group_tables(lvl: PatchLevel) -> list:
     return bidx
 
 
-def make_tables(lvl: PatchLevel, dtype=torch.float32, device="cpu") -> LevelTables:
-    def idx(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+def _shard_slots(lvl: PatchLevel, bidx: list, rank: int, nshards: int) -> dict:
+    """One rank's exchange tables over [its flat sites | the remote buffer].
 
-    return LevelTables(
-        owner=torch.as_tensor(lvl.owner, dtype=dtype, device=device),
-        free=torch.as_tensor(lvl.free, dtype=dtype, device=device),
-        gid=idx(np.moveaxis(lvl.gid, 0, -1)),
-        bslots=idx(lvl.bslots),
-        bseg=idx(lvl.bseg),
-        nseg=int(lvl.nseg),
-        dfg_bidx=tuple(idx(b) for b in _df_group_tables(lvl)),
+    A group whose members all live on this rank is read and written at its
+    local slots.  A group that spans ranks takes one buffer column per
+    member (columns numbered in the whole level's group order, the same on
+    every rank); each rank puts in the values of its own members, the
+    buffer is all-reduced, and the group is read with its local members at
+    their slots and the others from the buffer.  Every group this rank
+    touches keeps its members in the single-device table's order, so it
+    is summed exactly as there.  Groups without a member here are
+    dropped."""
+    P = lvl.P
+    if P % nshards:
+        raise ValueError(f"P = {P} is no multiple of {nshards} shards (core.patches.pad_patchset)")
+    Pl = P // nshards
+    off = rank * Pl
+    n_loc = int(np.prod(lvl.lat_shape)) * Pl
+
+    def local(f):
+        return (f // P) * Pl + (f % P - off), (f % P >= off) & (f % P < off + Pl)
+
+    remote_of = np.full(lvl.n_sites, -1, np.int64)  # buffer column of each spanning member
+    n_remote = 0
+    send_src, send_pos, rows = [], [], []
+    for b in bidx:
+        slot, here = local(b)
+        span = ((b % P) // Pl != (b[:, :1] % P) // Pl).any(axis=1)
+        cols = n_remote + np.arange(int(span.sum()) * b.shape[1]).reshape(-1, b.shape[1])
+        remote_of[b[span]] = cols
+        n_remote += cols.size
+        mine = here & span[:, None]
+        send_src.append(slot[mine])
+        send_pos.append(remote_of[b[mine]])
+        src = np.where(here, slot, n_loc + remote_of[b])
+        rows.append(src[here.any(axis=1)])
+    # the segment-sum form (CPU): the level's slots in their order, the
+    # groups this rank touches only, ids renumbered
+    slot, here = local(lvl.bslots)
+    touched = np.zeros(lvl.nseg, bool)
+    touched[lvl.bseg[here]] = True
+    keep = touched[lvl.bseg]
+    src = np.where(here, slot, n_loc + remote_of[lvl.bslots])[keep]
+    _, bseg = np.unique(lvl.bseg[keep], return_inverse=True)
+    return dict(
+        bslots=src, bseg=bseg, nseg=int(bseg.max()) + 1 if len(bseg) else 0,
+        dfg_bidx=[r for r in rows if len(r)],
+        send_src=np.concatenate(send_src) if send_src else np.zeros(0, np.int64),
+        send_pos=np.concatenate(send_pos) if send_pos else np.zeros(0, np.int64),
+        n_remote=n_remote, off=off, Pl=Pl,
     )
 
 
-def exchange_sum(lvl: PatchLevel, x, tab: LevelTables | None = None):
+def make_tables(lvl: PatchLevel, dtype=torch.float32, device="cpu", shard: SpmdCtx | None = None) -> LevelTables:
+    """The level's tables, or with shard those of shard.rank's patch block:
+    the (*lat, Pl) slices of owner, free and gid, and the exchange tables
+    of _shard_slots, all built once on the host."""
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    bidx = _df_group_tables(lvl)
+    kmax = max((b.shape[1] for b in bidx), default=0)
+    gid = np.moveaxis(lvl.gid, 0, -1)
+    if shard is None:
+        return LevelTables(
+            owner=torch.as_tensor(lvl.owner, dtype=dtype, device=device),
+            free=torch.as_tensor(lvl.free, dtype=dtype, device=device),
+            gid=idx(gid),
+            bslots=idx(lvl.bslots),
+            bseg=idx(lvl.bseg),
+            nseg=int(lvl.nseg),
+            dfg_bidx=tuple(idx(b) for b in bidx),
+            kmax=kmax,
+        )
+    t = _shard_slots(lvl, bidx, shard.rank, shard.nshards)
+    blk = slice(t["off"], t["off"] + t["Pl"])
+    return LevelTables(
+        owner=torch.as_tensor(np.ascontiguousarray(lvl.owner[..., blk]), dtype=dtype, device=device),
+        free=torch.as_tensor(np.ascontiguousarray(lvl.free[..., blk]), dtype=dtype, device=device),
+        gid=idx(np.ascontiguousarray(gid[..., blk])),
+        bslots=idx(t["bslots"]),
+        bseg=idx(t["bseg"]),
+        nseg=t["nseg"],
+        dfg_bidx=tuple(idx(b) for b in t["dfg_bidx"]),
+        kmax=kmax,
+        send_src=idx(t["send_src"]),
+        send_pos=idx(t["send_pos"]),
+        n_remote=t["n_remote"],
+    )
+
+
+def _with_remote(tab: LevelTables, xf, spmd: SpmdCtx | None):
+    """Flat fields (n, sites) -> (n, sites + n_remote): this rank's sites,
+    then the all-reduced values of the members of the groups that span
+    ranks (zero-masked on the ranks that do not hold them, so each sum has
+    one nonzero term and is exact).  Unsharded: xf itself."""
+    if spmd is None or tab.n_remote == 0:
+        return xf
+    buf = xf.new_zeros((xf.shape[0], tab.n_remote))
+    buf[:, tab.send_pos] = xf[:, tab.send_src]
+    return torch.cat([xf, spmd.all_reduce(buf)], dim=1)
+
+
+def exchange_sum(lvl: PatchLevel, x, tab: LevelTables | None = None, spmd: SpmdCtx | None = None):
     """additive -> consistent: sum duplicated boundary sites (segment sum
     over the boundary slots; UG4's change_storage_type_to_consistent).
     Every leading axis (components, lanes) is exchanged alike.
@@ -295,30 +451,38 @@ def exchange_sum(lvl: PatchLevel, x, tab: LevelTables | None = None):
     error-free exchange's) and summed along a fixed axis, so a run adds
     the members of a 3+-member group in one order every time (index_add_
     would add them in atomic order, and two identical calls could part in
-    the last bit); on the CPU index_add_ adds them in slot order."""
+    the last bit); on the CPU index_add_ adds them in slot order.
+    spmd (x this rank's block, tab its make_tables(..., shard=)): the same
+    sums over the rank's sites and the all-reduced members of the groups
+    that span ranks (_with_remote), equal to the single-device exchange
+    bit for bit."""
     if tab is None:
         tab = make_tables(lvl, x.dtype, x.device)
-    xf = x.reshape(-1, tab.owner.numel())
+    n = tab.owner.numel()
+    xf = _with_remote(tab, x.reshape(-1, n), spmd)
     if x.is_cuda and tab.dfg_bidx:
-        return exchange_groups(tab, xf).reshape(x.shape)
-    out = xf.clone()
-    s = xf.new_zeros((xf.shape[0], tab.nseg)).index_add_(1, tab.bseg, xf[:, tab.bslots])
-    out[:, tab.bslots] = s[:, tab.bseg]
-    return out.reshape(x.shape)
+        out = exchange_groups(tab, xf)
+    else:
+        out = xf.clone()
+        s = xf.new_zeros((xf.shape[0], tab.nseg)).index_add_(1, tab.bseg, xf[:, tab.bslots])
+        out[:, tab.bslots] = s[:, tab.bseg]
+    return out[:, :n].reshape(x.shape)
 
 
 def exchange_groups(tab: LevelTables, xf):
     """exchange_sum's GPU form on flat (n, sites) fields: the pairs from one
-    (g, 2) table, every larger group from one (g, k_max) table padded with
+    (g, 2) table, every larger group from one (g, kmax) table padded with
     a zero column appended to the field; each group gathered and summed
     along a fixed axis, the sums written back over its members (the
     padding's writes land in the zero column, which is dropped).  Eight
-    launches whatever the number of group sizes."""
+    launches whatever the number of group sizes.  The padding to the whole
+    level's kmax makes a rank's table of a sharded level sum each group as
+    the single-device table does."""
     n_sites = xf.shape[1]
     if "pairs" not in tab.groups:
         pad = np.int64(n_sites)
         big = [b.cpu().numpy() for b in tab.dfg_bidx if b.shape[1] > 2]
-        k = max((b.shape[1] for b in big), default=0)
+        k = max([tab.kmax] + [b.shape[1] for b in big])
         rest = np.concatenate([np.pad(b, ((0, 0), (0, k - b.shape[1])), constant_values=pad) for b in big]) if big else None
         pairs = [b for b in tab.dfg_bidx if b.shape[1] == 2]
         tab.groups["pairs"] = pairs[0] if pairs else None
@@ -331,18 +495,25 @@ def exchange_groups(tab: LevelTables, xf):
     return xp[:, :n_sites]
 
 
-def exchange_sum_df(tab: LevelTables, xh, xl):
+def exchange_sum_df(tab: LevelTables, xh, xl, spmd: SpmdCtx | None = None):
     """additive -> consistent for a double-float pair, ERROR-FREE: each
     duplicate group is gathered from its bucket table and folded with
     two_sum in a fixed order, so the consistent sum is exact to O(eps^2)
     and deterministic (an index_add_ of the parts would add in atomic,
     run-dependent order and lose exactness).  Every slot belongs to one
-    group, so the write-back is a plain indexed store."""
+    group, so the write-back is a plain indexed store.  spmd: the hi and lo
+    members of the groups that span ranks travel in one all-reduce
+    (_with_remote); the folds are those of the single device, so is the
+    result, bit for bit."""
+    C = xh.shape[0]
+    n = tab.owner.numel()
+    if spmd is None or tab.n_remote == 0:
+        xfh, xfl = xh.reshape(C, -1), xl.reshape(C, -1)
+    else:  # before any early return: every rank takes part in the all-reduce
+        xf = _with_remote(tab, torch.cat([xh.reshape(C, -1), xl.reshape(C, -1)]), spmd)
+        xfh, xfl = xf[:C], xf[C:]
     if not tab.dfg_bidx:
         return xh, xl
-    C = xh.shape[0]
-    xfh = xh.reshape(C, -1)
-    xfl = xl.reshape(C, -1)
     outh = xfh.clone()
     outl = xfl.clone()
     for idx in tab.dfg_bidx:  # (g_k, k)
@@ -355,17 +526,19 @@ def exchange_sum_df(tab: LevelTables, xh, xl):
         sh, sl = df.two_sum(sh, sl)
         outh[:, idx] = sh[..., None].expand(vh.shape)
         outl[:, idx] = sl[..., None].expand(vl.shape)
-    return outh.reshape(xh.shape), outl.reshape(xl.shape)
+    return outh[:, :n].reshape(xh.shape), outl[:, :n].reshape(xl.shape)
 
 
-def owner_dot(lvl: PatchLevel, x, y, tab: LevelTables | None = None):
+def owner_dot(lvl: PatchLevel, x, y, tab: LevelTables | None = None, spmd: SpmdCtx | None = None):
     """Global inner product of two consistent patch vectors: a 0-d tensor
-    for fields (C, *lat, P), one value per lane (B,) for (B, C, *lat, P)."""
+    for fields (C, *lat, P), one value per lane (B,) for (B, C, *lat, P).
+    spmd: the ranks' partial sums all-reduced."""
     if tab is not None:
         w = tab.owner.to(x.dtype)
     else:
         w = torch.as_tensor(lvl.owner, dtype=x.dtype, device=x.device)
-    return torch.sum(x * y * w, dim=tuple(range(-w.dim() - 1, 0)))
+    d = torch.sum(x * y * w, dim=tuple(range(-w.dim() - 1, 0)))
+    return d if spmd is None else spmd.all_reduce(d)
 
 
 def to_patch(lvl: PatchLevel, v_global):
@@ -395,15 +568,18 @@ def to_patch_tab(tab: LevelTables, v_global):
     return v_global[..., tab.gid].contiguous()
 
 
-def from_patch_tab(tab: LevelTables, x, n_vertices: int, mode: str = "owner"):
+def from_patch_tab(tab: LevelTables, x, n_vertices: int, mode: str = "owner", spmd: SpmdCtx | None = None):
     """patch (..., C, *lat, P) -> global (..., C, V) (the base-solve glue).
     In "owner" mode every vertex receives one nonzero copy, so the add order
-    cannot change the result."""
+    cannot change the result.  spmd: the ranks' partial vectors
+    all-reduced, replicated on every rank (the reference's
+    gatheredBaseSolverIfAmbiguous, obstacle_optim_util.lua:21)."""
     lead = x.shape[: x.dim() - tab.gid.dim()]
     xf = x.reshape(lead + (-1,))
     if mode == "owner":
         xf = xf * tab.owner.to(x.dtype).reshape(-1)
-    return xf.new_zeros(lead + (n_vertices,)).index_add_(-1, tab.gid.reshape(-1), xf)
+    out = xf.new_zeros(lead + (n_vertices,)).index_add_(-1, tab.gid.reshape(-1), xf)
+    return out if spmd is None else spmd.all_reduce(out)
 
 
 # ---------------------------------------------------------------------------

@@ -291,6 +291,12 @@ class StencilTables:
         self._on_device = {}
         self._packed = {}
 
+    def __getstate__(self):
+        # a patchset handed to another process (parallel.launch) carries
+        # its tables without the caches: ctypes arrays do not pickle, and
+        # the device tables are remade where they are used
+        return {**self.__dict__, "_on_device": {}, "_packed": {}}
+
     def rows(self, kind):
         if kind == "full_t":
             return _transpose_rows(self.stencil)

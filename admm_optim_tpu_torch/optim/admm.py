@@ -22,6 +22,12 @@ The JAX package's ``lax.while_loop``s become Python loops with Python
 counters; its monolithic and host-stepped drivers (held equal by its own
 tests) become the one driver ``admm_inner``.  Its ``xsolve_sequential``
 option, a workaround for XLA tile padding, is not ported.
+
+On a sharded PatchOps (parallel.patch_shard) each rank runs these loops on
+its patch block: every value a loop decides on (the Krylov residuals, the
+constraint defects, the Newton and ADMM norms, the gradient maximum) comes
+from the adapter's all-reduced dots and norms, the same bits on every
+rank, so the ranks take the same branches and reach the same collectives.
 """
 from __future__ import annotations
 

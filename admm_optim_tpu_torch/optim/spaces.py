@@ -9,8 +9,11 @@ bind it to a field layout:
     tensors (d, d, T, *cells, P): the stencil apply plus the duplicate-site
     exchange, the solvers.patch_mg V-cycle, owner-weighted inner products.
 Every field method also takes a lane axis (B, C, ...), which the
-x-update's batched Krylov solves use.  Single device only: the JAX
-package's SPMD wiring (``struct.spmd``) comes with the multi-device layer.
+x-update's batched Krylov solves use.  With ``struct.spmd`` set (and
+pvalid the rank's slice of the patch-validity mask of a padded set) the
+same PatchOps runs on one rank's patch block (parallel.patch_shard):
+exchanges and dots take the sharded forms, reductions all-reduce, maxima
+too, so optim.admm's loops decide on values every rank holds alike.
 """
 from __future__ import annotations
 
@@ -139,12 +142,16 @@ class PatchOps:
 
     struct: Any  # pmg.PatchMGStructure
     data: Any  # pmg.PatchMGData (carries per-level tables)
-    coords_p: torch.Tensor  # (d, *lat, P)
-    pvalid: torch.Tensor | None = None  # (P,) 0 at padded dummy patches
+    coords_p: torch.Tensor  # (d, *lat, P), this rank's block under spmd
+    pvalid: torch.Tensor | None = None  # (P_local,) 0 at padded dummy patches
 
     @property
     def ps(self):
         return self.struct.ps
+
+    @property
+    def spmd(self):
+        return self.struct.spmd
 
     @property
     def dim(self):
@@ -158,18 +165,33 @@ class PatchOps:
     def free(self):
         return self.tab.free.to(self.coords_p.dtype)  # (*lat, P); bcasts
 
+    def _psum(self, v):
+        return v if self.spmd is None else self.spmd.all_reduce(v)
+
+    def _pmax(self, v):
+        return v if self.spmd is None else self.spmd.all_reduce(v, "max")
+
+    def _norm(self, v):
+        """A norm from this rank's partial norm v: the root of the summed
+        squares."""
+        return v if self.spmd is None else torch.sqrt(self._psum(v * v))
+
+    @property
+    def _P_local(self):
+        return self.coords_p.shape[-1]
+
     def zeros_field(self, dtype):
         lvl = self.ps.fine
-        return self.coords_p.new_zeros((self.dim,) + lvl.lat_shape + (lvl.P,), dtype=dtype)
+        return self.coords_p.new_zeros((self.dim,) + lvl.lat_shape + (self._P_local,), dtype=dtype)
 
     def zeros_tensor(self, dtype):
         d = self.dim
         T = len(self.ps.class_offsets)
         m = self.ps.fine.m
-        return self.coords_p.new_zeros((d, d, T) + (m,) * d + (self.ps.fine.P,), dtype=dtype)
+        return self.coords_p.new_zeros((d, d, T) + (m,) * d + (self._P_local,), dtype=dtype)
 
     def _apply(self, W, x):
-        return pst.exchange_sum(None, pst.apply_w(self.ps, W, x), self.tab) * self.free
+        return pst.exchange_sum(None, pst.apply_w(self.ps, W, x), self.tab, spmd=self.spmd) * self.free
 
     def A(self, x):
         return self._apply(self.data.W[self.ps.k], x)
@@ -178,7 +200,7 @@ class PatchOps:
         return pmg.vcycle_p(self.struct, self.data, r)
 
     def dot(self, x, y):
-        return pst.owner_dot(None, x, y, self.tab)
+        return pst.owner_dot(None, x, y, self.tab, spmd=self.spmd)
 
     def dot_batch(self, Xs, Ys):
         """Owner-weighted (i, j) Gram block in one pass: the Schur assembly
@@ -186,11 +208,11 @@ class PatchOps:
         w = self.tab.owner.to(Xs.dtype)
         Xf = (Xs * w).reshape(Xs.shape[0], -1)
         Yf = Ys.reshape(Ys.shape[0], -1)
-        return Xf @ Yf.T
+        return self._psum(Xf @ Yf.T)
 
     def _cons(self, x_add):
         """additive -> consistent + free mask (any leading axes)."""
-        return pst.exchange_sum(None, x_add, self.tab) * self.free
+        return pst.exchange_sum(None, x_add, self.tab, spmd=self.spmd) * self.free
 
     def constraints(self, u, ref_volume, ref_barycenter):
         g = pdfm.constraints_p(
@@ -200,7 +222,8 @@ class PatchOps:
             torch.as_tensor(ref_volume, dtype=g.dtype, device=g.device).reshape(1),
             torch.as_tensor(ref_barycenter, dtype=g.dtype, device=g.device),
         ])
-        return g - refs
+        # references subtracted after the reduction: a rank's values are partial sums
+        return self._psum(g) - refs
 
     def constraint_grads(self, u, ref_volume, ref_barycenter):
         B = pdfm.constraint_grads_analytic_p(
@@ -256,11 +279,11 @@ class PatchOps:
 
     def max_grad_norm(self, u, norm_name):
         if norm_name == "spectral":
-            return pdfm.max_spectral_norm_p(self.ps, self.coords_p, u, self.pvalid)
-        return pdfm.max_frobenius_norm_p(self.ps, self.coords_p, u, self.pvalid)
+            return self._pmax(pdfm.max_spectral_norm_p(self.ps, self.coords_p, u, self.pvalid))
+        return self._pmax(pdfm.max_frobenius_norm_p(self.ps, self.coords_p, u, self.pvalid))
 
     def norm_p1(self, f):
-        return pdfm.l2_norm_p1_p(self.ps, self.coords_p, f, self.pvalid)
+        return self._norm(pdfm.l2_norm_p1_p(self.ps, self.coords_p, f, self.pvalid))
 
     def norm_pc(self, T):
-        return pdfm.l2_norm_pc_p(self.ps, self.coords_p, T, self.pvalid)
+        return self._norm(pdfm.l2_norm_pc_p(self.ps, self.coords_p, T, self.pvalid))

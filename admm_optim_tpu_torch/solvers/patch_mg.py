@@ -1,11 +1,16 @@
-"""Geometric multigrid on brick-patch lattices (port of the single-device
-path of admm_optim_tpu/solvers/patch_mg.py).
+"""Geometric multigrid on brick-patch lattices (port of
+admm_optim_tpu/solvers/patch_mg.py).
 
 Chebyshev-smoothed V-cycle with a dense level-0 base solve, on the patch
 stencil representation (ops.patchstencil); MG-preconditioned CG on the fine
 level; and double-float iterative refinement (``cg_ir_p``) down to
 below-f32 true residuals.  Loops run on the host; every level operation is
 a stencil apply (ops.stencil_kernels) plus the duplicate-site exchange.
+
+With ``PatchMGStructure.spmd`` set (parallel.patch_shard) the same code
+runs on one rank's patch block: exchanges, dots and the base-solve glue
+take the sharded forms of ops.patchstencil, and levels below
+``replicate_below`` run agglomerated (every rank holds them whole).
 """
 from __future__ import annotations
 
@@ -36,6 +41,17 @@ class PatchMGStructure:
     # only perturb M; A-applies and DF residuals keep the f32 sym W).
     # "f32" disables.
     smoother_w: str = "auto"
+    # set (parallel.patch_shard) to run on one rank's patch block
+    spmd: st.SpmdCtx | None = None
+    # level-wise agglomeration under spmd (the reference's process
+    # hierarchy, 2d_admm.lua:174-206): levels l < replicate_below are held
+    # whole on every rank; the restriction into the first of them gathers
+    # the residual once, and the cycle below it runs without collectives
+    replicate_below: int = 0
+
+    def level_spmd(self, l: int):
+        """The sharding of level l: spmd, or None where it is agglomerated."""
+        return self.spmd if l >= self.replicate_below else None
 
 
 @dataclasses.dataclass
@@ -56,36 +72,48 @@ class PatchMGData:
         return self.W_sm[l]
 
 
-def _apply(ps, tab, W, x):
+def _apply(ps, tab, W, x, spmd=None):
     """exchange(A x) restricted to the free subspace."""
-    y = st.exchange_sum(None, st.apply_w(ps, W, x), tab)
+    y = st.exchange_sum(None, st.apply_w(ps, W, x), tab, spmd=spmd)
     return y * tab.free[None].to(x.dtype)
 
 
-def _lmax_init(shape, dtype, device):
-    """Deterministic start vector sin(flat index) + 1, the JAX package's."""
-    flat = torch.arange(int(np.prod(shape)), device=device).reshape(shape).to(dtype)
-    return torch.sin(flat) + 1.0
+def _lmax_init(shape, dtype, device, spmd=None):
+    """Deterministic start vector sin(flat index) + 1, the flat index that
+    of the whole (C, *lat, P) array, so that a rank's block starts where
+    the single device does (the JAX package's)."""
+    Pl = shape[-1]
+    off = 0 if spmd is None else spmd.offset(Pl)
+    P = Pl if spmd is None else Pl * spmd.nshards
+    S = int(np.prod(shape[1:-1]))
+    cs = torch.arange(shape[0] * S, device=device).reshape(shape[:-1] + (1,))
+    flat = cs * P + torch.arange(off, off + Pl, device=device)
+    return torch.sin(flat.to(dtype)) + 1.0
 
 
-def estimate_lmax_p(ps, tab, W, inv_diag, iters: int = 15):
+def estimate_lmax_p(ps, tab, W, inv_diag, iters: int = 15, spmd=None):
     """Power iteration for lambda_max(D^-1 A) with owner-weighted norms."""
-    x = _lmax_init(inv_diag.shape, inv_diag.dtype, inv_diag.device)
-    x = st.exchange_sum(None, x, tab) * tab.free[None].to(x.dtype)
+    x = _lmax_init(inv_diag.shape, inv_diag.dtype, inv_diag.device, spmd)
+    x = st.exchange_sum(None, x, tab, spmd=spmd) * tab.free[None].to(x.dtype)
+
+    def dot(u, v):
+        return st.owner_dot(None, u, v, tab, spmd=spmd)
 
     def normalized(v):
-        return v / torch.clamp_min(torch.sqrt(st.owner_dot(None, v, v, tab)), 1e-30)
+        return v / torch.clamp_min(torch.sqrt(dot(v, v)), 1e-30)
 
     x = normalized(x)
     for _ in range(iters):
-        x = normalized(inv_diag * _apply(ps, tab, W, x))
-    y = inv_diag * _apply(ps, tab, W, x)
-    return st.owner_dot(None, x, y, tab) / st.owner_dot(None, x, x, tab) * 1.1
+        x = normalized(inv_diag * _apply(ps, tab, W, x, spmd))
+    y = inv_diag * _apply(ps, tab, W, x, spmd)
+    return dot(x, y) / dot(x, x) * 1.1
 
 
-def make_level_tables(ps: PatchSet, dtype=torch.float32, device="cpu"):
-    """Device tables for every level."""
-    return [st.make_tables(lvl, dtype, device) for lvl in ps.levels]
+def make_level_tables(ps: PatchSet, dtype=torch.float32, device="cpu", spmd=None, replicate_below: int = 0):
+    """Device tables for every level; with spmd those of its rank's patch
+    block on levels >= replicate_below, whole tables below."""
+    return [st.make_tables(lvl, dtype, device, shard=spmd if l >= replicate_below else None)
+            for l, lvl in enumerate(ps.levels)]
 
 
 def vcycle_cost_table(struct: PatchMGStructure, data: PatchMGData, hbm_gbps: float) -> str:
@@ -147,22 +175,32 @@ def assemble_patch_mg_p(
     sym: bool = False,  # symmetric half-stencil storage (SPD operators only)
 ) -> PatchMGData:
     """Assemble all levels from patch-layout geometry (rediscretized coarse
-    operators from the nested lattice coordinates)."""
+    operators from the nested lattice coordinates).  Under struct.spmd,
+    coords_p is the rank's block: each rank assembles its block of the
+    sharded levels, and every rank the whole of an agglomerated level, from
+    the gathered coordinates (small); the base operator comes from the
+    gathered level-0 coordinates."""
+    spmd = struct.spmd
     W_l, invd_l, lmax_l = [], [], []
     for l in range(len(ps.levels)):
         stride = 2 ** (ps.k - l)
         cp = coords_p[(slice(None),) + (slice(0, None, stride),) * ps.dim]
+        lvl_spmd = struct.level_spmd(l)
+        if spmd is not None and lvl_spmd is None:
+            cp = spmd.all_gather_p(cp)
         free = tabs[l].free.to(cp.dtype)
         W = st.assemble_w(ps, l, cp, corner_mat_fn, sym=sym, free=free)
-        diag = st.exchange_sum(None, st.stencil_diag(ps, l, W), tabs[l])
+        diag = st.exchange_sum(None, st.stencil_diag(ps, l, W), tabs[l], spmd=lvl_spmd)
         diag = torch.where(free[None] > 0, diag, torch.ones_like(diag))
         inv_diag = 1.0 / diag
         W_l.append(W)
         invd_l.append(inv_diag)
-        lmax_l.append(estimate_lmax_p(ps, tabs[l], W, inv_diag))
+        lmax_l.append(estimate_lmax_p(ps, tabs[l], W, inv_diag, spmd=lvl_spmd))
     V0 = int(ps.levels[0].gid.max()) + 1
     cp0 = coords_p[(slice(None),) + (slice(0, None, 2**ps.k),) * ps.dim]
-    coords0 = st.from_patch_tab(tabs[0], cp0, V0)  # (d, V0)
+    if spmd is not None and struct.replicate_below > 0:
+        cp0 = spmd.all_gather_p(cp0)  # tabs[0] is whole
+    coords0 = st.from_patch_tab(tabs[0], cp0, V0, spmd=struct.level_spmd(0))  # (d, V0)
     base_inv = base_dense_fn(coords0.T)
     plan = smoother_w_plan(struct, ps, coords_p.dtype, coords_p.device)
     W_sm = None
@@ -212,7 +250,7 @@ def assemble_patch_mg(
     )
 
 
-def chebyshev_smooth_p(ps, tab, W, inv_diag, lmax, x, b, degree, lower, x_is_zero=False):
+def chebyshev_smooth_p(ps, tab, W, inv_diag, lmax, x, b, degree, lower, x_is_zero=False, spmd=None):
     """Chebyshev iteration on patch arrays; x, b consistent.  x_is_zero:
     skip the first stencil apply (A.0 = 0, so r = b exactly)."""
     lmin = lower * lmax
@@ -220,14 +258,14 @@ def chebyshev_smooth_p(ps, tab, W, inv_diag, lmax, x, b, degree, lower, x_is_zer
     delta = 0.5 * (lmax - lmin)
     free = tab.free[None].to(x.dtype)
 
-    r = b * free if x_is_zero else (b - _apply(ps, tab, W, x)) * free
+    r = b * free if x_is_zero else (b - _apply(ps, tab, W, x, spmd)) * free
     z = inv_diag * r
     d_vec = z / theta
     x = x + d_vec
     # rho_0 = delta/theta seeds the Chebyshev rho-recurrence (Saad Alg. 12.1)
     sigma_old = delta / theta if degree > 1 else 1.0
     for _ in range(degree - 1):
-        r = (b - _apply(ps, tab, W, x)) * free
+        r = (b - _apply(ps, tab, W, x, spmd)) * free
         z = inv_diag * r
         sigma_new = 1.0 / (2.0 * theta / delta - sigma_old)
         d_vec = (2.0 * sigma_new / delta) * z + (sigma_new * sigma_old) * d_vec
@@ -236,7 +274,7 @@ def chebyshev_smooth_p(ps, tab, W, inv_diag, lmax, x, b, degree, lower, x_is_zer
     return x
 
 
-def jacobi_smooth_p(ps, tab, W, inv_diag, lmax, x, b, degree, omega=0.7, x_is_zero=False):
+def jacobi_smooth_p(ps, tab, W, inv_diag, lmax, x, b, degree, omega=0.7, x_is_zero=False, spmd=None):
     """Damped Jacobi on patch arrays (nonsymmetric operators); damping
     scaled by the power-iteration bound."""
     free = tab.free[None].to(x.dtype)
@@ -246,7 +284,7 @@ def jacobi_smooth_p(ps, tab, W, inv_diag, lmax, x, b, degree, omega=0.7, x_is_ze
         x = x + scale * (inv_diag * (b * free))
         n = degree - 1
     for _ in range(n):
-        r = (b - _apply(ps, tab, W, x)) * free
+        r = (b - _apply(ps, tab, W, x, spmd)) * free
         x = x + scale * (inv_diag * r)
     return x
 
@@ -254,23 +292,28 @@ def jacobi_smooth_p(ps, tab, W, inv_diag, lmax, x, b, degree, omega=0.7, x_is_ze
 def vcycle_p(struct: PatchMGStructure, data: PatchMGData, b, x0=None):
     """One V(pre,post)-cycle; b, x (C, *latf, P) consistent, free-masked,
     or (B, C, *latf, P): B independent cycles in one pass, each stencil
-    apply one launch for all lanes."""
+    apply one launch for all lanes.  Under struct.spmd, the restriction
+    into the first agglomerated level gathers the additive residual once,
+    the levels below run whole on every rank (the same arithmetic on
+    each), and the prolongation takes the rank's block back."""
     ps = struct.ps
+    spmd = struct.spmd
 
     def smooth(l, x, b_l, degree, x_zero=False):
         args = (ps, data.tabs[l], data.smoother_W(l), data.inv_diag[l], data.lmax[l], x, b_l, degree)
+        sp = struct.level_spmd(l)
         if struct.smoother == "jacobi":
-            return jacobi_smooth_p(*args, x_is_zero=x_zero)
-        return chebyshev_smooth_p(*args, struct.cheb_lower, x_is_zero=x_zero)
+            return jacobi_smooth_p(*args, x_is_zero=x_zero, spmd=sp)
+        return chebyshev_smooth_p(*args, struct.cheb_lower, x_is_zero=x_zero, spmd=sp)
 
     def solve_level(l, b_l, x_l, x_zero=False):
         tab = data.tabs[l]
         if l == 0:
             # dense base solve: consistent residual -> owner-picked global
-            # -> dense inverse -> patch
+            # (all-reduced when level 0 is sharded) -> dense inverse -> patch
             n = data.base_inv.shape[0]  # C * V0
             C = b_l.shape[-ps.dim - 2]
-            bg = st.from_patch_tab(tab, b_l, n // C, mode="owner")
+            bg = st.from_patch_tab(tab, b_l, n // C, mode="owner", spmd=struct.level_spmd(0))
             xg = (bg.reshape(-1, n) @ data.base_inv.T).reshape(bg.shape)
             return st.to_patch_tab(tab, xg)
         x_l = smooth(l, x_l, b_l, struct.pre_smooth, x_zero)
@@ -281,8 +324,13 @@ def vcycle_p(struct: PatchMGStructure, data: PatchMGData, b, x0=None):
         r_add = b_l * owner[None] - st.apply_w(ps, data.smoother_W(l), x_l)
         rc = st.restrict_p(ps, l - 1, r_add)
         tab_c = data.tabs[l - 1]
-        rc = st.exchange_sum(None, rc, tab_c) * tab_c.free[None].to(rc.dtype)
+        agglom_edge = spmd is not None and l == struct.replicate_below
+        if agglom_edge:
+            rc = spmd.all_gather_p(rc)
+        rc = st.exchange_sum(None, rc, tab_c, spmd=struct.level_spmd(l - 1)) * tab_c.free[None].to(rc.dtype)
         ec = solve_level(l - 1, rc, torch.zeros_like(rc), x_zero=True)
+        if agglom_edge:
+            ec = spmd.take_block(ec)
         x_l = x_l + st.prolong_p(ps, l - 1, ec) * tab.free[None].to(x_l.dtype)
         return smooth(l, x_l, b_l, struct.post_smooth)
 
@@ -306,7 +354,7 @@ def residual_df(struct: PatchMGStructure, data: PatchMGData, b, xh, xl):
     ps = struct.ps
     tab = data.tabs[ps.k]
     yh, yl = st.apply_w_df(ps, data.W[ps.k], xh, xl)
-    yh, yl = st.exchange_sum_df(tab, yh, yl)
+    yh, yl = st.exchange_sum_df(tab, yh, yl, spmd=struct.spmd)
     free = tab.free[None].to(xh.dtype)
     # cancellation-safe DF subtraction: b - Ax cancels by construction
     r = df.add(df.from_f(b * free), df.DF(-yh * free, -yl * free))
@@ -341,7 +389,7 @@ def cg_ir_p(
     tab = data.tabs[ps.k]
 
     def dot(x, y):
-        return st.owner_dot(None, x, y, tab)
+        return st.owner_dot(None, x, y, tab, spmd=struct.spmd)
 
     bnorm = torch.sqrt(dot(b, b))
     tol = torch.clamp_min(rel_tol * bnorm, abs_tol)
@@ -372,12 +420,12 @@ def cg_p(
     ps = struct.ps
     tab = data.tabs[ps.k]
     return krylov.cg(
-        lambda x: _apply(ps, tab, data.W[ps.k], x),
+        lambda x: _apply(ps, tab, data.W[ps.k], x, struct.spmd),
         b,
         x0=x0,
         M=make_preconditioner_p(struct, data),
         max_iters=max_iters,
         abs_tol=abs_tol,
         rel_tol=rel_tol,
-        dot=lambda x, y: st.owner_dot(None, x, y, tab),
+        dot=lambda x, y: st.owner_dot(None, x, y, tab, spmd=struct.spmd),
     )

@@ -95,14 +95,23 @@ def prepare(hier: Hierarchy, device=None, dtype=torch.float32, c_eps: float = 1.
                             time.perf_counter() - t0, 0.0, space=space, coeffs=(c_eps, c_grad, c_mass), vplan=vplan)
     ps = build_patchset(hier)
     tabs = patch_mg.make_level_tables(ps, dtype, device)
-    # level-0-only wiring of the base solve
-    lvl0 = hier.levels[0]
-    pat0 = sparsity.build_pattern(lvl0.elems, lvl0.num_vertices, hier.dim)
-    fixed0 = torch.as_tensor(
-        np.repeat(lvl0.vertex_mask(DIRICHLET)[None], hier.dim, axis=0), device=device
-    )
-    elems0 = torch.as_tensor(lvl0.elems.astype(np.int64), device=device)
     coords = torch.as_tensor(hier.fine.coords, dtype=dtype, device=device)
+    struct = patch_mg.PatchMGStructure(ps, **smoothing)
+    _sync(device)
+    return SolveContext(
+        hier, ps, struct, tabs, deformation_corner_block_fn(c_eps, c_grad, c_mass),
+        base_solver(hier.levels[0], device, c_eps, c_grad, c_mass), None, coords, time.perf_counter() - t0, 0.0,
+    )
+
+
+def base_solver(lvl0, device, c_eps: float = 1.0, c_grad: float = 1.0, c_mass: float = 1.0) -> Callable:
+    """The level-0-only wiring of the dense base solve on the coarse mesh
+    lvl0: level-0 coordinates (V0, d) -> the dense inverse of the operator
+    with its Dirichlet rows and columns baked (a rank of a sharded solve
+    makes its own from the coarse mesh it is handed)."""
+    pat0 = sparsity.build_pattern(lvl0.elems, lvl0.num_vertices, lvl0.dim)
+    fixed0 = torch.as_tensor(np.repeat(lvl0.vertex_mask(DIRICHLET)[None], lvl0.dim, axis=0), device=device)
+    elems0 = torch.as_tensor(lvl0.elems.astype(np.int64), device=device)
 
     def base_dense_fn(coords0):
         em0 = deformation_elem_mats(coords0, elems0, c_eps, c_grad, c_mass)
@@ -111,12 +120,19 @@ def prepare(hier: Hierarchy, device=None, dtype=torch.float32, c_eps: float = 1.
         # outside any kernel, as the JAX package leaves it to XLA
         return torch.linalg.inv(sparsity.to_dense(pat0, v0))
 
-    struct = patch_mg.PatchMGStructure(ps, **smoothing)
-    _sync(device)
-    return SolveContext(
-        hier, ps, struct, tabs, deformation_corner_block_fn(c_eps, c_grad, c_mass), base_dense_fn,
-        None, coords, time.perf_counter() - t0, 0.0,
-    )
+    return base_dense_fn
+
+
+def assemble_deformation_p(ps: PatchSet, struct: patch_mg.PatchMGStructure, lvl0, coords_p, tabs: list,
+                           cfg=None) -> patch_mg.PatchMGData:
+    """The deformation operator as symmetric half stencils on every level
+    and its dense base inverse, from the fine lattice coordinates coords_p
+    (d, *lat, P) of the whole patch set or of a rank's block (struct.spmd
+    set).  cfg: an optim.admm.ADMMConfig whose (c_eps, tau, c_mass) weigh
+    the operator; None: all 1, bench.py's operator."""
+    coeffs = (1.0, 1.0, 1.0) if cfg is None else (cfg.c_eps, cfg.tau, cfg.c_mass)
+    return patch_mg.assemble_patch_mg_p(ps, struct, coords_p, deformation_corner_block_fn(*coeffs),
+                                        base_solver(lvl0, coords_p.device, *coeffs), tabs, sym=True)
 
 
 def assemble(ctx: SolveContext, X: torch.Tensor):

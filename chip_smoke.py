@@ -5,10 +5,11 @@
     python3 chip_smoke.py --phase NAME[,NAME]   (build and kernels, then these phases)
     python3 chip_smoke.py --kernels-only        (= --phase kernels: phases 1-3, then stop)
 
-NAME is one of kernels, slice, admm, ns, step, global, pcd, variants, small, cli
+NAME is one of kernels, slice, admm, shard, ns, step, global, pcd, variants, small, cli
 (admm brings slice, whose refs=4 context it runs on); the default runs them
 all, and only the full run prints the {"ok": true, ...} line.  Run alone,
-step and global climb their own viscosity ladder.
+step and global climb their own viscosity ladder, and shard builds its own
+refs=4 context.
 
 Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
   1. device: the card's name and power limit;
@@ -25,7 +26,9 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      the PCD Schur block), K1 on one field, K2 and K3 also at the coarse 3D
      levels of the NS velocity V-cycle, which are the refs=2 pressure
      lattices too (5^3 and 3^3 x 224), and K5, K5^T, K2 and K3 at a P that
-     is no multiple of 4 (5^3 x 222; K2 and K3 timed at 3^3 x 5 too);
+     is no multiple of 4 (5^3 x 222; K2 and K3 timed at 3^3 x 5 too), and
+     at one rank's block of the shard phase, 112 patches: K1, K2 and K4 at
+     17^3 and 9^3 x 112, K1 on lanes at 5^3 x 112;
      errors, median device times (L2 emptied before each launch), the
      time of one call made on an idle card, each kernel's bound (bytes over 3.35 TB/s or flops over the
      published peak, whichever is larger) and the launch floor (the device
@@ -46,7 +49,23 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      admm_throughput: 5 ADMM iterations at most, 1+m = 5 lanes per
      x-update solve), its counters (beside ADMM_COUNTS), time split and
      launch counts;
-  6. ns: the NS path at refs=2 (383,400 NS unknowns), float32, with the
+  6. shard: the multi-device layer (parallel/) on two gloo ranks sharing
+     the card, each the contiguous block of 112 of the 224 patches,
+     against the single-device port on the same card: (a) at the refs=4
+     fine lattice the sharded exchange and double-float exchange of a
+     seeded field bit for bit; (b) the refs=4 IR solve from each rank's
+     own assembly of its block, the slice phase's settings, converged to a
+     true relative residual <= 1e-8 (rechecked in float64 against the
+     single-device operator), x within SHARD_X_REL of the single-device
+     solve, its rounds and inner iterations beside the single device's,
+     each rank's launches by lattice (K1, K2, K4 on the 112-patch
+     lattices); (c) graft_entry_torch's deep-phase ADMM at 3D refs=2 with
+     level 0 agglomerated: the single-device admm_it, Newton and Krylov
+     counts (per lane too), u and the dual tensor finite and within
+     SHARD_U_REL, no early solver exit, K1 on lanes at 5^3 x 112; (d) the
+     sharded solve twice, bit for bit; seconds per piece and the bytes
+     handed to the collectives;
+  7. ns: the NS path at refs=2 (383,400 NS unknowns), float32, with the
      lumped-mass pressure block: the cold-start viscosity ladder
      0.16 -> 0.02 (linear counts and seconds per linear iteration per
      rung; a rung the mass block fails is a finding, not a failed check),
@@ -55,7 +74,7 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      and the masked shape gradient J', and the Jacobian assembly at that
      state timed at 4096, 16384 and 65536 cells per batch with its peak
      memory;
-  7. step: two optimization steps of models.obstacle.ObstacleShapeOpt at
+  8. step: two optimization steps of models.obstacle.ObstacleShapeOpt at
      3D refs=2, visc 0.02, float32 with f32_presets and the mass block.
      Step 0 starts from the 0.02 state the ns phase's ladder reached (the
      JAX package's "step -1" state; alone, the phase runs its own ladder)
@@ -72,7 +91,7 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      StepRecords; then one step at refs=1 from the cold start held
      against the port's float64 CPU run kept in
      tests/goldens/chip_step_refs1.npz;
-  8. global: the global (block-ELL) backend, which launches no
+  9. global: the global (block-ELL) backend, which launches no
      hand-written kernel, at 3D refs=2, visc 0.02, float32 (the step's
      configuration with backend="global"): global against patch on the
      same mesh (the deformation operator A at X0, J x and J^T x at the ns
@@ -91,7 +110,7 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      over X0 and X0 plus half the first sweep candidate's u, each candidate
      against its single admm_inner call (equal counts, u within 1e-5 of
      max |u|);
-  9. pcd: at refs=2, float32, with the PCD pressure block: one rung, the
+ 10. pcd: at refs=2, float32, with the PCD pressure block: one rung, the
      Newton solve at visc 0.02 from the mass ladder's converged visc 0.04
      state (alone: ns_run.run(ctx, target_visc=0.02), the whole ladder;
      Newton and linear counts, |R|, assembly seconds of the velocity data,
@@ -102,13 +121,13 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      the Krylov operators for the card's busy share and K5's share of
      device time (scripts/torch_vel_inner.py runs the rung with 1 and 2
      velocity-block Richardson steps in turns);
-  10. variants: ROADMAP item 9b at 3D refs=2, float32, from the ns phase's
+ 11. variants: ROADMAP item 9b at 3D refs=2, float32, from the ns phase's
      mass ladder states (alone: its own ladder on the global backend):
      (a) the matrix-free J x (torch.func.jvp) and J^T x (torch.func.vjp)
      against the assembled ELL forms within 1e-5 of max |y|, their ms at
      NS_ELEM_CHUNK 16384 (6 element blocks) and 131072 (one), and one
-     adjoint cut to 200 iterations with each form (100 at 6 blocks; ms per iteration, peak
-     memory); (b) vorder=1, stab 0.05 on the patch backend: a Newton solve
+     adjoint cut to 100 iterations with each matrix-free form and 200 with
+     the assembled one (ms per iteration, peak memory); (b) vorder=1, stab 0.05 on the patch backend: a Newton solve
      at visc 0.16 (converged, float64 |R| <= accept_tol, drag within 25% of
      the P2 drag) and a cut adjoint, K5 and K5^T on the level-k lattice,
      the path's launches counted from 0; (c) b2nd_order with
@@ -118,12 +137,12 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      the global mass rung and the patch PCD rung; (e) two ns_residual and
      pressure_mass_lumped calls bitwise equal, the global NS re-solve on
      the global step's mesh twice (the counts must repeat), J' twice;
-  11. small: refs=1 solve, ADMM run and PCD ladder to visc 0.04 (with
+ 12. small: refs=1 solve, ADMM run and PCD ladder to visc 0.08 (with
      drag, adjoint and J') held against the port's float64 CPU runs: the
      solve and the ADMM run here, the ladder as kept in
      tests/goldens/chip_pcd_ladder_refs1.npz (made on the CPU, in minutes,
      by tests/goldens/make_chip_reference.py, which also makes the step's);
- 12. cli: python -m admm_optim_tpu_torch.cli -dim 3 -numRefs 1 -numSteps 1
+ 13. cli: python -m admm_optim_tpu_torch.cli -dim 3 -numRefs 1 -numSteps 1
      -visc 0.16 -admmSteps 40 -nsMaxIts 8 -tau 2 -bNewtonOutput 1
      -bActivateProfiler 1, called in this process: exit code 0, one
      accepted step, __Drag.txt, __Iterations_per_step.txt (9 columns),
@@ -131,7 +150,7 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      against the same argv with -x64 run on the CPU and kept in
      tests/goldens/chip_cli_refs1.npz (the same accepting attempt, the
      drags within STEP_DRAG_SHARE of the CPU step's decrease).
-Each path (solve, ADMM, NS, step, step 1 resumed, global step, PCD, variants, CLI) is driven with the launch
+Each path (solve, ADMM, the shard ranks, NS, step, step 1 resumed, global step, PCD, variants, CLI) is driven with the launch
 counts set to 0 just before it (the NS paths reset them before each of their phases) and
 read just after; each of its kernels must have launched.  The counts are
 printed per kernel and per kernel and lattice.
@@ -170,9 +189,17 @@ from admm_optim_tpu_torch.ops import patchstencil as st
 from admm_optim_tpu_torch.ops import stencil_kernels as sk
 from admm_optim_tpu_torch.ops.deformation import barycenter
 from admm_optim_tpu_torch.ops.geometry import elem_geometry
+from admm_optim_tpu_torch.optim import admm as admm_mod
 from admm_optim_tpu_torch.optim.admm import ADMMConfig
+from admm_optim_tpu_torch.optim.spaces import PatchOps
+from admm_optim_tpu_torch.parallel import launch
+from admm_optim_tpu_torch.parallel.patch_shard import build_sharded_mg
+from admm_optim_tpu_torch.parallel.sharding import make_mesh
+from admm_optim_tpu_torch.solvers import patch_mg
 from admm_optim_tpu_torch.solvers.ns_solver import NewtonConfig, transpose_M
 from admm_optim_tpu_torch.utils.profiling import Profiler
+
+import graft_entry_torch
 
 SOURCE = "admm_optim_tpu_torch/csrc/stencil.cu"
 PALLAS = "admm_optim_tpu/ops/pallas_stencil.py"
@@ -182,6 +209,10 @@ PCD_SHAPE = ((5, 5, 5), 224)  # refs=2 pressure lattice: the PCD Schur block's f
 PCD_COARSE_SHAPE = ((3, 3, 3), 224)  # its coarse level
 ODD_P_SHAPE = ((5, 5, 5), 222)  # P % 4 != 0: the scalar kernel's scalar-width form
 SMALL_SHAPE = ((3, 3, 3), 5)
+# one rank's block of the refs=4 and refs=2 lattices on two ranks
+SHARD_FINE_SHAPE = ((17, 17, 17), 112)
+SHARD_NS_SHAPE = ((9, 9, 9), 112)
+SHARD_ADMM_SHAPE = ((5, 5, 5), 112)
 # the kernel groups of kernel_phase: all at 17^3, 9^3 and 3^3 x 5; what the
 # coarse levels and the PCD path run at 5^3 and 3^3 x 224
 GROUPS = ("full", "sym", "pencil", "lanes", "batched", "df")
@@ -211,10 +242,10 @@ F32_FLOPS = 67e12
 F64_FLOPS = 34e12
 NS_VISC = 0.16  # the first rung of the JAX package's cold-start ladder
 PCD_VISC = 0.02  # its last: the reference's default viscosity
-# the refs=1 PCD ladder of the small phase climbs to the pcd phase's start
-# (0.16 -> 0.08 -> 0.04; to 0.02 before PR 11, whose variants phase it pays
-# for); card float32 against CPU float64, relative (pcd_small says why)
-SMALL_VISC = 0.04
+# the refs=1 PCD ladder of the small phase: 0.16 -> 0.08 (it climbed to
+# 0.02 once; the variants and shard phases were paid for by cutting it);
+# card float32 against CPU float64, relative (pcd_small says why)
+SMALL_VISC = 0.08
 DRAG_TOL = 2e-4
 JPRIME_TOL = 3e-4
 SMALL_REFERENCE = pathlib.Path(__file__).resolve().parent / "tests" / "goldens" / "chip_pcd_ladder_refs1.npz"
@@ -223,7 +254,18 @@ REFERENCE_THREADS = 2
 # Arnoldi chunk (200 before PR 11's variants phase; the step phase runs its
 # adjoint at visc 0.02 to the exit)
 NS_ADJOINT_BUDGET = 100
-PHASES = ("kernels", "slice", "admm", "ns", "step", "global", "pcd", "variants", "small", "cli")
+PHASES = ("kernels", "slice", "admm", "shard", "ns", "step", "global", "pcd", "variants", "small", "cli")
+# the shard phase: two gloo ranks on the one card, each the block of
+# SHARD_P patches of the refs=4 lattice (and of the refs=2 one); its seeded
+# exchange field, the limits it holds the sharded solve and ADMM to, and
+# the seconds its ranks may take (each collective too)
+SHARD_RANKS = 2
+SHARD_P = 112
+SHARD_SEED = 11
+SHARD_X_REL = 1e-5
+# u and the dual tensor read 3.7e-4 and 2.7e-4 of max apart (PERF.md, PR 12)
+SHARD_U_REL = 1e-3
+SHARD_TIMEOUT_S = 600.0
 STEP_VISC = PCD_VISC  # 3d_admm.lua's default viscosity
 # the refs=1 step, card against CPU, at the ladder's first rung: one Newton
 # solve from the cold start, so the float64 CPU reference takes minutes
@@ -259,6 +301,9 @@ PATHS = {
     "cli": ("apply_w_sym/lanes", "apply_w_full", "apply_w_full_t"),
     # the global (block-ELL) step: no hand-written kernel, every count 0
     "global": (),
+    # two ranks' blocks of 112 patches: the refs=4 IR solve (K1, K2, K4)
+    # and the refs=2 ADMM's lane solves (K1 on lanes), summed over the ranks
+    "shard": ("apply_w_sym", "apply_w_pencil", "apply_w_df_sym", "apply_w_sym/lanes"),
     # vorder=1 on the patch backend: the velocity block on the level-k lattice
     "variants": ("apply_w_full", "apply_w_full_t"),
 }
@@ -302,8 +347,10 @@ JSON_SHAPE.update({"apply_w_full": "9^3x224", "apply_w_full_t": "9^3x224",
 # the other shapes each kernel's JSON entry gives its times at: the coarse
 # levels the paths launch it on, and the scalar kernel's scalar-width form
 BY_SHAPE = {
-    "apply_w_sym": ("9^3x224", "5^3x224", "3^3x224"),
-    "apply_w_pencil": ("9^3x224", "5^3x224", "3^3x224", "5^3x222", "3^3x5"),
+    "apply_w_sym": ("9^3x224", "5^3x224", "3^3x224", "17^3x112", "9^3x112"),
+    "apply_w_sym/lanes": ("5^3x112",),
+    "apply_w_pencil": ("9^3x224", "5^3x224", "3^3x224", "5^3x222", "3^3x5", "17^3x112", "9^3x112"),
+    "apply_w_df_sym": ("17^3x112", "9^3x112"),
     "apply_w_pencil_batched": ("9^3x224", "5^3x224", "3^3x224", "5^3x222", "3^3x5"),
     "apply_w_full": ("5^3x224", "3^3x224"),
     "apply_w_full_t": ("5^3x224", "3^3x224"),
@@ -652,13 +699,13 @@ def required_launched(path, counts):
     return counts
 
 
-def true_rel_residual(ctx, b, res):
-    """||b - A x|| / ||b|| in f64 with the plain apply and exchange (a
-    check of the result, not part of the solve)."""
+def true_rel_residual(ctx, b, x64):
+    """||b - A x|| / ||b|| in f64 with the plain apply and exchange, x64
+    the solution in float64 (a check of the result, not part of the
+    solve)."""
     ps, data = ctx.ps, ctx.data
     tab = data.tabs[ps.k]
     W64 = data.W[ps.k].double()
-    x64 = res.x_hi.double() + res.x_lo.double()
     y = st.exchange_sum(None, sk._apply_w_sym(ps, W64, x64), tab)
     free = tab.free.double()[None]
     b64 = b.double()
@@ -1622,9 +1669,8 @@ def matfree_checks(gctx, s, reps=5):
             ms[f"residual, {blocks} block(s)"] = call_ms(lambda: R(s), reps)
             del Jt
             torch.cuda.empty_cache()
-            # the module's chunk takes the full cut; the comparison chunk half of it
-            budget = VARIANT_ADJOINT_BUDGET if chunk == keep else VARIANT_ADJOINT_BUDGET // 2
-            adjoints[f"matrix-free, {blocks} block(s)"] = timed_adjoint(mf, s, budget)
+            # half the assembled adjoint's cut at either chunk
+            adjoints[f"matrix-free, {blocks} block(s)"] = timed_adjoint(mf, s, VARIANT_ADJOINT_BUDGET // 2)
     finally:
         nsops.NS_ELEM_CHUNK = keep
     del W
@@ -1963,6 +2009,11 @@ def run_phases(kind, phases_run):
         "3^3x224": kernel_phase(ps_k, PCD_COARSE_SHAPE, seed=5, timed=True, groups=COARSE_GROUPS),
         "5^3x222": kernel_phase(ps_k, ODD_P_SHAPE, seed=6, timed=True, groups=("full",) + PENCIL_GROUPS),
         "3^3x5": kernel_phase(ps_k, SMALL_SHAPE, seed=2, timed=PENCIL_GROUPS),
+        # the shard phase's blocks: K1, K2, K4 of the refs=4 solve, K1 on
+        # the refs=2 ADMM's lanes
+        "17^3x112": kernel_phase(ps_k, SHARD_FINE_SHAPE, seed=7, timed=True, groups=("sym", "pencil", "df")),
+        "9^3x112": kernel_phase(ps_k, SHARD_NS_SHAPE, seed=8, timed=True, groups=("sym", "pencil", "df")),
+        "5^3x112": kernel_phase(ps_k, SHARD_ADMM_SHAPE, seed=9, timed=True, groups=("lanes",)),
     }
     floor_ms = median_ms(lambda: sk.launch_empty("cuda"))
     _flush.clear()
@@ -1970,6 +2021,8 @@ def run_phases(kind, phases_run):
         f"{warm_ms(lambda: sk.launch_empty('cuda')):.4f} ms with L2 left warm)")
     for label, res in phases.items():
         for sfx, C in (("", 3), ("/c1", 1)):
+            if "apply_w_full" + sfx not in res:  # K5/K5^T not run at this shape (the shard blocks)
+                continue
             adj = res.pop("adjointness" + sfx)
             log(f"[kernel] K5/K5^T adjointness C = {C} {label:9s} |<Ax,y> - <x,A^T y>| / max {adj:.3e} (limit 1e-5)")
             check(adj <= 1e-5, f"K5/K5^T adjointness at C = {C}, {label}: {adj:.3e}")
@@ -1999,9 +2052,14 @@ def run_phases(kind, phases_run):
         ctx = solve_phase(launches, by_lattice)
     if "admm" in phases_run:
         admm_phase(ctx, launches, by_lattice)
+    phase_done("slice, admm")
+
+    # 6. the multi-device layer: two gloo ranks on the card against it
+    if "shard" in phases_run:
+        shard_phase(ctx, launches, by_lattice)
+        phase_done("shard")
     del ctx
     torch.cuda.empty_cache()
-    phase_done("slice, admm")
 
     # 6. the NS path at refs=2 with the mass block: the ladder, then drag,
     # adjoint and J' at visc 0.16; the PCD context's tables serve both
@@ -2088,7 +2146,7 @@ def solve_phase(launches, by_lattice):
     check(data.W_sm is not None, "bf16 pencil smoother stream built")
     x = res.x_hi + res.x_lo
     check(x.shape == b.shape and bool(torch.isfinite(x).all()), "finite solution of the right shape")
-    true_rel = true_rel_residual(ctx, b, res)
+    true_rel = true_rel_residual(ctx, b, res.x_hi.double() + res.x_lo.double())
     log(f"[slice] true relative residual (f64 check) {true_rel:.3e}")
     check(true_rel <= 1e-8, f"true relative residual {true_rel:.3e} <= 1e-8")
 
@@ -2140,6 +2198,179 @@ def admm_phase(ctx, launches, by_lattice):
         f"[admm] launches {launches['admm']}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
+
+
+def shard_rank(rank, world, device, ps, lvl0, coords, b, x_add, xh, xl, deep):
+    """The shard phase on one rank of a world-rank space axis on the card:
+    (a) the exchange and the double-float exchange of the seeded fields,
+    (b) the refs=4 IR solve with the slice phase's settings from its block
+    of the fine lattice, its launches counted from 0, (d) the same solve
+    again, (c) the refs=2 ADMM of graft_entry_torch's deep phase.  Fields
+    gathered whole (numpy, rank 0's), seconds and launches per rank."""
+    mesh = make_mesh(world, 1, device)
+    sh = build_sharded_mg(ps, mesh, data_dtype=torch.float32, **xupdate_solve.BENCH_SMOOTHING)
+    out = {}
+
+    def whole(t):
+        return sh.gather_field(t).cpu().numpy()
+
+    t0 = time.perf_counter()
+    tabs = sh.make_tables()
+    tab = tabs[-1]
+    y = st.exchange_sum(None, sh.shard_field(x_add), tab, spmd=sh.spmd)
+    yh, yl = st.exchange_sum_df(tab, sh.shard_field(xh), sh.shard_field(xl), spmd=sh.spmd)
+    out["exchange"], out["df"] = whole(y), (whole(yh), whole(yl))
+    coords_p = sh.to_patch_sharded(coords.T, torch.float32)
+    data = sh.assemble(coords_p, lvl0, tabs=tabs)
+    sync()
+    out["setup_s"] = time.perf_counter() - t0
+    bl = sh.shard_field(b)
+    out["solves"] = []
+    for i in range(2):
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        res = sh.solve_ir(data, bl, **xupdate_solve.SOLVE_SETTINGS)
+        sync()
+        secs = time.perf_counter() - t0
+        if i == 0:
+            out["solve_launches"] = dict(sk.launches_by_lattice)
+        out["solves"].append(dict(rounds=res.rounds, inner_iters=res.inner_iters, res_norm=float(res.res_norm),
+                                  converged=res.converged, seconds=secs, x_hi=whole(res.x_hi), x_lo=whole(res.x_lo)))
+    del data, tabs
+    t0 = time.perf_counter()
+    out["deep"] = graft_entry_torch.deep_rank(rank, world, device, deep, admm_only=True)
+    out["deep_s"] = time.perf_counter() - t0
+    out["sent_bytes"] = sh.spmd.sent_bytes
+    return out
+
+
+def deep_single(deep, device):
+    """graft_entry_torch's deep-phase ADMM on one device: the same operator
+    (the ranks' default smoothing, c_eps = c_grad = c_mass = 1) on the
+    whole refs=2 lattice."""
+    cfg = graft_entry_torch.ADMM_DEEP
+    ps, dt = deep.ps, torch.float32
+    struct = patch_mg.PatchMGStructure(ps)
+    coords_p = st.to_patch(ps.fine, torch.as_tensor(deep.coords.T, dtype=dt, device=device))
+    data = xupdate_solve.assemble_deformation_p(ps, struct, deep.lvl0, coords_p,
+                                                patch_mg.make_level_tables(ps, dt, device), cfg)
+    Jp = st.to_patch(ps.fine, torch.as_tensor(deep.Jp, dtype=dt, device=device))
+    return admm_mod.admm_inner(cfg, PatchOps(struct, data, coords_p), Jp, graft_entry_torch.DEEP_SIGMA, 1.0,
+                               torch.tensor(deep.ref_vol, dtype=dt, device=device),
+                               torch.as_tensor(deep.ref_bary, dtype=dt, device=device))
+
+
+def shard_phase(ctx, launches, by_lattice, device="cuda"):
+    """The multi-device layer on two gloo ranks sharing the card, against
+    the single-device port on the same card: (a) the sharded exchange and
+    double-float exchange bit for bit; (b) the refs=4 IR solve converged to
+    a true relative residual <= 1e-8 (float64 recheck) and within
+    SHARD_X_REL of the single-device solve; (c) the 3D refs=2 ADMM of
+    graft_entry_torch's deep phase (level 0 agglomerated) with the
+    single-device admm_it, Newton and Krylov counts (per lane too), u and
+    the dual tensor finite and within SHARD_U_REL; (d) the IR solve
+    twice bit for bit.  The path's launches are the ranks' summed: (b)'s
+    first solve and (c), each counted from 0 on its rank.  Seconds per
+    piece are no scaling number: the ranks share one card, and their
+    collectives go through the host."""
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    if ctx is None:
+        ctx = xupdate_solve.build(4, dev, torch.float32)
+    ps = ctx.ps
+    check(ps.P == SHARD_RANKS * SHARD_P, f"the refs=4 lattice splits into {SHARD_RANKS} blocks of {SHARD_P}")
+    rng = np.random.default_rng(SHARD_SEED)
+    shape = (3,) + ps.fine.lat_shape + (ps.P,)
+    x_add = rng.normal(size=shape).astype(np.float32)
+    x64 = rng.normal(size=shape)
+    xh = x64.astype(np.float32)
+    xl = (x64 - xh).astype(np.float32)
+    tab = ctx.tabs[-1]
+    y1 = st.exchange_sum(None, torch.from_numpy(x_add).to(dev), tab).cpu().numpy()
+    yh1, yl1 = (t.cpu().numpy() for t in st.exchange_sum_df(tab, torch.from_numpy(xh).to(dev),
+                                                              torch.from_numpy(xl).to(dev)))
+    b = xupdate_solve.random_rhs(ctx, seed=0)
+    t0 = time.perf_counter()
+    res1 = xupdate_solve.solve(ctx, b)
+    sync()
+    solve1_s = time.perf_counter() - t0
+    x1 = res1.x_hi.double() + res1.x_lo.double()
+    deep = graft_entry_torch.problem_deep()
+    t0 = time.perf_counter()
+    st1 = deep_single(deep, dev)
+    sync()
+    deep1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = launch.spawn(shard_rank, SHARD_RANKS, "gloo", dev, SHARD_TIMEOUT_S, ps, ctx.hier.levels[0],
+                        ctx.hier.fine.coords, b.cpu().numpy(), x_add, xh, xl, deep)
+    spawn_s = time.perf_counter() - t0
+    o = outs[0]
+    # (a)
+    same = (np.array_equal(o["exchange"], y1), np.array_equal(o["df"][0], yh1), np.array_equal(o["df"][1], yl1))
+    log(f"[shard] (a) refs=4 fine lattice {ps.fine.lat_shape} x {ps.P} on {SHARD_RANKS} ranks of {SHARD_P}: "
+        f"exchange bit for bit {same[0]}, double-float exchange hi {same[1]} lo {same[2]}")
+    check(all(same), "sharded exchange and double-float exchange equal the single-device forms bit for bit")
+    # (b), (d)
+    s1, s2 = o["solves"]
+    x = torch.as_tensor(s1["x_hi"], device=dev).double() + torch.as_tensor(s1["x_lo"], device=dev).double()
+    true_rel = true_rel_residual(ctx, b, x)
+    dx = float((x - x1).abs().max() / x1.abs().max())
+    log(f"[shard] (b) refs=4 IR solve: rounds {s1['rounds']} inner CG {s1['inner_iters']} (single device "
+        f"{res1.rounds}, {res1.inner_iters}), res_norm {s1['res_norm']:.3e}, converged {s1['converged']}, true "
+        f"relative residual (float64) {true_rel:.3e}, x against the single device {dx:.3e} of max |x| "
+        f"(limit {SHARD_X_REL:.0e}); seconds per solve {s1['seconds']:.3f}, {s2['seconds']:.3f} against "
+        f"{solve1_s:.3f} single device")
+    check(s1["converged"] and true_rel <= 1e-8, f"sharded refs=4 IR solve converged, true residual {true_rel:.3e}")
+    check(dx <= SHARD_X_REL, f"sharded refs=4 solution within {SHARD_X_REL:.0e} of the single device's")
+    again = (np.array_equal(s1["x_hi"], s2["x_hi"]) and np.array_equal(s1["x_lo"], s2["x_lo"])
+             and (s1["rounds"], s1["inner_iters"]) == (s2["rounds"], s2["inner_iters"]))
+    log(f"[shard] (d) the sharded solve twice: rounds {s1['rounds']}/{s2['rounds']}, inner CG "
+        f"{s1['inner_iters']}/{s2['inner_iters']}, x bit for bit {again}")
+    check(again, "two sharded refs=4 solves bitwise equal")
+    for r, out in enumerate(outs):
+        log_lattices(f"shard rank {r}", out["solve_launches"], "refs=4 solve")
+        for name in ("apply_w_sym", "apply_w_pencil", "apply_w_df_sym"):
+            n = sum(c for (nm, lat), c in out["solve_launches"].items() if nm == name and lat[-1] == SHARD_P)
+            check(n > 0, f"{name} launched on rank {r}'s block of {SHARD_P} patches")
+    # (c)
+    d = o["deep"]["admm"]
+    u1, lam1 = st1.u.double().cpu().numpy(), st1.lam.double().cpu().numpy()
+    du = float(np.abs(d["u"] - u1).max() / np.abs(u1).max())
+    dlam = float(np.abs(d["lam"] - lam1).max() / np.abs(lam1).max())
+    log(f"[shard] (c) 3D refs=2 ADMM, level 0 agglomerated, P {o['deep']['P']} on {SHARD_RANKS} ranks of "
+        f"{o['deep']['P_local']}: admm_it {d['admm_it']} total_newton {d['total_newton']} total_lin_iters "
+        f"{d['total_lin_iters']} solver_iters {d['solver_iters']} converged {d['converged']} failed {d['failed']} "
+        f"(single device: {st1.admm_it}, {st1.total_newton}, {st1.total_lin_iters}, {st1.solver_iters}, "
+        f"{st1.converged}, {st1.failed}); u {du:.3e}, lam {dlam:.3e} of max (limit {SHARD_U_REL:.0e}); "
+        f"{o['deep_s']:.2f} s on the ranks (set-up included) against {deep1_s:.2f} s single device")
+    cfg = graft_entry_torch.ADMM_DEEP
+    check((d["admm_it"], d["total_newton"]) == (st1.admm_it, st1.total_newton),
+          "sharded ADMM: the single-device admm_it and Newton count")
+    check((d["total_lin_iters"], d["solver_iters"]) == (st1.total_lin_iters, list(st1.solver_iters)),
+          "sharded ADMM: the single-device Krylov count, per lane too")
+    check(np.isfinite(d["u"]).all() and np.isfinite(d["lam"]).all() and du <= SHARD_U_REL and dlam <= SHARD_U_REL,
+          f"sharded ADMM u and lam finite and within {SHARD_U_REL:.0e} of the single device's")
+    check(not (d["failed"] and d["admm_it"] < cfg.admm_steps) and not (st1.failed and st1.admm_it < cfg.admm_steps),
+          "no early solver exit in the ADMM")
+    for r, out in enumerate(outs):
+        log_lattices(f"shard rank {r}", out["deep"]["admm"]["launches"], "refs=2 ADMM")
+        n = sum(c for (nm, lat), c in out["deep"]["admm"]["launches"].items()
+                if nm == "apply_w_sym/lanes" and lat[-1] == SHARD_P)
+        check(n > 0, f"apply_w_sym/lanes launched on rank {r}'s block of {SHARD_P} patches")
+    # the path's launches: both ranks, the first solve and the ADMM
+    counts = {}
+    for out in outs:
+        for part in (out["solve_launches"], out["deep"]["admm"]["launches"]):
+            for key, n in part.items():
+                counts[key] = counts.get(key, 0) + n
+    by_lattice["shard"] = counts
+    launches["shard"] = required_launched("shard", {name: sum(n for (nm, _), n in counts.items() if nm == name)
+                                                    for name, _ in counts})
+    log(f"[shard] launches {launches['shard']}; collectives: "
+        f"{', '.join(f'rank {r} {out['sent_bytes'] / 2**20:.1f} MiB' for r, out in enumerate(outs))} handed to "
+        f"all_reduce; seconds: rank set-up (tables, exchanges, assembly) {o['setup_s']:.2f}, ranks started and "
+        f"joined {spawn_s:.2f}, phase {time.perf_counter() - t_phase:.2f}")
+    del res1, x1, x, st1
 
 
 def small_phase():

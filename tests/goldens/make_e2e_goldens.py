@@ -49,11 +49,19 @@ on the CPU in float64:
     tests/test_torch_obstacle_variants.py and test_torch_ns_matfree.py.
     The b2nd_order step runs the JAX package's monolithic ADMM loop, the
     one that passes its J'' term (its host-stepped ADMM driver has none).
+  * shard: tests/goldens/e2e_shard.npz, held by
+    tests/test_torch_patch_shard.py: the JAX package's single-device patch
+    multigrid on the padded patch sets of that file's two fixtures
+    (tests/torch_shard_ranks.py: the 2D refs=2 channel padded for 4 ranks,
+    the 3D refs=1 channel for 2), from the same seeded inputs: each level's
+    stencils, inverse diagonals and lambda_max and the base inverse
+    (assemble_patch_mg_p, sym=True), one vcycle_p, cg_p, cg_ir_p, and
+    admm_inner_ops on a PatchOps with pvalid masking the padding.
 
 The JAX stepped kernels compile for minutes on one CPU core.  Run from the
 repository root:
 
-    python tests/goldens/make_e2e_goldens.py [e2e] [adjoint] [ckpt] [cli] [global] [variants]
+    python tests/goldens/make_e2e_goldens.py [e2e] [adjoint] [ckpt] [cli] [global] [variants] [shard]
 """
 import contextlib
 import io
@@ -90,6 +98,7 @@ TELEMETRY_OUT = HERE / "e2e_ckpt_2d_telemetry.npz"
 CLI_OUT = HERE / "e2e_cli_2d.npz"
 GLOBAL_OUT = HERE / "e2e_global.npz"
 VARIANTS_OUT = HERE / "e2e_variants.npz"
+SHARD_OUT = HERE / "e2e_shard.npz"
 CLI_ARGV = ["-dim", "2", "-numRefs", "1", "-numSteps", "2", "-admmSteps", "8", "-x64"]
 TELEMETRY_FILES = {"drag": "__Drag.txt", "iterations": "__Iterations_per_step.txt"}
 NUM_STEPS = 2
@@ -365,6 +374,62 @@ def run_variants():
     return out
 
 
+def run_shard():
+    """The JAX single-device reference of tests/test_torch_patch_shard.py."""
+    import torch_shard_ranks as R
+    from admm_optim_tpu.core import geomgen
+    from admm_optim_tpu.core.mesh import Hierarchy, refine
+    from admm_optim_tpu.core.patches import build_patchset, pad_patchset
+    from admm_optim_tpu.ops import patchstencil as st
+    from admm_optim_tpu.ops import sparsity
+    from admm_optim_tpu.ops.deformation import deformation_corner_block_fn, deformation_elem_mats
+    from admm_optim_tpu.optim.spaces import PatchOps
+    from admm_optim_tpu.solvers import patch_mg as pmg
+
+    cfg = admm.ADMMConfig(**{f: getattr(R.ADMM_CFG, f) for f in R.ADMM_CFG.__dataclass_fields__})
+    coeffs = (cfg.c_eps, cfg.tau, cfg.c_mass)
+    out = {}
+    for name, (dim, refs, ranks) in R.CASES.items():
+        c = R.case(dim, refs, ranks)
+        levels = [geomgen.channel_2d(n_side=(3, 2), diag="fixed") if dim == 2 else geomgen.channel_3d(n_side=(2, 1, 1))]
+        for _ in range(refs):
+            levels.append(refine(levels[-1]))
+        hier = Hierarchy(levels)
+        ps = pad_patchset(build_patchset(hier), ranks)
+        lvl0 = hier.levels[0]
+        pat0 = sparsity.build_pattern(lvl0.elems, lvl0.num_vertices, dim)
+        fixed0 = jnp.asarray(np.repeat(lvl0.vertex_mask(R.DIRICHLET)[None], dim, axis=0))
+
+        def base_dense_fn(coords0):
+            em0 = deformation_elem_mats(coords0, jnp.asarray(lvl0.elems), *coeffs)
+            v0 = sparsity.bake_dirichlet(pat0, sparsity.assemble_values(pat0, em0), fixed0)
+            return jnp.linalg.inv(sparsity.to_dense(pat0, v0))
+
+        struct = pmg.PatchMGStructure(ps)
+        coords_p = st.to_patch(ps.fine, jnp.asarray(hier.fine.coords.T))
+        data = pmg.assemble_patch_mg_p(ps, struct, coords_p, deformation_corner_block_fn(*coeffs), base_dense_fn,
+                                       pmg.make_level_tables(ps, coords_p.dtype), sym=True)
+        b = st.to_patch(ps.fine, jnp.asarray(c.b))
+        res = pmg.cg_p(struct, data, b, **R.CG)
+        ir = pmg.cg_ir_p(struct, data, b, **R.IR)
+        pvalid = jnp.asarray((np.arange(ps.P) < c.ps.P).astype(np.float64))
+        ops_ = PatchOps(struct, data, coords_p, pvalid=pvalid)
+        sa = jax.jit(lambda Jp: admm.admm_inner_ops(cfg, ops_, Jp, R.SIGMA, 1.0, jnp.asarray(c.ref_vol),
+                                                    jnp.asarray(c.ref_bary)))(st.to_patch(ps.fine, jnp.asarray(c.Jp)))
+        g = dict(P=ps.P, b=c.b, Jp=c.Jp, lmax=data.lmax, base_inv=data.base_inv, vcycle=pmg.vcycle_p(struct, data, b),
+                 cg_iters=res.iters, cg_converged=res.converged, cg_x=res.x, ir_rounds=ir.rounds,
+                 ir_inner_iters=ir.inner_iters, ir_converged=ir.converged, ir_x=ir.x_hi + ir.x_lo)
+        for l in range(len(ps.levels)):
+            g[f"W{l}"], g[f"inv_diag{l}"] = data.W[l], data.inv_diag[l]
+        g.update(_state("admm", sa))
+        g.update({f: getattr(sa, f) for f in ("u_diff_norm", "lam_inc_norm", "max_grad_norm")})
+        out.update({f"{name}_{k}": np.asarray(v) for k, v in g.items()})
+        print(f"shard {name}: P {ps.P} cg {int(res.iters)} ir {int(ir.rounds)}/{int(ir.inner_iters)} admm_it "
+              f"{int(sa.admm_it)} newton {int(sa.total_newton)} lin {int(sa.total_lin_iters)} "
+              f"{np.asarray(sa.solver_iters)}", flush=True)
+    return out
+
+
 def main(which):
     if "e2e" in which:
         out = {}
@@ -380,11 +445,12 @@ def main(which):
         np.savez_compressed(ADJ_OUT, **out)
         print(f"wrote {ADJ_OUT} ({ADJ_OUT.stat().st_size} bytes)", flush=True)
     for name, run, path in (("ckpt", run_ckpt, TELEMETRY_OUT), ("cli", run_cli, CLI_OUT),
-                            ("global", run_global, GLOBAL_OUT), ("variants", run_variants, VARIANTS_OUT)):
+                            ("global", run_global, GLOBAL_OUT), ("variants", run_variants, VARIANTS_OUT),
+                            ("shard", run_shard, SHARD_OUT)):
         if name in which:
             np.savez_compressed(path, **run())
             print(f"wrote {path}", flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["e2e", "adjoint", "ckpt", "cli", "global", "variants"])
+    main(sys.argv[1:] or ["e2e", "adjoint", "ckpt", "cli", "global", "variants", "shard"])

@@ -76,8 +76,9 @@ def test_quadrature_and_space_tables_match_jax_package(dim):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port (and chip_smoke.py) imports with JAX and
-    the JAX package made unimportable, as on a GPU machine without JAX."""
+    """Every module of the port (and chip_smoke.py and graft_entry_torch.py)
+    imports with JAX and the JAX package made unimportable, as on a GPU
+    machine without JAX."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -87,13 +88,14 @@ def test_port_imports_without_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "import graft_entry_torch\n"
         "assert 'admm_optim_tpu_torch.solvers.patch_mg' in names\n"
         "assert 'admm_optim_tpu_torch.xupdate_solve' in names\n"
         "for n in ('core.quadrature', 'core.spaces', 'ops.convdiff', 'ops.navier_stokes',\n"
         "          'ops.ns_patchjac', 'solvers.ns_solver', 'ns_run', 'models.obstacle',\n"
         "          'io.checkpoint', 'io.telemetry', 'io.vtk', 'io.resume', 'utils.debug',\n"
         "          'utils.profiling', 'cli', 'solvers.mg', 'ops.p1space', 'ops.ns_elljac',\n"
-        "          'models.sweep'):\n"
+        "          'models.sweep', 'parallel.launch', 'parallel.sharding', 'parallel.patch_shard'):\n"
         "    assert 'admm_optim_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
@@ -104,4 +106,4 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     # importing cli does not run main (which would print its parameters)
     assert "THE PARAMETERS" not in out.stdout
-    assert int(out.stdout.strip().splitlines()[-1]) >= 35
+    assert int(out.stdout.strip().splitlines()[-1]) >= 39
