@@ -82,7 +82,7 @@ def pcd_data(ap_data, W_fp, mp, ps: PatchSet, device):
 
 
 def admm_config(cfg):
-    """JAX ADMMConfig -> port ADMMConfig (xsolve_sequential is not ported)."""
+    """JAX ADMMConfig -> port ADMMConfig (every field by name)."""
     from .optim.admm import ADMMConfig
 
     return ADMMConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(ADMMConfig)})

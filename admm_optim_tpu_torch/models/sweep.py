@@ -45,13 +45,30 @@ def sigma_sweep(prob, X, Jp, sigmas, scalings=None) -> admm.ADMMState:
     return stack_states([prob._admm(mgdata, X, Jp, sg, sc) for sg, sc in zip(sigmas, scalings)])
 
 
+def global_xupdate(prob) -> xupdate_solve.SolveContext:
+    """The global (block-ELL) deformation context of prob's hierarchy with
+    the x-update's coefficients (c_eps, tau, c_mass) and the default V(3,3)
+    cycle: prob.xu itself on the global backend; on the patch backend one
+    built at first use and kept on prob, the counterpart of the JAX
+    package's def_space, which every problem builds
+    (admm_optim_tpu/models/obstacle.py:219-220)."""
+    if not prob.use_patch:
+        return prob.xu
+    xu = prob.__dict__.get("_xu_global")
+    if xu is None:
+        a = prob.cfg.admm
+        xu = prob._xu_global = xupdate_solve.prepare(prob.hier, prob.device, prob.dtype, a.c_eps, a.tau, a.c_mass,
+                                                     smoothing={}, backend="global")
+    return xu
+
+
 def geometry_sweep(prob, Xs, Jps, sigma, scaling=1.0) -> admm.ADMMState:
     """The ADMM inner solver for each geometry Xs[b] (V, d) with its shape
-    gradient Jps[b] (C, V) on prob's global backend, the multigrid data
-    assembled per geometry."""
-    if prob.use_patch:
-        raise ValueError("geometry_sweep runs on the global backend: build prob with backend='global'")
-    xu = prob.xu
+    gradient Jps[b] (C, V) on the global backend of prob's mesh
+    (global_xupdate), whichever backend prob's x-update runs on, as the JAX
+    package's runs on def_space; the multigrid data assembled per
+    geometry."""
+    xu = global_xupdate(prob)
     a = prob.cfg.admm
     states = []
     for X, Jp in zip(Xs, Jps):

@@ -20,8 +20,8 @@ Reference parity map (2d_admm.lua):
 
 The JAX package's ``lax.while_loop``s become Python loops with Python
 counters; its monolithic and host-stepped drivers (held equal by its own
-tests) become the one driver ``admm_inner``.  Its ``xsolve_sequential``
-option, a workaround for XLA tile padding, is not ported.
+tests) become the one driver ``admm_inner``.  ``xsolve_sequential`` runs
+the 1+m x-update solves one lane at a time, as its ``lax.map`` does.
 
 On a sharded PatchOps (parallel.patch_shard) each rank runs these loops on
 its patch block: every value a loop decides on (the Krylov residuals, the
@@ -68,6 +68,11 @@ class ADMMConfig:
     lin_max_iters: int = 200
     lin_abs_tol: float = 1e-12
     lin_rel_tol: float = 1e-10
+    # run the x-update's 1+m Krylov solves one lane at a time through the
+    # same solver instead of as one lane-batched solve (the JAX package's
+    # lax.map against its vmap); each lane takes the same loop either way,
+    # and one at a time the solve holds one lane's working set
+    xsolve_sequential: bool = False
     # Krylov method for the x-update H-solves: "bicgstab" (the reference's
     # preset) or "cg" (H is symmetric; one apply + one V-cycle per
     # iteration against BiCGStab's two of each)
@@ -200,6 +205,18 @@ def _hess_apply(ops_, u, Lambda, ref_volume, ref_barycenter, extra_hvp):
     return apply
 
 
+def _solve_lanes(cfg: ADMMConfig, solver, hess, rhs, x0, ops_) -> krylov.SolveResult:
+    """H x = b for the 1+m lanes of rhs, warm-started from x0: one
+    lane-batched solve, or with cfg.xsolve_sequential one solve per lane,
+    stacked (the JAX package's lax.map)."""
+    kw = dict(M=ops_.M, max_iters=cfg.lin_max_iters, abs_tol=cfg.lin_abs_tol, rel_tol=cfg.lin_rel_tol,
+              dot=ops_.dot)
+    if not cfg.xsolve_sequential:
+        return solver(hess, rhs, x0=x0, **kw)
+    each = [solver(hess, b, x0=x, **kw) for b, x in zip(rhs, x0)]
+    return krylov.SolveResult(*(torch.stack(v) for v in zip(*each)))
+
+
 def newton_xupdate_ops(
     cfg: ADMMConfig, ops_, Jp_base, scaling, lam, q_proj, ref_volume, ref_barycenter,
     u0, Lambda0, sols0=None, extra_hvp=None,
@@ -242,10 +259,7 @@ def newton_xupdate_ops(
         else:
             hess = _hess_apply(ops_, u, Lambda, ref_volume, ref_barycenter, extra_hvp)
         t1 = _clock(u)
-        res = solver(
-            hess, rhs, x0=sols, M=ops_.M, max_iters=cfg.lin_max_iters,
-            abs_tol=cfg.lin_abs_tol, rel_tol=cfg.lin_rel_tol, dot=ops_.dot,
-        )
+        res = _solve_lanes(cfg, solver, hess, rhs, sols, ops_)
         ok_each = res.converged
         if cfg.lin_accept_rel > 0.0:
             ok_each = ok_each | (res.res_norm <= cfg.lin_accept_rel * torch.sqrt(ops_.dot(rhs, rhs)))

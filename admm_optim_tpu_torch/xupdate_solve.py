@@ -74,7 +74,8 @@ def _sync(device):
 
 
 def prepare(hier: Hierarchy, device=None, dtype=torch.float32, c_eps: float = 1.0, c_grad: float = 1.0,
-            c_mass: float = 1.0, smoothing: dict = BENCH_SMOOTHING, backend: str = "patch") -> SolveContext:
+            c_mass: float = 1.0, smoothing: dict = BENCH_SMOOTHING, backend: str = "patch",
+            ps: PatchSet | None = None) -> SolveContext:
     """Everything of the solve that does not depend on the mesh's
     coordinates: the patchset of hier, its level tables, the V-cycle
     structure (PatchMGStructure with the arguments in smoothing, bench.py's
@@ -83,7 +84,9 @@ def prepare(hier: Hierarchy, device=None, dtype=torch.float32, c_eps: float = 1.
     data stays None: assemble() makes it at any coordinates.
     backend "global": the P1VectorSpace of hier with its block-ELL
     patterns and the solvers.mg structure (smoothing's arguments, the
-    space's V(3,3) Chebyshev cycle when empty), on any mesh."""
+    space's V(3,3) Chebyshev cycle when empty), on any mesh.  ps: the
+    patchset of hier when it was built already (build_patchset(hier), in
+    another process perhaps); None builds it here."""
     device = resolve_device(device)
     t0 = time.perf_counter()
     if backend == "global":
@@ -93,7 +96,8 @@ def prepare(hier: Hierarchy, device=None, dtype=torch.float32, c_eps: float = 1.
         _sync(device)
         return SolveContext(hier, None, space.mg_structure(**smoothing), None, None, None, None, coords,
                             time.perf_counter() - t0, 0.0, space=space, coeffs=(c_eps, c_grad, c_mass), vplan=vplan)
-    ps = build_patchset(hier)
+    if ps is None:
+        ps = build_patchset(hier)
     tabs = patch_mg.make_level_tables(ps, dtype, device)
     coords = torch.as_tensor(hier.fine.coords, dtype=dtype, device=device)
     struct = patch_mg.PatchMGStructure(ps, **smoothing)

@@ -5,11 +5,11 @@
     python3 chip_smoke.py --phase NAME[,NAME]   (build and kernels, then these phases)
     python3 chip_smoke.py --kernels-only        (= --phase kernels: phases 1-3, then stop)
 
-NAME is one of kernels, slice, admm, shard, ns, step, global, pcd, variants, small, cli
-(admm brings slice, whose refs=4 context it runs on); the default runs them
-all, and only the full run prints the {"ok": true, ...} line.  Run alone,
-step and global climb their own viscosity ladder, and shard builds its own
-refs=4 context.
+NAME is one of kernels, slice, admm, shard, sizes, ns, step, global, pcd, variants, small,
+cli (admm brings slice, whose refs=4 context it runs on); the default runs
+them all, and only the full run prints the {"ok": true, ...} line.  Run
+alone, step and global climb their own viscosity ladder, shard builds its
+own refs=4 context, and sizes refines from scratch.
 
 Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
   1. device: the card's name and power limit;
@@ -65,7 +65,22 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      SHARD_U_REL, no early solver exit, K1 on lanes at 5^3 x 112; (d) the
      sharded solve twice, bit for bit; seconds per piece and the bytes
      handed to the collectives;
-  7. ns: the NS path at refs=2 (383,400 NS unknowns), float32, with the
+  7. sizes: bench.py's largest size and its smallest (bench.py:470-486):
+     the refs=5 hierarchy (22,384,134 DoF, 6 levels, fine lattice
+     33^3 x 224), whose refine and patchset a child process started with
+     the run makes on the host and hands back pickled through a temporary
+     directory, on the refs=4 levels of the slice phase after that
+     context is released; prepare and assemble on the card with their
+     seconds and peak device memory, the IR solve with bench.py's settings
+     (converged, float64 true relative residual <= 1e-8, x finite, the JAX
+     record's 2 rounds and 20 +- 2 inner CG iterations, K1, K2 and K4
+     launched at 33^3 x 224, its peak device memory), three warm solves,
+     DoF/s, the V-cycle cost table, one profiled solve (the card's busy
+     share), and K1 (the assembled symmetric f32 W), K2 (its bf16 pencil
+     stream) and K4 (a (hi, lo) split of a seeded field, its error over
+     sum |W||x|) on that operator against their twins, timed as in the
+     kernels phase; then the same solve at refs=3 (19 +- 2 iterations);
+  8. ns: the NS path at refs=2 (383,400 NS unknowns), float32, with the
      lumped-mass pressure block: the cold-start viscosity ladder
      0.16 -> 0.02 (linear counts and seconds per linear iteration per
      rung; a rung the mass block fails is a finding, not a failed check),
@@ -74,7 +89,7 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      and the masked shape gradient J', and the Jacobian assembly at that
      state timed at 4096, 16384 and 65536 cells per batch with its peak
      memory;
-  8. step: two optimization steps of models.obstacle.ObstacleShapeOpt at
+  9. step: two optimization steps of models.obstacle.ObstacleShapeOpt at
      3D refs=2, visc 0.02, float32 with f32_presets and the mass block.
      Step 0 starts from the 0.02 state the ns phase's ladder reached (the
      JAX package's "step -1" state; alone, the phase runs its own ladder)
@@ -91,7 +106,7 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      StepRecords; then one step at refs=1 from the cold start held
      against the port's float64 CPU run kept in
      tests/goldens/chip_step_refs1.npz;
-  9. global: the global (block-ELL) backend, which launches no
+ 10. global: the global (block-ELL) backend, which launches no
      hand-written kernel, at 3D refs=2, visc 0.02, float32 (the step's
      configuration with backend="global"): global against patch on the
      same mesh (the deformation operator A at X0, J x and J^T x at the ns
@@ -106,11 +121,12 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      counts, peak memory and set-up beside the patch step 0's; the ELL
      Jacobian's assembly timed at JAC_ELEM_CHUNKS elements per batch
      (blocks within 1e-6 of max |W|, and whether bit for bit); then at 3D refs=1 sigma_sweep on the patch
-     backend with best_candidate, and geometry_sweep on the global backend
+     backend with best_candidate, and geometry_sweep on that patch problem
+     (it runs on the global context of the same mesh, built at first use)
      over X0 and X0 plus half the first sweep candidate's u, each candidate
      against its single admm_inner call (equal counts, u within 1e-5 of
      max |u|);
- 10. pcd: at refs=2, float32, with the PCD pressure block: one rung, the
+ 11. pcd: at refs=2, float32, with the PCD pressure block: one rung, the
      Newton solve at visc 0.02 from the mass ladder's converged visc 0.04
      state (alone: ns_run.run(ctx, target_visc=0.02), the whole ladder;
      Newton and linear counts, |R|, assembly seconds of the velocity data,
@@ -121,7 +137,7 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      the Krylov operators for the card's busy share and K5's share of
      device time (scripts/torch_vel_inner.py runs the rung with 1 and 2
      velocity-block Richardson steps in turns);
- 11. variants: ROADMAP item 9b at 3D refs=2, float32, from the ns phase's
+ 12. variants: ROADMAP item 9b at 3D refs=2, float32, from the ns phase's
      mass ladder states (alone: its own ladder on the global backend):
      (a) the matrix-free J x (torch.func.jvp) and J^T x (torch.func.vjp)
      against the assembled ELL forms within 1e-5 of max |y|, their ms at
@@ -137,12 +153,12 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      the global mass rung and the patch PCD rung; (e) two ns_residual and
      pressure_mass_lumped calls bitwise equal, the global NS re-solve on
      the global step's mesh twice (the counts must repeat), J' twice;
- 12. small: refs=1 solve, ADMM run and PCD ladder to visc 0.08 (with
+ 13. small: refs=1 solve, ADMM run and PCD ladder to visc 0.08 (with
      drag, adjoint and J') held against the port's float64 CPU runs: the
      solve and the ADMM run here, the ladder as kept in
      tests/goldens/chip_pcd_ladder_refs1.npz (made on the CPU, in minutes,
      by tests/goldens/make_chip_reference.py, which also makes the step's);
- 13. cli: python -m admm_optim_tpu_torch.cli -dim 3 -numRefs 1 -numSteps 1
+ 14. cli: python -m admm_optim_tpu_torch.cli -dim 3 -numRefs 1 -numSteps 1
      -visc 0.16 -admmSteps 40 -nsMaxIts 8 -tau 2 -bNewtonOutput 1
      -bActivateProfiler 1, called in this process: exit code 0, one
      accepted step, __Drag.txt, __Iterations_per_step.txt (9 columns),
@@ -150,7 +166,7 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      against the same argv with -x64 run on the CPU and kept in
      tests/goldens/chip_cli_refs1.npz (the same accepting attempt, the
      drags within STEP_DRAG_SHARE of the CPU step's decrease).
-Each path (solve, ADMM, the shard ranks, NS, step, step 1 resumed, global step, PCD, variants, CLI) is driven with the launch
+Each path (solve, ADMM, the shard ranks, the refs=5 and refs=3 solves, NS, step, step 1 resumed, global step, PCD, variants, CLI) is driven with the launch
 counts set to 0 just before it (the NS paths reset them before each of their phases) and
 read just after; each of its kernels must have launched.  The counts are
 printed per kernel and per kernel and lattice.
@@ -164,9 +180,12 @@ import contextlib
 import dataclasses
 import io
 import json
+import multiprocessing
 import os
 import pathlib
+import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -254,7 +273,18 @@ REFERENCE_THREADS = 2
 # Arnoldi chunk (200 before PR 11's variants phase; the step phase runs its
 # adjoint at visc 0.02 to the exit)
 NS_ADJOINT_BUDGET = 100
-PHASES = ("kernels", "slice", "admm", "shard", "ns", "step", "global", "pcd", "variants", "small", "cli")
+PHASES = ("kernels", "slice", "admm", "shard", "sizes", "ns", "step", "global", "pcd", "variants", "small", "cli")
+# the sizes phase: bench.py's other sizes (bench.py:470-486), refs=5 then
+# refs=3, each beside the JAX package's record of (inner CG iterations, IR
+# rounds) on one v5e (docs/bench_r5_full.logtxt:32-43 and :50-59): the rounds
+# must be the record's, the iterations within SIZE_ITER_SLACK of it
+SIZES = {5: (20, 2), 3: (19, 2)}
+SIZE_ITER_SLACK = 2
+SIZES_SHAPE = ((33, 33, 33), 224)  # the refs=5 fine lattice, P
+SIZES_SEED = 13  # the field K1, K2 and K4 take on the assembled refs=5 operator
+# the seconds the phase waits for the child that refines the refs=5
+# hierarchy (it starts with the run, minutes of host work)
+SIZES_HOST_WAIT_S = 600.0
 # the shard phase: two gloo ranks on the one card, each the block of
 # SHARD_P patches of the refs=4 lattice (and of the refs=2 one); its seeded
 # exchange field, the limits it holds the sharded solve and ADMM to, and
@@ -306,6 +336,9 @@ PATHS = {
     "shard": ("apply_w_sym", "apply_w_pencil", "apply_w_df_sym", "apply_w_sym/lanes"),
     # vorder=1 on the patch backend: the velocity block on the level-k lattice
     "variants": ("apply_w_full", "apply_w_full_t"),
+    # the refs=5 IR solve (33^3 x 224) and the refs=3 one (9^3 x 224)
+    "sizes": ("apply_w_sym", "apply_w_pencil", "apply_w_df_sym"),
+    "sizes3": ("apply_w_sym", "apply_w_pencil", "apply_w_df_sym"),
 }
 # elements per jacfwd batch of the ELL Jacobian assembly (ops/ns_elljac.py
 # JAC_ELEM_CHUNK), timed at 3D refs=2 in the global phase; 86,016 is all
@@ -346,11 +379,12 @@ JSON_SHAPE.update({"apply_w_full": "9^3x224", "apply_w_full_t": "9^3x224",
                    "apply_w_full/c1": "5^3x224", "apply_w_full_t/c1": "5^3x224"})
 # the other shapes each kernel's JSON entry gives its times at: the coarse
 # levels the paths launch it on, and the scalar kernel's scalar-width form
+# (33^3x224: the assembled refs=5 operator of the sizes phase)
 BY_SHAPE = {
-    "apply_w_sym": ("9^3x224", "5^3x224", "3^3x224", "17^3x112", "9^3x112"),
+    "apply_w_sym": ("9^3x224", "5^3x224", "3^3x224", "17^3x112", "9^3x112", "33^3x224"),
     "apply_w_sym/lanes": ("5^3x112",),
-    "apply_w_pencil": ("9^3x224", "5^3x224", "3^3x224", "5^3x222", "3^3x5", "17^3x112", "9^3x112"),
-    "apply_w_df_sym": ("17^3x112", "9^3x112"),
+    "apply_w_pencil": ("9^3x224", "5^3x224", "3^3x224", "5^3x222", "3^3x5", "17^3x112", "9^3x112", "33^3x224"),
+    "apply_w_df_sym": ("17^3x112", "9^3x112", "33^3x224"),
     "apply_w_pencil_batched": ("9^3x224", "5^3x224", "3^3x224", "5^3x222", "3^3x5"),
     "apply_w_full": ("5^3x224", "3^3x224"),
     "apply_w_full_t": ("5^3x224", "3^3x224"),
@@ -508,6 +542,25 @@ def bound(moved, flops, flops_per_s):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_times(got, ref, fn, plain, moved, flops, rate=F32_FLOPS, extra=None, timed=True, scale=None):
+    """One kernel's result got against its twin's ref: max_abs_err, rel_err
+    (over scale, max |ref| when None); when timed, ms (device, L2
+    emptied), clean_ms (L2 emptied of clean lines), warm_ms (L2 left warm),
+    call_ms (one call to an idle card), plain_ms (the twin) and extra_ms
+    (extra, where given), else nan; bound_ms and bound_by of moved bytes
+    and flops at rate."""
+    err = float((got - ref).abs().max())
+    nan = float("nan")
+    bms, bby = bound(moved, flops, rate)
+    return dict(
+        max_abs_err=err, rel_err=err / (float(ref.abs().max()) if scale is None else scale),
+        ms=median_ms(fn) if timed else nan, clean_ms=clean_ms(fn) if timed else nan,
+        warm_ms=warm_ms(fn) if timed else nan, call_ms=call_ms(fn) if timed else nan,
+        plain_ms=median_ms(plain) if timed else nan,
+        extra_ms=median_ms(extra) if timed and extra else nan, bound_ms=bms, bound_by=bby,
+    )
+
+
 def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
     """The kernels of groups (GROUPS: "full" K5 and K5^T at C = 3 and
     C = 1, "sym" K1 on one field, "pencil" K2, "lanes" K1 on lanes,
@@ -528,17 +581,7 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
     out = {}
 
     def record(group, name, got, ref, fn, plain, moved, fl, extra=None, rate=F32_FLOPS):
-        err = float((got - ref).abs().max())
-        nan = float("nan")
-        on = timed is True or group in timed
-        bms, bby = bound(moved, fl, rate)
-        out[name] = dict(
-            max_abs_err=err, rel_err=err / float(ref.abs().max()),
-            ms=median_ms(fn) if on else nan, clean_ms=clean_ms(fn) if on else nan,
-            warm_ms=warm_ms(fn) if on else nan, call_ms=call_ms(fn) if on else nan,
-            plain_ms=median_ms(plain) if on else nan,
-            extra_ms=median_ms(extra) if on and extra else nan, bound_ms=bms, bound_by=bby,
-        )
+        out[name] = kernel_times(got, ref, fn, plain, moved, fl, rate, extra, timed is True or group in timed)
 
     def poisoned(what, W, pairs):
         """The same result, bit for bit, with POISON in every W entry whose
@@ -664,6 +707,22 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
             nbytes(W, xh, xl, yh, yl), flops, rate=F64_FLOPS,  # f64 accumulation
         )
     return out
+
+
+def log_kernel(tag, name, label, t, floor_ms):
+    """One kernel_times result t on a line, held to its limit: 1e-5 of
+    max |y| (1e-13 for K4, against a float64 apply)."""
+    limit = 1e-13 if name == "apply_w_df_sym" else 1e-5
+    log(
+        f"[{tag}] {name:22s} {label:9s} max_abs_err {t['max_abs_err']:.3e} rel {t['rel_err']:.3e} "
+        f"(limit {limit:.0e}) kernel {t['ms']:.4f} ms (one call to an idle card "
+        f"{t['call_ms']:.4f} ms) twin {t['plain_ms']:.4f} ms bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
+        f"floor {floor_ms:.4f} ms"
+        + (f" {LANES} x K2 {t['extra_ms']:.4f} ms" if name == "apply_w_pencil_batched" else "")
+        + f" L2 emptied of clean lines {t['clean_ms']:.4f} ms, L2 warm {t['warm_ms']:.4f} ms"
+        + "".join(f" block {n}: {t[f'ms_block_{n}']:.4f} ms" for n in SCALAR_BLOCKS if f"ms_block_{n}" in t)
+    )
+    check(t["rel_err"] <= limit, f"{name} at {label}: rel err {t['rel_err']:.3e} > {limit:.0e}")
 
 
 def read_launches(path, by_lattice):
@@ -1394,10 +1453,11 @@ def same_candidate(tag, states, b, st):
 
 
 def sweep_phase():
-    """At 3D refs=1, visc NS_VISC: sigma_sweep on the patch backend over
+    """At 3D refs=1, visc NS_VISC, on the patch backend: sigma_sweep over
     SWEEP_SIGMAS and best_candidate from the cold-start Newton state;
-    geometry_sweep on the global backend over X0 and X0 + GEOMETRY_SHARE u
-    of the first candidate; each candidate against its single call."""
+    geometry_sweep (on the global context of the same mesh,
+    sweep.global_xupdate) over X0 and X0 + GEOMETRY_SHARE u of the first
+    candidate; each candidate against its single call."""
     from admm_optim_tpu_torch.models import sweep
     from admm_optim_tpu_torch.optim.admm import admm_inner_global
 
@@ -1418,18 +1478,20 @@ def sweep_phase():
     log(f"[sweep] refs=1 sigma_sweep over {SWEEP_SIGMAS} on the patch backend: {t2 - t1:.2f} s; best_candidate "
         f"{idx}, drags {drags.tolist()} (start {pp._drag(X, nres.s):.10g}); set-up and Newton {t1 - t0:.2f} s")
     check(np.isfinite(drags[idx]), "best_candidate found a candidate")
-    gp = ObstacleShapeOpt(dataclasses.replace(step_config(1, NS_VISC), backend="global"), device="cuda")
     Xs = [X, (X + GEOMETRY_SHARE * states.u[0].T).contiguous()]
     t3 = time.perf_counter()
-    gstates = sweep.geometry_sweep(gp, Xs, [Jp, Jp], sigma=SWEEP_SIGMAS[0])
+    gstates = sweep.geometry_sweep(pp, Xs, [Jp, Jp], sigma=SWEEP_SIGMAS[0])
     sync()
-    log(f"[sweep] refs=1 geometry_sweep over 2 meshes on the global backend: {time.perf_counter() - t3:.2f} s")
+    log(f"[sweep] refs=1 geometry_sweep over 2 meshes on the patch problem (global context built at first use): "
+        f"{time.perf_counter() - t3:.2f} s")
+    gx = sweep.global_xupdate(pp)
+    check(gx.space is not None, "geometry_sweep ran on the global context of the patch problem's mesh")
     for b, Xb in enumerate(Xs):
-        single = admm_inner_global(gp.cfg.admm, gp.xu.struct, xupdate_solve.assemble(gp.xu, Xb), Xb, gp.elems,
-                                   gp.ns.free_def, Jp, SWEEP_SIGMAS[0], 1.0, gp.ref_volume, gp.ref_barycenter,
-                                   vplan=gp.xu.vplan)
+        single = admm_inner_global(pp.cfg.admm, gx.struct, xupdate_solve.assemble(gx, Xb), Xb, pp.elems,
+                                   pp.ns.free_def, Jp, SWEEP_SIGMAS[0], 1.0, pp.ref_volume, pp.ref_barycenter,
+                                   vplan=gx.vplan)
         same_candidate("geometry_sweep (global)", gstates, b, single)
-    del pp, gp
+    del pp, gx
     torch.cuda.empty_cache()
 
 
@@ -1958,7 +2020,7 @@ def kernel_table(phases, floor_ms, launches, by_lattice):
                          bound_ms_17=f["bound_ms"], max_abs_err_17=f["max_abs_err"])
         entry["by_shape"] = {
             label: {k: v for k, v in phases[label][name].items() if k != "extra_ms"}
-            for label in BY_SHAPE.get(name, ())
+            for label in BY_SHAPE.get(name, ()) if label in phases
         }
         kernels.append(entry)
     return kernels
@@ -1972,7 +2034,13 @@ def main(phases_run=PHASES):
     smi = nvidia_smi()
     log(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    run_phases(kind, phases_run)
+    # the refs=5 hierarchy's host work, in a child process from the start
+    host = HostHierarchy(max(SIZES)) if "sizes" in phases_run else None
+    try:
+        run_phases(kind, phases_run, host)
+    finally:
+        if host is not None:
+            host.close()
 
 
 _T0 = time.perf_counter()
@@ -1982,7 +2050,7 @@ def phase_done(name):
     log(f"[phase] {name} done, {time.perf_counter() - _T0:.1f} s since the start")
 
 
-def run_phases(kind, phases_run):
+def run_phases(kind, phases_run, host):
 
     # 2. build
     t0 = time.perf_counter()
@@ -2027,17 +2095,7 @@ def run_phases(kind, phases_run):
             log(f"[kernel] K5/K5^T adjointness C = {C} {label:9s} |<Ax,y> - <x,A^T y>| / max {adj:.3e} (limit 1e-5)")
             check(adj <= 1e-5, f"K5/K5^T adjointness at C = {C}, {label}: {adj:.3e}")
         for name, t in res.items():
-            limit = 1e-13 if name == "apply_w_df_sym" else 1e-5
-            log(
-                f"[kernel] {name:22s} {label:9s} max_abs_err {t['max_abs_err']:.3e} rel {t['rel_err']:.3e} "
-                f"(limit {limit:.0e}) kernel {t['ms']:.4f} ms (one call to an idle card "
-                f"{t['call_ms']:.4f} ms) twin {t['plain_ms']:.4f} ms bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
-                f"floor {floor_ms:.4f} ms"
-                + (f" {LANES} x K2 {t['extra_ms']:.4f} ms" if name == "apply_w_pencil_batched" else "")
-                + f" L2 emptied of clean lines {t['clean_ms']:.4f} ms, L2 warm {t['warm_ms']:.4f} ms"
-                + "".join(f" block {n}: {t[f'ms_block_{n}']:.4f} ms" for n in SCALAR_BLOCKS if f"ms_block_{n}" in t)
-            )
-            check(t["rel_err"] <= limit, f"{name} at {label}: rel err {t['rel_err']:.3e} > {limit:.0e}")
+            log_kernel("kernel", name, label, t, floor_ms)
     phase_done("kernels")
     if phases_run == ("kernels",):
         print(json.dumps({"kernels": kernel_table(phases, floor_ms, {}, {})}))
@@ -2058,8 +2116,15 @@ def run_phases(kind, phases_run):
     if "shard" in phases_run:
         shard_phase(ctx, launches, by_lattice)
         phase_done("shard")
+    # 7. bench.py's largest and smallest sizes, refs=5 and refs=3, after
+    # the refs=4 context's device tensors are released (bench.py:475)
+    levels = None if ctx is None else ctx.hier.levels
     del ctx
     torch.cuda.empty_cache()
+    if "sizes" in phases_run:
+        sizes_phase(levels, host, launches, by_lattice, floor_ms, phases)
+        phase_done("sizes")
+    del levels
 
     # 6. the NS path at refs=2 with the mass block: the ladder, then drag,
     # adjoint and J' at visc 0.16; the PCD context's tables serve both
@@ -2137,19 +2202,36 @@ def solve_phase(launches, by_lattice):
         f"res_norm {float(res.res_norm):.3e}, converged {res.converged}, launches {launches['solve']} "
         f"(recorded before: {SOLVE_COUNTS[0]} CG iterations, {SOLVE_COUNTS[1]} IR rounds)"
     )
-    check(res.converged, "refs=4 cg_ir_p converged")
+    solve_checks("slice", "refs=4", ctx, b, res)
+    warm_solves("slice", ctx, b)
+    log(f"[slice] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del res, b
+    return ctx
+
+
+def solve_checks(tag, what, ctx, b, res):
+    """The checks of an IR solve res of ctx's system A x = b: converged,
+    every PatchMGData tensor on the card, the bf16 smoother stream built,
+    x finite and of b's shape, and the true relative residual <= 1e-8,
+    rechecked in float64 with the plain apply."""
+    check(res.converged, f"{what} cg_ir_p converged")
     data = ctx.data
     tensors = data.W + data.inv_diag + data.lmax + [data.base_inv] + [
         w.a for w in (data.W_sm or []) if w is not None
     ]
-    check(all(t.is_cuda for t in tensors), "every PatchMGData tensor on cuda")
-    check(data.W_sm is not None, "bf16 pencil smoother stream built")
+    check(all(t.is_cuda for t in tensors), f"{what}: every PatchMGData tensor on cuda")
+    check(data.W_sm is not None, f"{what}: bf16 pencil smoother stream built")
     x = res.x_hi + res.x_lo
-    check(x.shape == b.shape and bool(torch.isfinite(x).all()), "finite solution of the right shape")
+    check(x.shape == b.shape and bool(torch.isfinite(x).all()), f"{what}: finite solution of the right shape")
     true_rel = true_rel_residual(ctx, b, res.x_hi.double() + res.x_lo.double())
-    log(f"[slice] true relative residual (f64 check) {true_rel:.3e}")
-    check(true_rel <= 1e-8, f"true relative residual {true_rel:.3e} <= 1e-8")
+    log(f"[{tag}] {what} true relative residual (f64 check) {true_rel:.3e}")
+    check(true_rel <= 1e-8, f"{what} true relative residual {true_rel:.3e} <= 1e-8")
 
+
+def warm_solves(tag, ctx, b):
+    """Three warm solves of ctx's system, each converged: logs ms/solve
+    (median and each), DoF/s and the V-cycle cost table; returns the
+    seconds of each."""
     times, iters = [], []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -2161,15 +2243,13 @@ def solve_phase(launches, by_lattice):
         check(r.converged, "warm solve converged")
     ms = statistics.median(times) * 1e3
     log(
-        f"[slice] {ms:.2f} ms/solve (median of {len(times)} warm solves: "
+        f"[{tag}] {ms:.2f} ms/solve (median of {len(times)} warm solves: "
         f"{', '.join(f'{t * 1e3:.2f}' for t in times)}; inner iterations {iters}), "
-        f"{ctx.n_dofs / (ms / 1e3):.4e} DoF/s, "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+        f"{ctx.n_dofs / (ms / 1e3):.4e} DoF/s"
     )
-    log(f"[slice] V-cycle cost table at the H100 SXM's published {H100_SXM_GBPS:.0f} GB/s:")
-    log(xupdate_solve.patch_mg.vcycle_cost_table(ctx.struct, data, H100_SXM_GBPS))
-    del tensors, res, r, x, b
-    return ctx
+    log(f"[{tag}] V-cycle cost table at the H100 SXM's published {H100_SXM_GBPS:.0f} GB/s:")
+    log(xupdate_solve.patch_mg.vcycle_cost_table(ctx.struct, ctx.data, H100_SXM_GBPS))
+    return times
 
 
 def admm_phase(ctx, launches, by_lattice):
@@ -2371,6 +2451,204 @@ def shard_phase(ctx, launches, by_lattice, device="cuda"):
         f"all_reduce; seconds: rank set-up (tables, exchanges, assembly) {o['setup_s']:.2f}, ranks started and "
         f"joined {spawn_s:.2f}, phase {time.perf_counter() - t_phase:.2f}")
     del res1, x1, x, st1
+
+
+def host_hierarchy(num_refs, path):
+    """In a child process: the 3D channel refined num_refs times and its
+    patchset (xupdate_solve.build's host work), pickled to path with the
+    seconds of each part."""
+    t0 = time.perf_counter()
+    levels = [geomgen.channel_3d()]
+    for _ in range(num_refs):
+        levels.append(refine(levels[-1]))
+    t1 = time.perf_counter()
+    ps = build_patchset(Hierarchy(levels))
+    t2 = time.perf_counter()
+    with open(path + ".part", "wb") as f:
+        pickle.dump(dict(levels=levels, ps=ps, refine_s=t1 - t0, patchset_s=t2 - t1), f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(path + ".part", path)
+
+
+class HostHierarchy:
+    """The refs=num_refs hierarchy and patchset of host_hierarchy, made in
+    a child process started with the run, so that its minutes of host work
+    overlap the phases before sizes; handed back pickled through a
+    temporary directory.  close() stops the child and removes the
+    directory."""
+
+    def __init__(self, num_refs):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_")
+        self.path = os.path.join(self.dir, f"refs{num_refs}.pkl")
+        self.t0 = time.perf_counter()
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=host_hierarchy, args=(num_refs, self.path), daemon=True)
+        self.proc.start()
+
+    def result(self, timeout):
+        """The child's dict (levels, ps, refine_s, patchset_s) with the
+        seconds the caller waited for it and took to load it."""
+        t0 = time.perf_counter()
+        self.proc.join(timeout)
+        check(self.proc.exitcode == 0, f"the host child made the hierarchy (exit code {self.proc.exitcode})")
+        t1 = time.perf_counter()
+        with open(self.path, "rb") as f:
+            out = pickle.load(f)
+        os.remove(self.path)
+        out.update(waited_s=t1 - t0, load_s=time.perf_counter() - t1, asked_s=t0 - self.t0)
+        return out
+
+    def close(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(10)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def size_solve(refs, hier, launches, by_lattice, ps=None):
+    """bench.py's solve at refs on the card, float32: prepare (ps: the
+    patchset of hier, built here when None) and assemble at the
+    undeformed mesh, the peak device memory of each; one solve of
+    random_rhs(seed=0) with the launch counts from 0 (path "sizes" at
+    refs=5, "sizes3" at refs=3), held to solve_checks, to SIZES[refs]'s
+    rounds and its iterations within SIZE_ITER_SLACK, K1, K2 and K4
+    launched on the fine lattice; then three warm solves.  Returns (ctx,
+    b, the warm seconds)."""
+    tag, path = f"sizes refs={refs}", "sizes" if refs == max(SIZES) else f"sizes{refs}"
+    t0 = time.perf_counter()
+    ctx = xupdate_solve.prepare(hier, "cuda", torch.float32, ps=ps)
+    prepare_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ctx.data = xupdate_solve.assemble(ctx, ctx.coords)
+    sync()
+    asm_s = time.perf_counter() - t0
+    log(f"[{tag}] {ctx.n_dofs} DoF, {len(hier.levels)} levels, fine lattice {ctx.ps.fine.lat_shape} x {ctx.ps.P}: "
+        f"prepare (tables on the card{'' if ps is not None else ', patchset'}) {prepare_s:.2f} s")
+    log(f"[{tag}] assembly {asm_s:.2f} s")
+    log(f"[{tag}] assembly peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"({before / 2**30:.3f} GiB resident before it, {torch.cuda.memory_allocated() / 2**30:.3f} GiB after)")
+    b = xupdate_solve.random_rhs(ctx, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    res = xupdate_solve.solve(ctx, b)
+    sync()
+    first_s = time.perf_counter() - t0
+    launches[path] = read_launches(path, by_lattice)
+    log(f"[{tag}] solve peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    want_iters, want_rounds = SIZES[refs]
+    log(f"[{tag}] first solve {first_s:.3f} s: inner CG iterations {res.inner_iters}, IR rounds {res.rounds}, "
+        f"res_norm {float(res.res_norm):.3e}, converged {res.converged}, launches {launches[path]} "
+        f"(the JAX record: {want_iters} CG iterations, {want_rounds} rounds)")
+    solve_checks(tag, f"refs={refs}", ctx, b, res)
+    check(res.rounds == want_rounds and abs(res.inner_iters - want_iters) <= SIZE_ITER_SLACK,
+          f"refs={refs}: {res.rounds} IR rounds and {res.inner_iters} inner CG iterations, the JAX record "
+          f"{want_rounds} and {want_iters} +- {SIZE_ITER_SLACK}")
+    fine = ctx.ps.fine.lat_shape + (ctx.ps.P,)
+    for name in PATHS[path]:
+        check(by_lattice[path].get((name, fine), 0) > 0, f"{name} launched at {fine} by the refs={refs} solve")
+    del res
+    return ctx, b, warm_solves(tag, ctx, b)
+
+
+def profiled_solve(tag, ctx, b, wall_s):
+    """One solve under torch.profiler: the card's busy time against
+    wall_s, the untraced median, and the kernels with the most device
+    time."""
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        xupdate_solve.solve(ctx, b)
+        sync()
+        traced = time.perf_counter() - t0
+    dev = device_ms(prof)
+    if dev is None:
+        log(f"[{tag}] profiled solve: device time not measured (the trace holds no device events)")
+        return
+    total, _, _, top = dev
+    log(f"[{tag}] one profiled solve: {traced * 1e3:.2f} ms traced, device busy {total:.2f} ms, "
+        f"{100 * total / (wall_s * 1e3):.1f}% of the untraced median {wall_s * 1e3:.2f} ms; top kernels "
+        + "; ".join(f"{n} {t:.2f} ms {100 * t / total:.1f}% ({c})" for n, t, c in top))
+
+
+def assembled_kernels(ctx, floor_ms, seed=SIZES_SEED):
+    """K1 (data.W at the fine level, symmetric f32), K2 (its bf16 pencil
+    smoother stream) and K4 (on a (hi, lo) split of a seeded float64
+    field) on the assembled operator of ctx against their twins, timed as
+    kernel_phase times them; K4's error over max sum |W||x| (a float64
+    apply of |W| to |x|).  Returns {name: kernel_times}."""
+    ps, data = ctx.ps, ctx.data
+    W, W_pc, free = data.W[ps.k], data.W_sm[ps.k].a, data.tabs[ps.k].free
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x64 = torch.randn((3,) + tuple(free.shape), generator=g, device="cuda", dtype=torch.float64) * free.double()
+    xh = x64.float()
+    xl = (x64 - xh.double()).float()
+    flops = 2.0 * len(ps.stencil) * 9 * free.numel()
+    out = {}
+    y = sk.apply_w_sym(ps, W, xh)
+    out["apply_w_sym"] = kernel_times(y, sk._apply_w_sym(ps, W, xh), lambda: sk.apply_w_sym(ps, W, xh),
+                                      lambda: sk._apply_w_sym(ps, W, xh), nbytes(W, xh, y), flops)
+    y = sk.apply_w_pencil(ps, W_pc, xh)
+    out["apply_w_pencil"] = kernel_times(y, sk._apply_w_pencil(ps, W_pc, xh), lambda: sk.apply_w_pencil(ps, W_pc, xh),
+                                         lambda: sk._apply_w_pencil(ps, W_pc, xh), nbytes(W_pc, xh, y), flops)
+    del y
+    yh, yl = sk.apply_w_df_sym(ps, W, xh, xl)
+    x64 = xh.double() + xl.double()
+    ref = sk._apply_w_sym(ps, W.double(), x64)
+    scale = float(sk._apply_w_sym(ps, W.double().abs(), x64.abs()).max())
+    out["apply_w_df_sym"] = kernel_times(
+        yh.double() + yl.double(), ref, lambda: sk.apply_w_df_sym(ps, W, xh, xl),
+        lambda: sk._apply_w_df_full(ps, st.expand_sym_w(ps, W), xh, xl), nbytes(W, xh, xl, yh, yl), flops,
+        rate=F64_FLOPS, scale=scale)
+    del ref, x64, yh, yl
+    _flush.clear()
+    label = lattice_name(ps.fine.lat_shape + (ps.P,))
+    for name, t in out.items():
+        log_kernel("sizes refs=5", name, label + (" (K4 over sum |W||x|)" if name == "apply_w_df_sym" else ""),
+                   t, floor_ms)
+    return out
+
+
+def sizes_phase(levels, host, launches, by_lattice, floor_ms, phases):
+    """bench.py's largest size and its smallest on the card: the refs=5
+    hierarchy (levels, the slice phase's refs=4 levels, plus the one
+    refine the host child made; alone, the child's from scratch), its
+    solve (size_solve), one profiled solve, K1, K2 and K4 on its assembled
+    operator (assembled_kernels, into phases["33^3x224"]); then refs=3 on
+    the first four levels.  A failure here fails the run."""
+    t_phase = time.perf_counter()
+    h = host.result(SIZES_HOST_WAIT_S)
+    log(f"[sizes] the host child (started with the run): refine to refs={len(h['levels']) - 1} {h['refine_s']:.2f} s, "
+        f"patchset {h['patchset_s']:.2f} s; the phase asked for it {h['asked_s']:.1f} s after the start, "
+        f"waited {h['waited_s']:.2f} s and loaded it in {h['load_s']:.2f} s; device memory resident "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    if levels is None:
+        levels = h["levels"]
+    else:
+        k = len(levels)
+        check(all(np.array_equal(a.coords, c.coords) and np.array_equal(a.elems, c.elems)
+                  for a, c in zip(levels, h["levels"][:k])),
+              "the host child's coarse levels equal the slice phase's")
+        levels = list(levels) + h["levels"][k:]
+    ctx, b, times = size_solve(max(SIZES), Hierarchy(levels), launches, by_lattice, ps=h["ps"])
+    del h
+    check(ctx.ps.fine.lat_shape + (ctx.ps.P,) == SIZES_SHAPE[0] + (SIZES_SHAPE[1],),
+          f"the refs=5 fine lattice is {SIZES_SHAPE}")
+    profiled_solve("sizes refs=5", ctx, b, statistics.median(times))
+    phases[lattice_name(ctx.ps.fine.lat_shape + (ctx.ps.P,))] = assembled_kernels(ctx, floor_ms)
+    del ctx, b
+    torch.cuda.empty_cache()
+    refs3 = min(SIZES)
+    ctx, b, _ = size_solve(refs3, Hierarchy(levels[:refs3 + 1]), launches, by_lattice)
+    del ctx, b
+    torch.cuda.empty_cache()
+    log(f"[sizes] phase {time.perf_counter() - t_phase:.2f} s")
 
 
 def small_phase():

@@ -57,11 +57,16 @@ on the CPU in float64:
     stencils, inverse diagonals and lambda_max and the base inverse
     (assemble_patch_mg_p, sym=True), one vcycle_p, cg_p, cg_ir_p, and
     admm_inner_ops on a PatchOps with pvalid masking the padding.
+  * sweep: tests/goldens/e2e_sweep_patch.npz, held by
+    tests/test_torch_sweep.py: geometry_sweep on tests/test_sweep.py's 2D
+    refs=1 backend="auto" problem, whose x-update is on the patch backend
+    (the sweep runs on the global def_space all the same), over the meshes
+    of tests/torch_global_golden.py's perturbed_meshes.
 
 The JAX stepped kernels compile for minutes on one CPU core.  Run from the
 repository root:
 
-    python tests/goldens/make_e2e_goldens.py [e2e] [adjoint] [ckpt] [cli] [global] [variants] [shard]
+    python tests/goldens/make_e2e_goldens.py [e2e] [adjoint] [ckpt] [cli] [global] [variants] [shard] [sweep]
 """
 import contextlib
 import io
@@ -99,6 +104,7 @@ CLI_OUT = HERE / "e2e_cli_2d.npz"
 GLOBAL_OUT = HERE / "e2e_global.npz"
 VARIANTS_OUT = HERE / "e2e_variants.npz"
 SHARD_OUT = HERE / "e2e_shard.npz"
+SWEEP_OUT = HERE / "e2e_sweep_patch.npz"
 CLI_ARGV = ["-dim", "2", "-numRefs", "1", "-numSteps", "2", "-admmSteps", "8", "-x64"]
 TELEMETRY_FILES = {"drag": "__Drag.txt", "iterations": "__Iterations_per_step.txt"}
 NUM_STEPS = 2
@@ -329,6 +335,23 @@ def run_global():
     return out
 
 
+def run_sweep():
+    """geometry_sweep on the patch-backend problem of tests/test_sweep.py
+    (tests/torch_global_golden.py's PATCH_SWEEP_*): the meshes, the shape
+    gradient and the batched ADMMState."""
+    import torch_global_golden as G
+    from admm_optim_tpu.models import sweep
+
+    prob = ObstacleShapeOpt(problem_config(G.PATCH_SWEEP_CONFIG))
+    assert prob.use_patch
+    Xs = G.perturbed_meshes(prob.X0, prob.free, G.PATCH_SWEEP_LANES)
+    Jp = np.asarray(G.jp_of(prob.X0, prob.obstacle_vmask))
+    states = sweep.geometry_sweep(prob, Xs, np.broadcast_to(Jp, (len(Xs),) + Jp.shape), sigma=G.PATCH_SWEEP_SIGMA)
+    print(f"patch geometry_sweep: admm_it {np.asarray(states.admm_it)} newton {np.asarray(states.total_newton)} "
+          f"lin {np.asarray(states.total_lin_iters)}", flush=True)
+    return dict(_state("geometry_sweep_patch", states), Xs=Xs, Jp=Jp)
+
+
 def run_ns_alone(name, kw):
     """The NS path alone at V.NS_VISC from the cold start, with the
     host-stepped drivers: Newton's linear counts per iteration, drag, the
@@ -446,11 +469,11 @@ def main(which):
         print(f"wrote {ADJ_OUT} ({ADJ_OUT.stat().st_size} bytes)", flush=True)
     for name, run, path in (("ckpt", run_ckpt, TELEMETRY_OUT), ("cli", run_cli, CLI_OUT),
                             ("global", run_global, GLOBAL_OUT), ("variants", run_variants, VARIANTS_OUT),
-                            ("shard", run_shard, SHARD_OUT)):
+                            ("shard", run_shard, SHARD_OUT), ("sweep", run_sweep, SWEEP_OUT)):
         if name in which:
             np.savez_compressed(path, **run())
             print(f"wrote {path}", flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["e2e", "adjoint", "ckpt", "cli", "global", "variants", "shard"])
+    main(sys.argv[1:] or ["e2e", "adjoint", "ckpt", "cli", "global", "variants", "shard", "sweep"])

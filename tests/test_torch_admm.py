@@ -44,18 +44,32 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
 
 
-@pytest.mark.parametrize("name", ["bicgstab", "cg", "relaxed"])
-def test_admm_inner_matches_jax(problem, name):
-    cfg = convert.admm_config(CFGS[name])
-    for f in ("x_solver", "relax_alpha", "lin_accept_rel", "lin_max_iters"):
-        assert getattr(cfg, f) == getattr(CFGS[name], f), f
-    g = {k[len(name) + 1:]: v for k, v in GOLD.items() if k.startswith(name + "_")}
+def _admm_run(problem, cfg):
+    """admm_inner on the fixture with every output hook: (state, callback
+    iterations, stats rows, Newton history, debug fields)."""
     ks, rows, hist, dbg = [], [], [], {}
     st = admm.admm_inner(
         cfg, problem.ops, problem.Jp, SIGMA, SCALING, problem.ref_vol, problem.ref_bary,
         iter_cb=lambda k, u: ks.append(k), newton_hist_out=hist, full_stats_out=rows,
         debug_out=dbg,
     )
+    return st, ks, rows, hist, dbg
+
+
+@pytest.fixture(scope="module")
+def bicgstab_run(problem):
+    """The lane-batched BiCGStab run, shared by the parity test and the
+    xsolve_sequential test."""
+    return _admm_run(problem, convert.admm_config(CFGS["bicgstab"]))
+
+
+@pytest.mark.parametrize("name", ["bicgstab", "cg", "relaxed"])
+def test_admm_inner_matches_jax(problem, name, request):
+    cfg = convert.admm_config(CFGS[name])
+    for f in ("x_solver", "relax_alpha", "lin_accept_rel", "lin_max_iters"):
+        assert getattr(cfg, f) == getattr(CFGS[name], f), f
+    g = {k[len(name) + 1:]: v for k, v in GOLD.items() if k.startswith(name + "_")}
+    st, ks, rows, hist, dbg = request.getfixturevalue("bicgstab_run") if name == "bicgstab" else _admm_run(problem, cfg)
     # counts and flags exactly, per lane of the batched Krylov solves too
     assert st.admm_it == int(g["admm_it"])
     assert st.total_newton == int(g["total_newton"])
@@ -138,3 +152,31 @@ def test_admm_run_cpu_drive():
     assert s.u.shape == (3,) + ctx.ps.fine.lat_shape + (ctx.ps.P,)
     assert bool(torch.isfinite(s.u).all()) and float(s.u.abs().max()) > 0.0
     assert out.seconds >= s.wh_seconds + s.krylov_seconds > 0.0
+
+
+def test_xsolve_sequential_equals_the_lane_batched_run(problem, bicgstab_run):
+    """xsolve_sequential runs the 1+m x-update solves one lane at a time
+    (the JAX package's lax.map, admm.py:297-300); each lane takes the loop
+    it takes in the lane-batched solve (the vmap): the same counts, per
+    lane too, which are the JAX package's, and u and Lambda within 1e-12 of
+    their max (the batched dots sum in another order)."""
+    cfg = dataclasses.replace(convert.admm_config(CFGS["bicgstab"]), xsolve_sequential=True)
+    batched = bicgstab_run[0]
+    seq = admm.admm_inner(cfg, problem.ops, problem.Jp, SIGMA, SCALING, problem.ref_vol, problem.ref_bary)
+    runs = (batched, seq)
+    for st in runs:
+        assert st.solver_iters == GOLD["bicgstab_solver_iters"].tolist()
+        assert (st.admm_it, st.total_newton, st.total_lin_iters) == tuple(
+            int(GOLD["bicgstab_" + f]) for f in ("admm_it", "total_newton", "total_lin_iters"))
+        assert (st.converged, st.failed) == (bool(GOLD["bicgstab_converged"]), bool(GOLD["bicgstab_failed"]))
+        for f in ("u", "Lambda"):
+            assert _rel(getattr(st, f), GOLD["bicgstab_" + f]) <= 1e-9, f
+    for f in ("u", "Lambda"):
+        assert _rel(getattr(seq, f), getattr(batched, f)) <= 1e-12, f
+
+
+@pytest.mark.parametrize("seq", [False, True])
+def test_admm_config_carries_xsolve_sequential(seq):
+    jcfg = jadmm.ADMMConfig(xsolve_sequential=seq, x_solver="cg")
+    cfg = convert.admm_config(jcfg)
+    assert cfg.xsolve_sequential is seq and dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)

@@ -98,9 +98,7 @@ def test_problem_config_converts_field_by_field():
     assert [f.name for f in dataclasses.fields(ProblemConfig)] == names
     for name in names:
         if name in ("admm", "ns"):
-            want = dataclasses.asdict(getattr(cfg, name))
-            want.pop("xsolve_sequential", None)  # the JAX package's other x-update driver, not ported
-            assert dataclasses.asdict(getattr(got, name)) == want, name
+            assert dataclasses.asdict(getattr(got, name)) == dataclasses.asdict(getattr(cfg, name)), name
         else:
             assert getattr(got, name) == getattr(cfg, name), name
     assert convert.problem_config(jobstacle.ProblemConfig()) == ProblemConfig()

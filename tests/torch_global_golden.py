@@ -62,3 +62,24 @@ def write_channel_ugx(path, ugx, geomgen):
         name="channel", coords=coords, edges=np.asarray(lvl.edges, np.int32),
         triangles=np.asarray(lvl.elems, np.int32), tetrahedrons=np.zeros((0, 4), np.int32), subsets=subsets,
     ))
+
+
+# geometry_sweep on a patch-backend problem: tests/test_sweep.py:14-22's 2D
+# refs=1 backend="auto" problem (a geomgen mesh with brick metadata, so
+# its x-update runs on the patch backend and the sweep on the global one),
+# over the undeformed mesh and PATCH_SWEEP_LANES - 1 meshes perturbed as
+# that test perturbs them (:53-64), at sigma PATCH_SWEEP_SIGMA
+PATCH_SWEEP_CONFIG = dict(dim=2, num_refs=1, visc=0.05,
+                          admm=dict(admm_steps=80, ns_max_its=8, tau=2.0, lin_max_iters=100))
+PATCH_SWEEP_LANES = 2
+PATCH_SWEEP_SIGMA = 0.3
+
+
+def perturbed_meshes(X0, free, lanes, seed=0, scale=0.02):
+    """(lanes, V, d): X0 (V, d) and lanes - 1 copies moved by scale times a
+    normal draw on the free components free (d, V), lane 0 unmoved, the
+    draws of tests/test_sweep.py::test_geometry_sweep."""
+    rng = np.random.default_rng(seed)
+    X0 = np.asarray(X0, np.float64)
+    free = np.asarray(free, np.float64).T
+    return np.stack([X0 + scale * rng.normal(size=X0.shape) * free * (b > 0) for b in range(lanes)])
