@@ -21,20 +21,25 @@
 // (the Pallas kernels read edge-clamped W blocks and rely on the zero halo
 // instead).
 //
-// The slot table (n_slots x 4 int32, built by stencil_kernels._slot_table
-// / _transpose_table) gives per table row an offset (o0, o1, o2) and a
+// The slot table (15 x 4 ints, the rows of stencil_kernels._slot_rows /
+// _transpose_rows) gives per table row an offset (o0, o1, o2) and a
 // code: h >= 0 reads stored slot h at the site itself; -1 - h reads the
 // transpose of stored slot h at the neighbour s + o.  K1's table mixes
 // both (operator symmetry: A[s, s+o] = W[h](s+o)^T for o = -offset(h));
 // K5's table reads every slot directly, and K5^T's table reads every slot
 // transposed at the opposite offset: K5^T is a gather (no atomics), and
 // each W element is still read once per launch, from the site that stores
-// it, by the thread of the site it acts on.  K4 reads the table (`stab`)
-// from device memory; K1, K2, K3, K5 and K5^T take it by value (SlotTable,
-// the same rows, in the kernel's parameters).
+// it, by the thread of the site it acts on.  Every kernel takes the table
+// by value (SlotTable, in the kernel's parameters); K4 takes K1's.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
+//
+// The build (_build.py) compiles this file once per part, -DSTENCIL_PART=1,
+// 2 and 3, all at once, and links the three objects: part 1 holds every
+// entry point but K2/K3's, part 2 K2/K3 on 1 to 4 lanes, part 3 K3 on 5 to
+// 8 (the templates are instantiated only where an entry point uses them).
+// Without STENCIL_PART the file is the whole library.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -42,35 +47,18 @@
 
 #include <type_traits>
 
+#ifdef STENCIL_PART
+#define STENCIL_IN_PART(k) (STENCIL_PART == (k))
+#else
+#define STENCIL_IN_PART(k) 1
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
 
-struct Site {
-  int i, j, k, p;
-};
-
-__device__ __forceinline__ Site site_of(long long t, int n1, int n2, int P) {
-  Site s;
-  s.p = static_cast<int>(t % P);
-  long long r = t / P;
-  s.k = static_cast<int>(r % n2);
-  r /= n2;
-  s.j = static_cast<int>(r % n1);
-  s.i = static_cast<int>(r / n1);
-  return s;
-}
-
-// Flat index of the neighbour site s + (o0, o1, o2), or -1 outside.
-__device__ __forceinline__ long long neighbour(const Site& s, const int* e,
-                                               int n0, int n1, int n2, int P) {
-  const int ii = s.i + e[0], jj = s.j + e[1], kk = s.k + e[2];
-  if (ii < 0 || ii >= n0 || jj < 0 || jj >= n1 || kk < 0 || kk >= n2) return -1;
-  return ((static_cast<long long>(ii) * n1 + jj) * n2 + kk) * P + s.p;
-}
-
-// The slot table by value: the rows of stencil_kernels._slot_table or
-// _transpose_table for the 15-slot Kuhn stencil, in the kernel's
+// The slot table by value: the rows of stencil_kernels._slot_rows or
+// _transpose_rows for the 15-slot Kuhn stencil, in the kernel's
 // parameters.  The slot loop then has a compile-time length and unrolls,
 // and a row costs no memory round trip.
 constexpr int kSlots = 15;
@@ -110,6 +98,7 @@ __device__ __forceinline__ Neighbour neighbour_of(int o0, int o1, int o2, int i,
 }
 
 __device__ __forceinline__ float zero_like(float) { return 0.f; }
+__device__ __forceinline__ float2 zero_like(float2) { return make_float2(0.f, 0.f); }
 __device__ __forceinline__ float4 zero_like(float4) { return make_float4(0.f, 0.f, 0.f, 0.f); }
 template <typename V>
 __device__ __forceinline__ V keep_if(bool ok, V v) {
@@ -249,7 +238,8 @@ apply_w_sym_lanes_kernel(const float* __restrict__ W, const float* __restrict__ 
 // storage), K5's (direct rows) and K5^T's (transposed rows), by value.
 // Replaces pallas_stencil.py _kernel_sym / _apply_w_pallas_3d_sym
 // (:140-277) on one field, _kernel / _apply_w_pallas_3d (:59-137) at
-// C = 3, and the jax.vjp of the latter.
+// C = 3, and the jax.vjp of the latter.  K4 below is the same row loop
+// with sums of another kind.
 //
 // K1 reads the 8 stored slots of symmetric half storage at the site and the
 // 7 missing ones as transposes at the neighbour (the same 15 block reads
@@ -268,19 +258,30 @@ apply_w_sym_lanes_kernel(const float* __restrict__ W, const float* __restrict__ 
 // 4 consecutive p (a neighbour has the same p, so direct and transposed
 // reads stay aligned; it needs P % 4 == 0 and 16-byte aligned bases, else
 // V = float), and the 15 slots go in kC3Groups groups of kC3Group slots
-// through a double-buffered stage in shared memory: the 36 cp.async
-// copies of group g + 1 are issued before the sum of group g, so a thread
-// always has one group in flight while it sums the other.  The stage is
-// 2 x 3 x 12 values of V a thread (the 3x3 block of W, then x[0..2], per
-// slot), 72 KB for the block of 64 float4 threads: three blocks an SM.
-// Each thread reads only what it copied, so no barrier is needed.  The
-// per-component sum order is q ascending, d ascending, one multiply-add
-// each: that of apply_w_sym_lanes_kernel, so K1 on lanes equals this
-// kernel on each lane's field bit for bit.
+// through a double-buffered stage in shared memory: the cp.async copies of
+// group g + 1 are issued before the sum of group g, so a thread always has
+// one group in flight while it sums the other.  The stage holds per slot
+// the 3x3 block of W, then x[0..2] of each of the F fields the sums read:
+// 2 x 3 x 12 values of V a thread for K1, 72 KB for the block of 64
+// float4 threads, three blocks an SM.  Each thread reads only what it
+// copied, so no barrier is needed.  The per-component sum order is q
+// ascending, d ascending, one multiply-add each: that of
+// apply_w_sym_lanes_kernel, so K1 on lanes equals this kernel on each
+// lane's field bit for bit.
 constexpr int kC3Threads = 64;
 constexpr int kC3Group = 3;  // slots per stage group
 constexpr int kC3Groups = kSlots / kC3Group;
-constexpr int kC3Slot = 12;  // values of V staged per slot
+
+// values of V staged per slot: the 3x3 block of W, then x[0..2] of each of F fields
+template <int F>
+__host__ __device__ constexpr int c3_slot_values() {
+  return 9 + 3 * F;
+}
+
+template <typename V, int F, int T = kC3Threads>
+constexpr size_t c3_stage_bytes() {
+  return 2 * kC3Group * c3_slot_values<F>() * T * sizeof(V);
+}
 
 __device__ __forceinline__ void fma_into(float& acc, float w, float x) { acc = fmaf(w, x, acc); }
 __device__ __forceinline__ void fma_into(float4& acc, float4 w, float4 x) {
@@ -290,24 +291,108 @@ __device__ __forceinline__ void fma_into(float4& acc, float4 w, float4 x) {
   acc.w = fmaf(w.w, x.w, acc.w);
 }
 
+// The sums of one thread over the staged slots: F = 1, f32 sums of W x
+// (K1, K5, K5^T); F = 2, f64 sums of W (xh + xl) split into an f32 pair
+// (K4).  add<T>() takes one slot's stage (value v at slot[v * T], T the
+// threads of the block), dropped unless ok.
+template <typename V, int F>
+struct C3Sums;
+
 template <typename V>
-__global__ void __launch_bounds__(kC3Threads)
-apply_w_c3_kernel(const V* __restrict__ W, const V* __restrict__ x, V* __restrict__ y,
-                  const SlotTable tab, int n0, int n1, int n2, int P) {  // P in units of V
+struct C3Sums<V, 1> {
+  V acc[3];
+  __device__ __forceinline__ C3Sums() {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc[c] = zero_like(V());
+  }
+  template <int T>
+  __device__ __forceinline__ void add(bool ok, const V* slot) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) fma_into(acc[c], keep_if(ok, slot[(c * 3 + d) * T]), slot[(9 + d) * T]);
+  }
+  __device__ __forceinline__ void store(V* y, V*, size_t sp, int t) const {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) y[c * sp + t] = acc[c];
+  }
+};
+
+// lane l of a float or a float4 (l a constant once unrolled)
+template <typename V>
+__device__ __forceinline__ float lane(const V& v, int l) {
+  return reinterpret_cast<const float*>(&v)[l];
+}
+template <typename V>
+__device__ __forceinline__ float& lane(V& v, int l) {
+  return reinterpret_cast<float*>(&v)[l];
+}
+
+template <typename V>
+struct C3Sums<V, 2> {
+  static constexpr int L = sizeof(V) / sizeof(float);  // sites a thread sums
+  double acc[3][L];
+  __device__ __forceinline__ C3Sums() {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int l = 0; l < L; ++l) acc[c][l] = 0.0;
+  }
+  template <int T>
+  __device__ __forceinline__ void add(bool ok, const V* slot) {
+    double x[3][L];  // xh + xl, exact for a renormalized pair
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const V h = slot[(9 + d) * T], lo = slot[(12 + d) * T];
+#pragma unroll
+      for (int l = 0; l < L; ++l)
+        x[d][l] = static_cast<double>(lane(h, l)) + static_cast<double>(lane(lo, l));
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const V w = keep_if(ok, slot[(c * 3 + d) * T]);
+#pragma unroll
+        for (int l = 0; l < L; ++l) acc[c][l] = fma(static_cast<double>(lane(w, l)), x[d][l], acc[c][l]);
+      }
+  }
+  __device__ __forceinline__ void store(V* yh, V* yl, size_t sp, int t) const {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      V hi, lo;
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        lane(hi, l) = static_cast<float>(acc[c][l]);
+        lane(lo, l) = static_cast<float>(acc[c][l] - static_cast<double>(lane(hi, l)));
+      }
+      yh[c * sp + t] = hi;
+      yl[c * sp + t] = lo;
+    }
+  }
+};
+
+// The row loop the C = 3 kernels share: the thread at column r of pencil
+// row (i, j) stages its 15 slots (W and the F fields x0, x1 at the
+// neighbour) group by group and sums them (Sums) into y0 (and y1).
+template <typename V, int F, int T = kC3Threads, typename Sums = C3Sums<V, F>>
+__device__ __forceinline__ void c3_row(const V* __restrict__ W, const V* __restrict__ x0,
+                                       const V* __restrict__ x1, V* __restrict__ y0,
+                                       V* __restrict__ y1, const SlotTable& tab, int i, int j,
+                                       int n0, int n1, int n2, int P) {  // P in units of V
   constexpr int C = 3;
-  constexpr int T = kC3Threads;
+  constexpr int S = c3_slot_values<F>();
   extern __shared__ float4 stage_bytes[];
   V* stage = reinterpret_cast<V*>(stage_bytes) + threadIdx.x;
   const int row = n2 * P;
   const int r = blockIdx.x * T + threadIdx.x;
   if (r >= row) return;  // no thread waits for another: each reads only its own column
-  const int j = blockIdx.y, i = blockIdx.z;
   const int t = (i * n1 + j) * row + r;
   const size_t sp = static_cast<size_t>(n0) * n1 * row;
   unsigned inside = 0;  // bit q: slot q's neighbour lies inside the lattice
   // copies of group g's slots into buffer g % 2, committed as one batch
   auto stage_group = [&](int g) {
-    V* buf = stage + (g % 2) * kC3Group * kC3Slot * T;
+    V* buf = stage + (g % 2) * kC3Group * S * T;
 #pragma unroll
     for (int k = 0; k < kC3Group; ++k) {
       const int q = g * kC3Group + k;
@@ -319,22 +404,23 @@ apply_w_c3_kernel(const V* __restrict__ W, const V* __restrict__ x, V* __restric
                    (direct ? t : nb.at);
       const size_t sc = direct ? C * sp : sp;  // stride of the sum's component c
       const size_t sd = direct ? sp : C * sp;  // stride of x's component d
-      V* slot = buf + k * kC3Slot * T;
+      V* slot = buf + k * S * T;
 #pragma unroll
       for (int c = 0; c < C; ++c)
 #pragma unroll
         for (int d = 0; d < C; ++d)
           __pipeline_memcpy_async(slot + (c * C + d) * T, w + c * sc + d * sd, sizeof(V));
 #pragma unroll
-      for (int d = 0; d < C; ++d)
-        __pipeline_memcpy_async(slot + (C * C + d) * T, x + d * sp + nb.at, sizeof(V));
+      for (int f = 0; f < F; ++f)
+#pragma unroll
+        for (int d = 0; d < C; ++d)
+          __pipeline_memcpy_async(slot + (C * C + f * C + d) * T, (f ? x1 : x0) + d * sp + nb.at,
+                                  sizeof(V));
       inside |= static_cast<unsigned>(nb.ok) << q;
     }
     __pipeline_commit();
   };
-  V acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = zero_like(V());
+  Sums sums;
   stage_group(0);
 #pragma unroll
   for (int g = 0; g < kC3Groups; ++g) {
@@ -344,24 +430,90 @@ apply_w_c3_kernel(const V* __restrict__ W, const V* __restrict__ x, V* __restric
     } else {
       __pipeline_wait_prior(0);
     }
-    const V* buf = stage + (g % 2) * kC3Group * kC3Slot * T;
+    const V* buf = stage + (g % 2) * kC3Group * S * T;
 #pragma unroll
-    for (int k = 0; k < kC3Group; ++k) {
-      const bool ok = (inside >> (g * kC3Group + k)) & 1u;
-      const V* slot = buf + k * kC3Slot * T;
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-#pragma unroll
-        for (int d = 0; d < C; ++d)
-          fma_into(acc[c], keep_if(ok, slot[(c * C + d) * T]), slot[(C * C + d) * T]);
-    }
+    for (int k = 0; k < kC3Group; ++k)
+      sums.template add<T>((inside >> (g * kC3Group + k)) & 1u, buf + k * S * T);
   }
-#pragma unroll
-  for (int c = 0; c < C; ++c) y[c * sp + t] = acc[c];
+  sums.store(y0, y1, sp, t);
 }
 
+template <typename V>
+__global__ void __launch_bounds__(kC3Threads)
+apply_w_c3_kernel(const V* __restrict__ W, const V* __restrict__ x, V* __restrict__ y,
+                  const SlotTable tab, int n0, int n1, int n2, int P) {  // P in units of V
+  c3_row<V, 1>(W, x, nullptr, y, nullptr, tab, blockIdx.z, blockIdx.y, n0, n1, n2, P);
+}
+
+// K4, replaces pallas_stencil.py _kernel_sym_df / _apply_w_df_pallas_3d_sym
+// (:509-658): (yh, yl) = A (xh + xl) from symmetric half storage, K1's
+// table, as a renormalized f32 pair.  The TPU has no FP64, so the Pallas
+// kernel folds Dekker products into a compensated f32 pair.  Hopper has
+// FP64: each site sums in f64, from (double)xh + (double)xl (exact for a
+// renormalized pair, whose bits fit in a double's 53), and splits the sum
+// into hi = (float)acc, lo = (float)(acc - hi).  Error: ~45 f64 roundings
+// plus the lo rounding, ~1e-15 of sum |W||x|; no compiler contraction can
+// break it (an FMA only removes a rounding).  It is the IR true residual,
+// two launches a solve.
+//
+// Bound: device memory, 336 bytes a site (288 of W, 48 of xh, xl, yh and
+// yl), 0.807 ms at 33^3 x 224.  Beside it the f64 side: a site converts
+// 135 W and 90 x values to f64 (cvt.f64.f32, 16 a clock per SM, ~0.45 ms
+// at 33^3) for 135 DFMA, so the conversions have to overlap the loads,
+// not follow them.  The design is K1's row loop (by-value table, clamp
+// and drop at the edge, float4 along p, every load of a group of three
+// slots in flight as cp.async before any sum) with a stage of 15 values a
+// slot (W, xh, xl): 90 KB for the block of 64 float4 threads, two blocks
+// an SM.
+//
+// Block order.  The 7 transposed rows read stored slots at s + o, four of
+// them at o0 = +1.  In the natural order (j within i) plane i's read of
+// plane i + 1's W and plane i + 1's own direct read of it are one i-plane
+// of W apart: 70.2 MB at 33^3 x 224, more than the 50 MB L2, so those
+// bytes came twice from device memory.  K4 launches its rows in bands of
+// kDfBand j-rows (banded_row).  A row's o0 = +1 neighbour is then kDfBand
+// rows later (kDfBand x 2.13 MB at 33^3), its o1 = +1 neighbour the next
+// row, except at the band's edge.
+//
+// Measured on the H100 (PERF.md; scripts/torch_k4_variants.py): at 33^3 x
+// 224 the natural order takes 1.39 ms and bands of 2, 4, 8 and 16 rows
+// 1.21, 1.10, 1.09 and 1.37 ms; at 17^3 (an i-plane of 18.6 MB fits the
+// L2) every order is within 10% of the natural one.  Bands of 8: 74% of
+// the bound at 33^3, 67% at 17^3 x 224.  What holds it there is the stage, not the f64 side: the
+// same stage and order with f32 sums of W xh and no conversion at all
+// take 1.03 and 0.153 ms (79% and 72%).  The stage moves 2.7 times the
+// device-memory bytes from L2 (x of 15 neighbours, W of 7 again) and
+// leaves two blocks an SM.  Narrower V (float2, float: more blocks, more
+// instructions a site) was 20-35% slower, and xh, xl read through L1
+// instead of staged (four blocks an SM) 5-20% slower.
+constexpr int kDfBand = 8;
+
+// The row (i, j) that the block of launch rank blockIdx.z * n1 + blockIdx.y
+// takes when the rows are launched in bands of `band` j-rows (1 <= band):
+// band by band, within a band i by i, j fastest.
+__device__ __forceinline__ void banded_row(int band, int n0, int n1, int& i, int& j) {
+  const int rank = blockIdx.z * n1 + blockIdx.y;
+  const int j0 = rank / (band * n0) * band;  // the band's first j
+  const int width = min(band, n1 - j0);
+  const int in_band = rank - j0 * n0;
+  i = in_band / width;
+  j = j0 + in_band % width;
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kC3Threads)
+apply_w_df_kernel(const V* __restrict__ W, const V* __restrict__ xh, const V* __restrict__ xl,
+                  V* __restrict__ yh, V* __restrict__ yl, const SlotTable tab, int n0, int n1,
+                  int n2, int P) {  // P in units of V
+  int i, j;
+  banded_row(kDfBand, n0, n1, i, j);
+  c3_row<V, 2>(W, xh, xl, yh, yl, tab, i, j, n0, n1, n2, P);
+}
+
+#if STENCIL_IN_PART(1)
 // Nothing: its device time is the floor under every one-launch time.
 __global__ void empty_kernel() {}
+#endif
 
 // K2 and K3: full 15-slot apply from pencil-major bf16 W for B lanes that
 // share W.  B = 1 is K2, replacing pallas_stencil.py _kernel_pc /
@@ -558,66 +710,6 @@ apply_w_pencil_kernel(const __nv_bfloat16* __restrict__ W, const V* __restrict__
       for (int c = 0; c < 3; ++c) y[b * 3 * sp + c * sp + t] = acc[b][c];
 }
 
-// K4, replaces pallas_stencil.py _kernel_sym_df / _apply_w_df_pallas_3d_sym
-// (:509-658).  The TPU has no FP64, so the Pallas kernel folds Dekker
-// products into a compensated f32 pair.  Hopper has native FP64 and the
-// kernel is bound by W bandwidth, so each site accumulates in f64 from
-// (double)xh + (double)xl (exact for a renormalized pair, whose bits fit
-// in a double's 53)
-// and splits the sum into hi = (float)acc, lo = (float)(acc - hi), a
-// renormalized pair.  Error: ~45 f64 roundings plus the lo rounding,
-// ~1e-15 of sum |W||x|; no compiler contraction can break it (an FMA only
-// removes a rounding).
-__global__ void apply_w_df_sym_kernel(const float* __restrict__ W,
-                                      const float* __restrict__ xh,
-                                      const float* __restrict__ xl,
-                                      float* __restrict__ yh,
-                                      float* __restrict__ yl,
-                                      const int* __restrict__ stab, int n_slots,
-                                      int n0, int n1, int n2, int P) {
-  constexpr int C = 3;
-  const long long sp = static_cast<long long>(n0) * n1 * n2 * P;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= sp) return;
-  const Site s = site_of(t, n1, n2, P);
-  double acc[C] = {0.0, 0.0, 0.0};
-  for (int q = 0; q < n_slots; ++q) {
-    const int* e = stab + 4 * q;
-    const long long nb = neighbour(s, e, n0, n1, n2, P);
-    if (nb < 0) continue;
-    double xv[C];
-#pragma unroll
-    for (int d = 0; d < C; ++d)
-      xv[d] = static_cast<double>(xh[d * sp + nb]) + static_cast<double>(xl[d * sp + nb]);
-    if (e[3] >= 0) {
-      const float* w = W + static_cast<long long>(e[3]) * C * C * sp + t;
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-#pragma unroll
-        for (int d = 0; d < C; ++d)
-          acc[c] += static_cast<double>(w[(c * C + d) * sp]) * xv[d];
-    } else {
-      const float* w = W + static_cast<long long>(-1 - e[3]) * C * C * sp + nb;
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-#pragma unroll
-        for (int d = 0; d < C; ++d)
-          acc[c] += static_cast<double>(w[(d * C + c) * sp]) * xv[d];
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float hi = static_cast<float>(acc[c]);
-    yh[c * sp + t] = hi;
-    yl[c * sp + t] = static_cast<float>(acc[c] - static_cast<double>(hi));
-  }
-}
-
-unsigned int blocks_for(int n0, int n1, int n2, int P) {
-  const long long sp = static_cast<long long>(n0) * n1 * n2 * P;
-  return static_cast<unsigned int>((sp + kThreads - 1) / kThreads);
-}
-
 // What the kernels with a by-value table take: the table's 15 x 4 ints in
 // host memory, and a lattice whose pencil grid (blocks along a row, n1,
 // n0) and 32-bit site indices hold it.
@@ -669,24 +761,40 @@ void launch_scalar(const V* W, const V* x, V* y, const RowGrid& g, int n0, int n
 
 bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 
+// A kernel allowed its stage of dynamic shared memory and the largest
+// shared-memory carveout (once per kernel: the callers keep the result).
+template <typename Kernel>
+cudaError_t allow_stage(Kernel* kernel, size_t stage) {
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(stage));
+  return e != cudaSuccess ? e
+                          : cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                                 static_cast<int>(cudaSharedmemCarveoutMaxShared));
+}
+
 // The C = 3 kernel with its stage of 2 x kC3Group x 12 x kC3Threads values
-// of V in dynamic shared memory (72 KB for float4).  Allowed the stage and
-// the largest shared-memory carveout once per V, so that three blocks fit
-// an SM; then launched.
+// of V in dynamic shared memory (72 KB for float4), so that three blocks
+// fit an SM.
 template <typename V>
 cudaError_t launch_c3(const V* W, const V* x, V* y, const RowGrid& g, int n0, int n1, int n2,
                       int Pv, cudaStream_t stream) {
-  constexpr size_t stage = 2 * kC3Group * kC3Slot * kC3Threads * sizeof(V);
-  static const cudaError_t allowed = [] {
-    const cudaError_t e = cudaFuncSetAttribute(
-        apply_w_c3_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(stage));
-    return e != cudaSuccess ? e
-                            : cudaFuncSetAttribute(apply_w_c3_kernel<V>,
-                                                   cudaFuncAttributePreferredSharedMemoryCarveout,
-                                                   static_cast<int>(cudaSharedmemCarveoutMaxShared));
-  }();
+  constexpr size_t stage = c3_stage_bytes<V, 1>();
+  static const cudaError_t allowed = allow_stage(apply_w_c3_kernel<V>, stage);
   if (allowed != cudaSuccess) return allowed;
   apply_w_c3_kernel<V><<<g.grid, kC3Threads, stage, stream>>>(W, x, y, g.tab, n0, n1, n2, Pv);
+  return cudaGetLastError();
+}
+
+// K4 with its stage of 2 x kC3Group x 15 x kC3Threads values of V (90 KB
+// for float4, two blocks an SM).
+template <typename V>
+cudaError_t launch_df(const V* W, const V* xh, const V* xl, V* yh, V* yl, const RowGrid& g, int n0,
+                      int n1, int n2, int Pv, cudaStream_t stream) {
+  constexpr size_t stage = c3_stage_bytes<V, 2>();
+  static const cudaError_t allowed = allow_stage(apply_w_df_kernel<V>, stage);
+  if (allowed != cudaSuccess) return allowed;
+  apply_w_df_kernel<V><<<g.grid, kC3Threads, stage, stream>>>(W, xh, xl, yh, yl, g.tab, n0, n1, n2,
+                                                              Pv);
   return cudaGetLastError();
 }
 
@@ -703,10 +811,37 @@ void launch_pencil(const void* W, const void* x, void* y, const RowGrid& g, int 
         w, static_cast<const float*>(x), static_cast<float*>(y), g.tab, n0, n1, n2, Pv);
 }
 
+// launch_pencil<lanes> for Lo <= lanes <= Hi
+template <int Lo, int Hi>
+void launch_pencil_for(int lanes, const void* W, const void* x, void* y, const RowGrid& g, int n0,
+                       int n1, int n2, int Pv, bool vec, cudaStream_t s) {
+  if (lanes == Lo)
+    launch_pencil<Lo>(W, x, y, g, n0, n1, n2, Pv, vec, s);
+  else if constexpr (Lo < Hi)
+    launch_pencil_for<Lo + 1, Hi>(lanes, W, x, y, g, n0, n1, n2, Pv, vec, s);
+}
+
+// K2/K3 on B = lanes lanes for Lo <= B <= Hi, checked as apply_w_pencil_bf16 says.
+template <int Lo, int Hi>
+int pencil_entry(const void* W, const void* x, void* y, const int* slots, int n0, int n1, int n2,
+                 int P, int lanes, int device, void* stream) {
+  if (static_cast<long long>(n0) * n1 * n2 * P == 0) return 0;
+  const bool vec = P % 8 == 0 && aligned16(W) && aligned16(x) && aligned16(y);
+  const int Pv = vec ? P / 4 : P;
+  const RowGrid g = row_grid(slots, n0, n1, n2, Pv, kPcThreads);
+  if (!g.ok || lanes < Lo || lanes > Hi || static_cast<long long>(n0) * n1 * n2 * P >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaSetDevice(device);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  launch_pencil_for<Lo, Hi>(lanes, W, x, y, g, n0, n1, n2, Pv, vec, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
+#if STENCIL_IN_PART(1)
 // K1 (its half-storage table), K5 (the table of direct rows) and K5^T
 // (the table of transposed rows) on one field of 3 components; slots is
 // the table (15 x 4 ints, host memory).  float4 along p where P and the
@@ -752,48 +887,53 @@ int apply_w_sym_lanes_f32(const void* W, const void* x, void* y, const int* slot
   }
   return static_cast<int>(cudaGetLastError());
 }
+#endif
 
+// K3 on 5..8 lanes: part 3 of the build, called by apply_w_pencil_bf16.
+int apply_w_pencil_bf16_wide(const void* W, const void* x, void* y, const int* slots, int n0,
+                             int n1, int n2, int P, int lanes, int device, void* stream);
+
+#if STENCIL_IN_PART(2)
 // K2 (lanes = 1) and K3 (lanes = 2..8); slots is K5's direct table (15 x 4
 // ints, host memory), of which the kernel reads the offsets.  float4 along
 // p where P % 8 == 0 and the bases are 16-byte aligned.  Any other lane
 // count, or a lattice of 2^31 sites or more, is refused.
 int apply_w_pencil_bf16(const void* W, const void* x, void* y, const int* slots, int n0, int n1,
                         int n2, int P, int lanes, int device, void* stream) {
+  return lanes > 4 ? apply_w_pencil_bf16_wide(W, x, y, slots, n0, n1, n2, P, lanes, device, stream)
+                   : pencil_entry<1, 4>(W, x, y, slots, n0, n1, n2, P, lanes, device, stream);
+}
+#endif
+
+#if STENCIL_IN_PART(3)
+int apply_w_pencil_bf16_wide(const void* W, const void* x, void* y, const int* slots, int n0,
+                             int n1, int n2, int P, int lanes, int device, void* stream) {
+  return pencil_entry<5, 8>(W, x, y, slots, n0, n1, n2, P, lanes, device, stream);
+}
+#endif
+
+#if STENCIL_IN_PART(1)
+// K4: (yh, yl) = A (xh + xl); slots is K1's table (15 x 4 ints, host
+// memory).  float4 along p where P and the bases allow it.  A lattice of
+// 2^31 sites or more is refused.
+int apply_w_df_sym_f32(const void* W, const void* xh, const void* xl, void* yh, void* yl,
+                       const int* slots, int n0, int n1, int n2, int P, int device, void* stream) {
   if (static_cast<long long>(n0) * n1 * n2 * P == 0) return 0;
-  const bool vec = P % 8 == 0 && aligned16(W) && aligned16(x) && aligned16(y);
+  const bool vec = P % 4 == 0 && aligned16(W) && aligned16(xh) && aligned16(xl) &&
+                   aligned16(yh) && aligned16(yl);
   const int Pv = vec ? P / 4 : P;
-  const RowGrid g = row_grid(slots, n0, n1, n2, Pv, kPcThreads);
+  const RowGrid g = row_grid(slots, n0, n1, n2, Pv, kC3Threads);
   if (!g.ok || static_cast<long long>(n0) * n1 * n2 * P >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaSetDevice(device);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (lanes) {
-    case 1: launch_pencil<1>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
-    case 2: launch_pencil<2>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
-    case 3: launch_pencil<3>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
-    case 4: launch_pencil<4>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
-    case 5: launch_pencil<5>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
-    case 6: launch_pencil<6>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
-    case 7: launch_pencil<7>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
-    case 8: launch_pencil<8>(W, x, y, g, n0, n1, n2, Pv, vec, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int apply_w_df_sym_f32(const void* W, const void* xh, const void* xl, void* yh,
-                       void* yl, const void* stab, int n_slots, int n0, int n1,
-                       int n2, int P, int device, void* stream) {
-  const unsigned int blocks = blocks_for(n0, n1, n2, P);
-  if (blocks == 0) return 0;
-  cudaSetDevice(device);
-  apply_w_df_sym_kernel<<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(W), static_cast<const float*>(xh),
-      static_cast<const float*>(xl), static_cast<float*>(yh),
-      static_cast<float*>(yl), static_cast<const int*>(stab), n_slots, n0, n1,
-      n2, P);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      vec ? launch_df(static_cast<const float4*>(W), static_cast<const float4*>(xh),
+                      static_cast<const float4*>(xl), static_cast<float4*>(yh),
+                      static_cast<float4*>(yl), g, n0, n1, n2, Pv, s)
+          : launch_df(static_cast<const float*>(W), static_cast<const float*>(xh),
+                      static_cast<const float*>(xl), static_cast<float*>(yh),
+                      static_cast<float*>(yl), g, n0, n1, n2, Pv, s));
 }
 
 // K5 and K5^T on a scalar field; slots is the direct or the transposed
@@ -830,5 +970,6 @@ int launch_empty(int device, void* stream) {
 const char* stencil_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif
 
 }  // extern "C"

@@ -41,7 +41,6 @@ launches per (name, (n0, n1, n2, P)).
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -59,8 +58,8 @@ launches_by_lattice = {}
 MAX_LANES = 8  # K3 and K1's lane kernel are templated on the lane count up to this
 BY_VALUE_SLOTS = 15  # the 3D stencil: what a by-value slot table holds
 MAX_SITES = 2**31  # the kernels with a by-value table index lattice sites in 32 bits
-# Block size of the scalar kernel, a multiple of 32 up to 256 (chip_smoke.py
-# times 64, 128 and 256 at the PCD path's shapes).
+# Block size of the scalar kernel, a multiple of 32 up to 256 (64, 128 and
+# 256 timed within 3% of each other at the PCD path's shapes on the H100).
 SCALAR_THREADS = 64
 
 
@@ -264,56 +263,29 @@ def _transpose_rows(stencil):
     return [[-v for v in o] + [-1 - q] for q, o in enumerate(stencil)]
 
 
-@functools.lru_cache(maxsize=None)
-def _slot_table(stencil, kept, device):
-    """_slot_rows as an (O, 4) int32 tensor on the device."""
-    return torch.tensor(_slot_rows(stencil, kept), dtype=torch.int32, device=device)
-
-
-@functools.lru_cache(maxsize=None)
-def _transpose_table(stencil, device):
-    """_transpose_rows as an (O, 4) int32 tensor on the device."""
-    return torch.tensor(_transpose_rows(stencil), dtype=torch.int32, device=device)
-
-
 class StencilTables:
     """What a launch needs of one patchset's stencil, made once per
-    patchset (and device) instead of once per call: the stencil as a tuple,
-    the half slots, and K1's, K5's and K5^T's slot tables ("sym", "full",
-    "full_t"), as tensors on a device for the kernels that read the table
-    from memory and packed as 15 x 4 C ints for the kernels that take it by
-    value."""
+    patchset instead of once per call: the stencil as a tuple, the half
+    slots, and K1's, K5's and K5^T's slot tables ("sym", "full", "full_t"),
+    packed as the 15 x 4 C ints that every kernel takes by value."""
 
     def __init__(self, ps):
         self.stencil = tuple(tuple(int(v) for v in o) for o in ps.stencil)
         self.n_slots = len(self.stencil)
         self.kept = tuple(half_slots(ps))
-        self._on_device = {}
         self._packed = {}
 
     def __getstate__(self):
         # a patchset handed to another process (parallel.launch) carries
-        # its tables without the caches: ctypes arrays do not pickle, and
-        # the device tables are remade where they are used
-        return {**self.__dict__, "_on_device": {}, "_packed": {}}
+        # its tables without the cache: ctypes arrays do not pickle, and
+        # the packed tables are remade where they are used
+        return {**self.__dict__, "_packed": {}}
 
     def rows(self, kind):
         if kind == "full_t":
             return _transpose_rows(self.stencil)
         kept = self.kept if kind == "sym" else tuple(range(self.n_slots))
         return _slot_rows(self.stencil, kept)
-
-    def on_device(self, kind, device):
-        key = (kind, device)
-        tab = self._on_device.get(key)
-        if tab is None:
-            if kind == "full_t":
-                tab = _transpose_table(self.stencil, device)
-            else:
-                kept = self.kept if kind == "sym" else tuple(range(self.n_slots))
-                tab = _slot_table(self.stencil, kept, device)
-            self._on_device[key] = tab
-        return tab
 
     def packed(self, kind):
         tab = self._packed.get(kind)
@@ -459,19 +431,20 @@ def apply_w_pencil_batched(ps, W_pc, xb):
 
 def apply_w_df_sym(ps, W, xh, xl):
     """K4: (yh, yl) = A (xh + xl) from symmetric half storage W, as a
-    renormalized f32 pair (|yl| <= ulp(yh)/2)."""
+    renormalized f32 pair (|yl| <= ulp(yh)/2), K1's table by value."""
     if xh.device.type == "cpu":
         return _apply_w_df_full(ps, expand_sym_w(ps, W), xh, xl)
-    _, _, n0, n1, n2, P = _check("apply_w_df_sym", ps, xh, (W, xh, xl), torch.float32)
+    _, _, n0, n1, n2, P = _check("apply_w_df_sym", ps, xh, (W, xh, xl), torch.float32, max_sites=MAX_SITES)
     tabs = stencil_tables(ps)
     if W.shape != (len(tabs.kept), 3, 3, n0, n1, n2, P):
         raise ValueError(f"apply_w_df_sym: W shape {tuple(W.shape)} does not match x")
+    lattice = (n0, n1, n2, P)
     yh = torch.empty_like(xh)
     yl = torch.empty_like(xh)
     _launch(
-        "apply_w_df_sym", "apply_w_df_sym_f32", (n0, n1, n2, P),
+        "apply_w_df_sym", "apply_w_df_sym_f32", lattice,
         W.data_ptr(), xh.data_ptr(), xl.data_ptr(), yh.data_ptr(), yl.data_ptr(),
-        tabs.on_device("sym", xh.device).data_ptr(), tabs.n_slots, n0, n1, n2, P, device=xh.device,
+        tabs.packed("sym"), *lattice, device=xh.device,
     )
     return yh, yl
 

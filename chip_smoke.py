@@ -5,16 +5,18 @@
     python3 chip_smoke.py --phase NAME[,NAME]   (build and kernels, then these phases)
     python3 chip_smoke.py --kernels-only        (= --phase kernels: phases 1-3, then stop)
 
-NAME is one of kernels, slice, admm, shard, sizes, ns, step, global, pcd, variants, small,
-cli (admm brings slice, whose refs=4 context it runs on); the default runs
+NAME is one of kernels, slice, admm, shard, ns, step, global, pcd, variants, small, cli,
+sizes (admm brings slice, whose refs=4 context it runs on); the default runs
 them all, and only the full run prints the {"ok": true, ...} line.  Run
 alone, step and global climb their own viscosity ladder, shard builds its
 own refs=4 context, and sizes refines from scratch.
 
-Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
+Needs one CUDA device (there is no CPU path) and nvcc.  Phases, in the order
+they run:
   1. device: the card's name and power limit;
-  2. build: compiles the stencil kernels from admm_optim_tpu_torch/csrc,
-     prints ptxas's registers, shared memory and spills per kernel and
+  2. build: compiles the stencil kernels from admm_optim_tpu_torch/csrc
+     (one nvcc per part of the library, all at once), prints ptxas's
+     registers, shared memory and spills per kernel and
      instantiation (K2/K3's with the blocks an SM holds; it must not
      spill);
   3. kernels: each kernel against its plain PyTorch twin at the refs=4
@@ -23,24 +25,25 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      random W with a Dirichlet mask, K3 and K1 on a lane axis with B = 2, 5
      and 8 (each lane also bitwise equal to K2, or K1, on that field); K5
      and K5^T with C = 3 and with C = 1 (the scalar pressure operators of
-     the PCD Schur block), K1 on one field, K2 and K3 also at the coarse 3D
-     levels of the NS velocity V-cycle, which are the refs=2 pressure
-     lattices too (5^3 and 3^3 x 224), and K5, K5^T, K2 and K3 at a P that
-     is no multiple of 4 (5^3 x 222; K2 and K3 timed at 3^3 x 5 too), and
-     at one rank's block of the shard phase, 112 patches: K1, K2 and K4 at
-     17^3 and 9^3 x 112, K1 on lanes at 5^3 x 112;
+     the PCD Schur block), K1 on one field and on 5 lanes (the step's
+     x-update), K2 and K3 also at the coarse 3D levels of the NS velocity
+     V-cycle, which are the refs=2 pressure lattices too (5^3 and 3^3 x
+     224), and K5, K5^T, K2, K3 and K4 at a P that is no multiple of 4
+     (5^3 x 222; K2, K3 and K4 timed at 3^3 x 5 too), and at one rank's
+     block of the shard phase, 112 patches: K1, K2 and K4 at 17^3 and 9^3
+     x 112, K1 on lanes at 5^3 x 112;
      errors, median device times (L2 emptied before each launch), the
      time of one call made on an idle card, each kernel's bound (bytes over 3.35 TB/s or flops over the
      published peak, whichever is larger) and the launch floor (the device
      time of an empty kernel), for K3 the time of five K2 launches on the
      same lanes, for K5 and K5^T the adjointness <A x, y> = <x, A^T y> on
-     the card, for every kernel with a by-value table (K1 on a field and
-     on lanes, K2, K3, K5 and K5^T at C = 3 and C = 1) the same result with
-     1e30 in every W entry whose neighbour lies outside the lattice, each
-     timed kernel's time also with the L2 emptied of clean lines (by reading, not
-     zeroing, the 512 MB buffer: no write-back of the buffer's lines) and
-     with the L2 left warm, and the scalar kernel's time at block sizes 64,
-     128 and 256;
+     the card, for every kernel (K1 on a field and on lanes, K2, K3, K4, K5
+     and K5^T at C = 3 and C = 1) the same result with 1e30 in every W
+     entry whose neighbour lies outside the lattice, and at the shapes of
+     the kernels line's entries (17^3, 9^3 and 5^3 x 224) each kernel's
+     time also with the L2 emptied of clean lines (by reading, not zeroing,
+     the 512 MB buffer: no write-back of the buffer's lines) and with the
+     L2 left warm;
   4. slice: xupdate_solve.build(4) + solve on the GPU (2,843,910 DoF), its
      convergence to a true relative residual <= 1e-8 (evaluated once in
      f64 with the plain apply), the kernel launch counts of that run, its
@@ -65,31 +68,15 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      SHARD_U_REL, no early solver exit, K1 on lanes at 5^3 x 112; (d) the
      sharded solve twice, bit for bit; seconds per piece and the bytes
      handed to the collectives;
-  7. sizes: bench.py's largest size and its smallest (bench.py:470-486):
-     the refs=5 hierarchy (22,384,134 DoF, 6 levels, fine lattice
-     33^3 x 224), whose refine and patchset a child process started with
-     the run makes on the host and hands back pickled through a temporary
-     directory, on the refs=4 levels of the slice phase after that
-     context is released; prepare and assemble on the card with their
-     seconds and peak device memory, the IR solve with bench.py's settings
-     (converged, float64 true relative residual <= 1e-8, x finite, the JAX
-     record's 2 rounds and 20 +- 2 inner CG iterations, K1, K2 and K4
-     launched at 33^3 x 224, its peak device memory), three warm solves,
-     DoF/s, the V-cycle cost table, one profiled solve (the card's busy
-     share), and K1 (the assembled symmetric f32 W), K2 (its bf16 pencil
-     stream) and K4 (a (hi, lo) split of a seeded field, its error over
-     sum |W||x|) on that operator against their twins, timed as in the
-     kernels phase; then the same solve at refs=3 (19 +- 2 iterations);
-  8. ns: the NS path at refs=2 (383,400 NS unknowns), float32, with the
+  7. ns: the NS path at refs=2 (383,400 NS unknowns), float32, with the
      lumped-mass pressure block: the cold-start viscosity ladder
      0.16 -> 0.02 (linear counts and seconds per linear iteration per
      rung; a rung the mass block fails is a finding, not a failed check),
      then at the first rung's state (visc 0.16) the drag, the adjoint with
      the vjp-transposed preconditioner (K5^T) under a cut iteration budget,
      and the masked shape gradient J', and the Jacobian assembly at that
-     state timed at 4096, 16384 and 65536 cells per batch with its peak
-     memory;
-  9. step: two optimization steps of models.obstacle.ObstacleShapeOpt at
+     state timed at its JAC_CELL_CHUNK with its peak memory;
+  8. step: two optimization steps of models.obstacle.ObstacleShapeOpt at
      3D refs=2, visc 0.02, float32 with f32_presets and the mass block.
      Step 0 starts from the 0.02 state the ns phase's ladder reached (the
      JAX package's "step -1" state; alone, the phase runs its own ladder)
@@ -103,10 +90,8 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      and barycenter of the new mesh (float64, on the host) within 10 x
      ns_abs_llambda_tol of the undeformed mesh's; for step 1 also: the
      sidecar restored, __Drag.txt with two rows equal to the two
-     StepRecords; then one step at refs=1 from the cold start held
-     against the port's float64 CPU run kept in
-     tests/goldens/chip_step_refs1.npz;
- 10. global: the global (block-ELL) backend, which launches no
+     StepRecords;
+  9. global: the global (block-ELL) backend, which launches no
      hand-written kernel, at 3D refs=2, visc 0.02, float32 (the step's
      configuration with backend="global"): global against patch on the
      same mesh (the deformation operator A at X0, J x and J^T x at the ns
@@ -119,14 +104,14 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      0), held to step_gates, to the patch step 0's accepting attempt and to
      10% of its drag decrease, its seconds per phase, adjoint, linear
      counts, peak memory and set-up beside the patch step 0's; the ELL
-     Jacobian's assembly timed at JAC_ELEM_CHUNKS elements per batch
-     (blocks within 1e-6 of max |W|, and whether bit for bit); then at 3D refs=1 sigma_sweep on the patch
+     Jacobian's assembly timed at its JAC_ELEM_CHUNK (two calls' blocks
+     within 1e-6 of max |W|, and whether bit for bit); then at 3D refs=1 sigma_sweep on the patch
      backend with best_candidate, and geometry_sweep on that patch problem
      (it runs on the global context of the same mesh, built at first use)
      over X0 and X0 plus half the first sweep candidate's u, each candidate
      against its single admm_inner call (equal counts, u within 1e-5 of
      max |u|);
- 11. pcd: at refs=2, float32, with the PCD pressure block: one rung, the
+ 10. pcd: at refs=2, float32, with the PCD pressure block: one rung, the
      Newton solve at visc 0.02 from the mass ladder's converged visc 0.04
      state (alone: ns_run.run(ctx, target_visc=0.02), the whole ladder;
      Newton and linear counts, |R|, assembly seconds of the velocity data,
@@ -137,13 +122,13 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      the Krylov operators for the card's busy share and K5's share of
      device time (scripts/torch_vel_inner.py runs the rung with 1 and 2
      velocity-block Richardson steps in turns);
- 12. variants: ROADMAP item 9b at 3D refs=2, float32, from the ns phase's
+ 11. variants: ROADMAP item 9b at 3D refs=2, float32, from the ns phase's
      mass ladder states (alone: its own ladder on the global backend):
      (a) the matrix-free J x (torch.func.jvp) and J^T x (torch.func.vjp)
      against the assembled ELL forms within 1e-5 of max |y|, their ms at
-     NS_ELEM_CHUNK 16384 (6 element blocks) and 131072 (one), and one
-     adjoint cut to 100 iterations with each matrix-free form and 200 with
-     the assembled one (ms per iteration, peak memory); (b) vorder=1, stab 0.05 on the patch backend: a Newton solve
+     the module's NS_ELEM_CHUNK (one element block), and one adjoint cut
+     to 100 iterations with the matrix-free form and 200 with the
+     assembled one (ms per iteration, peak memory); (b) vorder=1, stab 0.05 on the patch backend: a Newton solve
      at visc 0.16 (converged, float64 |R| <= accept_tol, drag within 25% of
      the P2 drag) and a cut adjoint, K5 and K5^T on the level-k lattice,
      the path's launches counted from 0; (c) b2nd_order with
@@ -153,12 +138,16 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      the global mass rung and the patch PCD rung; (e) two ns_residual and
      pressure_mass_lumped calls bitwise equal, the global NS re-solve on
      the global step's mesh twice (the counts must repeat), J' twice;
- 13. small: refs=1 solve, ADMM run and PCD ladder to visc 0.08 (with
-     drag, adjoint and J') held against the port's float64 CPU runs: the
-     solve and the ADMM run here, the ladder as kept in
-     tests/goldens/chip_pcd_ladder_refs1.npz (made on the CPU, in minutes,
-     by tests/goldens/make_chip_reference.py, which also makes the step's);
- 14. cli: python -m admm_optim_tpu_torch.cli -dim 3 -numRefs 1 -numSteps 1
+ 12. small: refs=1 solve, ADMM run, PCD ladder to visc 0.08 (with drag,
+     adjoint and J') and one optimization step from the cold start held
+     against the port's float64 CPU runs: the solve and the ADMM run here,
+     the ladder as kept in tests/goldens/chip_pcd_ladder_refs1.npz and the
+     step in tests/goldens/chip_step_refs1.npz (made on the CPU, in
+     minutes, by tests/goldens/make_chip_reference.py); small and cli run
+     one after the other in a side process on the same card, started after
+     shard, beside the phases from ns on (the card idles most of the time
+     on all of them), and the run joins it after variants;
+ 13. cli: python -m admm_optim_tpu_torch.cli -dim 3 -numRefs 1 -numSteps 1
      -visc 0.16 -admmSteps 40 -nsMaxIts 8 -tau 2 -bNewtonOutput 1
      -bActivateProfiler 1, called in this process: exit code 0, one
      accepted step, __Drag.txt, __Iterations_per_step.txt (9 columns),
@@ -166,6 +155,21 @@ Needs one CUDA device (there is no CPU path) and nvcc.  Phases:
      against the same argv with -x64 run on the CPU and kept in
      tests/goldens/chip_cli_refs1.npz (the same accepting attempt, the
      drags within STEP_DRAG_SHARE of the CPU step's decrease).
+ 14. sizes: bench.py's largest size and its smallest (bench.py:470-486):
+     the refs=5 hierarchy (22,384,134 DoF, 6 levels, fine lattice
+     33^3 x 224), whose refine and patchset a child process started with
+     the run makes on the host beside the phases before this one and hands
+     back pickled through a temporary directory, on the refs=4 levels of
+     the slice phase after that context is released; prepare and assemble on the card with their
+     seconds and peak device memory, the IR solve with bench.py's settings
+     (converged, float64 true relative residual <= 1e-8, x finite, the JAX
+     record's 2 rounds and 20 +- 2 inner CG iterations, K1, K2 and K4
+     launched at 33^3 x 224, its peak device memory), three warm solves,
+     DoF/s, the V-cycle cost table, one profiled solve (the card's busy
+     share), and K1 (the assembled symmetric f32 W), K2 (its bf16 pencil
+     stream) and K4 (a (hi, lo) split of a seeded field, its error over
+     sum |W||x|) on that operator against their twins, timed as in the
+     kernels phase; then the same solve at refs=3 (19 +- 2 iterations);
 Each path (solve, ADMM, the shard ranks, the refs=5 and refs=3 solves, NS, step, step 1 resumed, global step, PCD, variants, CLI) is driven with the launch
 counts set to 0 just before it (the NS paths reset them before each of their phases) and
 read just after; each of its kernels must have launched.  The counts are
@@ -178,6 +182,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import multiprocessing
@@ -233,16 +238,16 @@ SHARD_FINE_SHAPE = ((17, 17, 17), 112)
 SHARD_NS_SHAPE = ((9, 9, 9), 112)
 SHARD_ADMM_SHAPE = ((5, 5, 5), 112)
 # the kernel groups of kernel_phase: all at 17^3, 9^3 and 3^3 x 5; what the
-# coarse levels and the PCD path run at 5^3 and 3^3 x 224
+# coarse levels, the PCD path and the step's x-update (K1 on 5 lanes) run
+# at 5^3 and 3^3 x 224
 GROUPS = ("full", "sym", "pencil", "lanes", "batched", "df")
-COARSE_GROUPS = ("full", "sym", "pencil", "batched")
+COARSE_GROUPS = ("full", "sym", "pencil", "lanes", "batched")
 PENCIL_GROUPS = ("pencil", "batched")  # K2 and K3, also timed at the scalar-width shapes
 # the device kernel of K1, K5 and K5^T on a field of C = 3, as the profiler names it
 C3_KERNEL = "apply_w_c3_kernel"
 REPS = 20
 LANES = 5  # 1 + m lanes of the 3D x-update
 LANE_COUNTS = (2, LANES, 8)  # K1's lane kernel and K3 are checked at these
-SCALAR_BLOCKS = (64, 128, 256)  # block sizes the scalar kernel is timed at
 POISON = 1e30  # put into W where no apply may read it
 # published H100 SXM rates (NVIDIA data sheet): HBM3 bandwidth, and the
 # float32 and float64 rates outside the tensor cores, for the bounds
@@ -273,7 +278,7 @@ REFERENCE_THREADS = 2
 # Arnoldi chunk (200 before PR 11's variants phase; the step phase runs its
 # adjoint at visc 0.02 to the exit)
 NS_ADJOINT_BUDGET = 100
-PHASES = ("kernels", "slice", "admm", "shard", "sizes", "ns", "step", "global", "pcd", "variants", "small", "cli")
+PHASES = ("kernels", "slice", "admm", "shard", "ns", "step", "global", "pcd", "variants", "small", "cli", "sizes")
 # the sizes phase: bench.py's other sizes (bench.py:470-486), refs=5 then
 # refs=3, each beside the JAX package's record of (inner CG iterations, IR
 # rounds) on one v5e (docs/bench_r5_full.logtxt:32-43 and :50-59): the rounds
@@ -311,9 +316,6 @@ STEP_DRAG_SHARE = 0.1
 CLI_ARGV = ["-dim", "3", "-numRefs", "1", "-numSteps", "1", "-visc", "0.16", "-admmSteps", "40", "-nsMaxIts", "8",
             "-tau", "2", "-bNewtonOutput", "1", "-bActivateProfiler", "1"]
 CLI_REFERENCE = pathlib.Path(__file__).resolve().parent / "tests" / "goldens" / "chip_cli_refs1.npz"
-# cells per jacfwd batch of the NS Jacobian assembly (ops/ns_patchjac.py
-# JAC_CELL_CHUNK), timed at refs=2 in the ns phase
-JAC_CHUNKS = (4096, 16384, 65536)
 # the PCD phase's one rung: from the mass ladder's state at PCD_FROM_VISC
 # to PCD_VISC (the ns phase covers the ladder itself)
 PCD_FROM_VISC = 0.04
@@ -340,9 +342,6 @@ PATHS = {
     "sizes": ("apply_w_sym", "apply_w_pencil", "apply_w_df_sym"),
     "sizes3": ("apply_w_sym", "apply_w_pencil", "apply_w_df_sym"),
 }
-# elements per jacfwd batch of the ELL Jacobian assembly (ops/ns_elljac.py
-# JAC_ELEM_CHUNK), timed at 3D refs=2 in the global phase; 86,016 is all
-JAC_ELEM_CHUNKS = (4096, 16384, 86016)
 # the sweeps at 3D refs=1: sigma_sweep's candidates (one since PR 11, whose
 # variants phase it pays for; PR 10 ran (0.3, 0.15)), and geometry_sweep's
 # second mesh, X0 plus this share of the first candidate's u
@@ -352,13 +351,11 @@ GEOMETRY_SHARE = 0.5
 # global step's may differ by
 GLOBAL_DECREASE_SHARE = 0.1
 # the variants phase (ROADMAP item 9b): P1/P1's Brezzi-Pitkaranta weight,
-# its drag against the P2 drag at NS_VISC (tests/test_ns.py:91-106), the
-# cut adjoints, and NS_ELEM_CHUNK at 6 element blocks and at one (86,016
-# elements, ops/navier_stokes.py's chunk)
+# its drag against the P2 drag at NS_VISC (tests/test_ns.py:91-106), and
+# the cut adjoints
 VARIANT_STAB = 0.05
 P1_DRAG_SHARE = 0.25
 VARIANT_ADJOINT_BUDGET = 200
-VARIANT_ELEM_CHUNKS = (16384, 131072)
 REPLACES = {
     "apply_w_sym": f"{PALLAS}:213",
     # what jax.vmap makes of the same kernel (admm_optim_tpu/optim/spaces.py:269-296)
@@ -382,9 +379,9 @@ JSON_SHAPE.update({"apply_w_full": "9^3x224", "apply_w_full_t": "9^3x224",
 # (33^3x224: the assembled refs=5 operator of the sizes phase)
 BY_SHAPE = {
     "apply_w_sym": ("9^3x224", "5^3x224", "3^3x224", "17^3x112", "9^3x112", "33^3x224"),
-    "apply_w_sym/lanes": ("5^3x112",),
+    "apply_w_sym/lanes": ("5^3x224", "3^3x224", "5^3x112"),
     "apply_w_pencil": ("9^3x224", "5^3x224", "3^3x224", "5^3x222", "3^3x5", "17^3x112", "9^3x112", "33^3x224"),
-    "apply_w_df_sym": ("17^3x112", "9^3x112", "33^3x224"),
+    "apply_w_df_sym": ("9^3x224", "5^3x222", "3^3x5", "17^3x112", "9^3x112", "33^3x224"),
     "apply_w_pencil_batched": ("9^3x224", "5^3x224", "3^3x224", "5^3x222", "3^3x5"),
     "apply_w_full": ("5^3x224", "3^3x224"),
     "apply_w_full_t": ("5^3x224", "3^3x224"),
@@ -542,35 +539,36 @@ def bound(moved, flops, flops_per_s):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_times(got, ref, fn, plain, moved, flops, rate=F32_FLOPS, extra=None, timed=True, scale=None):
+def kernel_times(got, ref, fn, plain, moved, flops, rate=F32_FLOPS, extra=None, timed=True, scale=None, l2=True):
     """One kernel's result got against its twin's ref: max_abs_err, rel_err
     (over scale, max |ref| when None); when timed, ms (device, L2
-    emptied), clean_ms (L2 emptied of clean lines), warm_ms (L2 left warm),
-    call_ms (one call to an idle card), plain_ms (the twin) and extra_ms
-    (extra, where given), else nan; bound_ms and bound_by of moved bytes
-    and flops at rate."""
+    emptied), call_ms (one call to an idle card), plain_ms (the twin),
+    extra_ms (extra, where given) and, where l2, clean_ms (L2 emptied of
+    clean lines) and warm_ms (L2 left warm), else nan; bound_ms and
+    bound_by of moved bytes and flops at rate."""
     err = float((got - ref).abs().max())
     nan = float("nan")
     bms, bby = bound(moved, flops, rate)
     return dict(
         max_abs_err=err, rel_err=err / (float(ref.abs().max()) if scale is None else scale),
-        ms=median_ms(fn) if timed else nan, clean_ms=clean_ms(fn) if timed else nan,
-        warm_ms=warm_ms(fn) if timed else nan, call_ms=call_ms(fn) if timed else nan,
+        ms=median_ms(fn) if timed else nan, clean_ms=clean_ms(fn) if timed and l2 else nan,
+        warm_ms=warm_ms(fn) if timed and l2 else nan, call_ms=call_ms(fn) if timed else nan,
         plain_ms=median_ms(plain) if timed else nan,
         extra_ms=median_ms(extra) if timed and extra else nan, bound_ms=bms, bound_by=bby,
     )
 
 
-def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
+def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda", l2=False, lane_counts=LANE_COUNTS):
     """The kernels of groups (GROUPS: "full" K5 and K5^T at C = 3 and
-    C = 1, "sym" K1 on one field, "pencil" K2, "lanes" K1 on lanes,
-    "batched" K3, "df" K4) against their twins on random data of one shape;
-    returns per kernel a dict of max_abs_err, rel_err, ms (device), call_ms
-    (one call to an idle card), plain_ms, extra_ms, bound_ms, bound_by, and
-    per C the adjointness of K5/K5^T; for the groups timed names (True:
-    all), also clean_ms (L2 emptied of clean lines) and warm_ms (L2 left
-    warm).  Flops count 2 per multiply-add of the full 15-slot stencil, per
-    lane.  Every kernel with a by-value table must also give the same result
+    C = 1, "sym" K1 on one field, "pencil" K2, "lanes" K1 on lanes at
+    lane_counts, "batched" K3, "df" K4) against their twins on random data
+    of one shape; returns per kernel a dict of max_abs_err, rel_err, ms
+    (device), call_ms (one call to an idle card), plain_ms, extra_ms,
+    bound_ms, bound_by, and per C the adjointness of K5/K5^T; for the
+    groups timed names (True: all), and where l2 (the shapes of the
+    kernels line's entries), also clean_ms (L2 emptied of clean lines) and
+    warm_ms (L2 left warm).  Flops count 2 per multiply-add of the full
+    15-slot stencil, per lane.  Every kernel must also give the same result
     with POISON in the W entries no apply may read, and each lane of the
     lane kernels must equal the one-field kernel on that lane's field bit
     for bit."""
@@ -581,7 +579,7 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
     out = {}
 
     def record(group, name, got, ref, fn, plain, moved, fl, extra=None, rate=F32_FLOPS):
-        out[name] = kernel_times(got, ref, fn, plain, moved, fl, rate, extra, timed is True or group in timed)
+        out[name] = kernel_times(got, ref, fn, plain, moved, fl, rate, extra, timed is True or group in timed, l2=l2)
 
     def poisoned(what, W, pairs):
         """The same result, bit for bit, with POISON in every W entry whose
@@ -617,13 +615,6 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
         out["adjointness" + sfx] = abs(a - b) / max(abs(a), abs(b))
         poisoned(f"K5 and K5^T at C = {C}", Wf,
                  ((lambda Wp: sk.apply_w_full(ps, Wp, xf), y), (lambda Wp: sk.apply_w_full_t(ps, Wp, yt), z)))
-        if C == 1 and (timed is True or "full" in timed):
-            threads = sk.SCALAR_THREADS
-            for n in SCALAR_BLOCKS:
-                sk.SCALAR_THREADS = n
-                out["apply_w_full/c1"][f"ms_block_{n}"] = median_ms(lambda: sk.apply_w_full(ps, Wf, xf))
-                out["apply_w_full_t/c1"][f"ms_block_{n}"] = median_ms(lambda: sk.apply_w_full_t(ps, Wf, yt))
-            sk.SCALAR_THREADS = threads
 
     if "full" in groups:
         full(3)
@@ -667,7 +658,7 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
     if "lanes" in groups:
         # K1's lane kernel: against the twin, bit for bit against K1 on each
         # lane's field, and with POISON where it may not read
-        for B in LANE_COUNTS:
+        for B in lane_counts:
             xB = xb if B == LANES else torch.randn((B, 3) + lat + (P,), generator=g, device=dev) * free
             y = sk.apply_w_sym(ps, W, xB)
             record(
@@ -706,6 +697,7 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda"):
             lambda: sk._apply_w_df_full(ps, st.expand_sym_w(ps, W), xh, xl),
             nbytes(W, xh, xl, yh, yl), flops, rate=F64_FLOPS,  # f64 accumulation
         )
+        poisoned("K4", W, ((lambda Wp: torch.cat(sk.apply_w_df_sym(ps, Wp, xh, xl)), torch.cat((yh, yl))),))
     return out
 
 
@@ -719,8 +711,8 @@ def log_kernel(tag, name, label, t, floor_ms):
         f"{t['call_ms']:.4f} ms) twin {t['plain_ms']:.4f} ms bound {t['bound_ms']:.4f} ms ({t['bound_by']}) "
         f"floor {floor_ms:.4f} ms"
         + (f" {LANES} x K2 {t['extra_ms']:.4f} ms" if name == "apply_w_pencil_batched" else "")
-        + f" L2 emptied of clean lines {t['clean_ms']:.4f} ms, L2 warm {t['warm_ms']:.4f} ms"
-        + "".join(f" block {n}: {t[f'ms_block_{n}']:.4f} ms" for n in SCALAR_BLOCKS if f"ms_block_{n}" in t)
+        + (f" L2 emptied of clean lines {t['clean_ms']:.4f} ms, L2 warm {t['warm_ms']:.4f} ms"
+           if t["clean_ms"] == t["clean_ms"] else "")
     )
     check(t["rel_err"] <= limit, f"{name} at {label}: rel err {t['rel_err']:.3e} > {limit:.0e}")
 
@@ -957,44 +949,35 @@ def ns_phase(ctx_pcd, launches, by_lattice):
         f"({seconds['jprime']:.3f} s)")
     check_adjoint_and_gradient("refs=2 mass", ctx16, adj, drag, jp, ("target", "stagnation", "budget"))
     ns_profile("ns", ctx16, nw.s)
-    jac_chunks(ctx16, nw.s)
+    jac_assembly(ctx16, nw.s)
     return rungs
 
 
-def jac_chunks(ctx, s, reps=1):
+def jac_assembly(ctx, s):
     """The refs=2 NS Jacobian assembly (ctx.jac, what every Newton iterate
-    and the adjoint assemble) at the state s, timed at each cells-per-batch
-    chunk of JAC_CHUNKS: median synchronized seconds of reps calls after a
-    warm-up, and the peak device memory above what was allocated before;
-    the blocks must agree across chunks.  The module's chunk is restored."""
-    keep = nsjac.JAC_CELL_CHUNK
-    W_ref = None
-    try:
-        for chunk in JAC_CHUNKS:
-            nsjac.JAC_CELL_CHUNK = chunk
-            ctx.jac(ctx.coords, s, ctx.visc)
-            sync()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            times = []
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                W = ctx.jac(ctx.coords, s, ctx.visc)
-                sync()
-                times.append(time.perf_counter() - t0)
-            peak = torch.cuda.max_memory_allocated() - base
-            cells = int(np.prod(W.shape[3:]))
-            diff = 0.0 if W_ref is None else float((W - W_ref).abs().max() / W_ref.abs().max())
-            W_ref = W if W_ref is None else W_ref
-            log(f"[ns] Jacobian assembly at visc {ctx.visc}, JAC_CELL_CHUNK {chunk}: {cells} cells per class in "
-                f"{-(-cells // chunk)} batch(es), median {1e3 * statistics.median(times):.1f} ms of "
-                f"{[round(1e3 * t, 1) for t in times]}, peak {peak / 2**30:.3f} GiB above the "
-                f"{base / 2**30:.3f} GiB held before; W {tuple(W.shape)}, max |W - W(first chunk)| / max |W| {diff:.3e}")
-            check(diff <= 1e-6, f"Jacobian blocks agree at JAC_CELL_CHUNK {chunk}")
-            del W
-    finally:
-        nsjac.JAC_CELL_CHUNK = keep
-    del W_ref
+    and the adjoint assemble) at the state s, at the module's
+    JAC_CELL_CHUNK (settled on the H100 against 4096 and 65536 cells):
+    synchronized seconds of one call after a warm-up, the peak device
+    memory above what was allocated before, and the blocks of the two calls
+    within 1e-6 of max |W| of each other."""
+    W0 = ctx.jac(ctx.coords, s, ctx.visc)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    W = ctx.jac(ctx.coords, s, ctx.visc)
+    sync()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    cells = int(np.prod(W.shape[3:]))
+    chunk = nsjac.JAC_CELL_CHUNK
+    diff = rel_diff(W, W0)
+    log(f"[ns] Jacobian assembly at visc {ctx.visc}, JAC_CELL_CHUNK {chunk}: {cells} cells per class in "
+        f"{-(-cells // chunk)} batch(es), {1e3 * secs:.1f} ms, peak {peak / 2**30:.3f} GiB above the "
+        f"{base / 2**30:.3f} GiB held before; W {tuple(W.shape)}, bitwise equal to the warm-up's "
+        f"{torch.equal(W, W0)}, max |W - W(warm-up)| / max |W| {diff:.3e}")
+    check(diff <= 1e-6, "the Jacobian blocks of two assemblies agree")
+    del W, W0
     torch.cuda.empty_cache()
 
 
@@ -1165,7 +1148,6 @@ def step_phase(launches, by_lattice, ladder_s=None):
         f"{log1['adjoint']['exit']})")
     del prob
     torch.cuda.empty_cache()
-    step_small()
     return patch0
 
 
@@ -1308,48 +1290,32 @@ def global_operator_checks(prob, ctx_ns, s):
     torch.cuda.empty_cache()
 
 
-def jac_elem_chunks(prob, s, reps=1):
+def jac_elem_assembly(prob, s):
     """The ELL Jacobian's assembly (ns_elljac.assemble_ns_jacobian) at 3D
-    refs=2 and the state s at each elements-per-batch chunk of
-    JAC_ELEM_CHUNKS: median synchronized seconds of reps calls after a
-    warm-up and the peak temporaries above what was held before.  The
-    blocks are compared with the first chunk's: bit for bit (as on the CPU,
-    tests/test_torch_ns_elljac.py) is reported; on the card the batch's
-    size selects the batched products' kernels, and the blocks are held
-    to 1e-6 of max |W|, the limit of the lattice Jacobian's chunks
-    (jac_chunks).  The module's chunk is restored."""
+    refs=2 and the state s, at the module's JAC_ELEM_CHUNK (settled on the
+    H100 against 4096 and all 86,016 elements): synchronized seconds
+    of one call after a warm-up and the peak temporaries above what was
+    held before; the blocks of the two calls within 1e-6 of max |W| of
+    each other, and whether bit for bit."""
     from admm_optim_tpu_torch.ops import ns_elljac
 
-    keep = ns_elljac.JAC_ELEM_CHUNK
-    W_ref = None
-    try:
-        for chunk in JAC_ELEM_CHUNKS:
-            ns_elljac.JAC_ELEM_CHUNK = chunk
-            prob.ns.jac(prob.X0, s, STEP_VISC)
-            sync()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            times = []
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                W = prob.ns.jac(prob.X0, s, STEP_VISC)
-                sync()
-                times.append(time.perf_counter() - t0)
-            peak = torch.cuda.max_memory_allocated() - base
-            same = W_ref is None or torch.equal(W, W_ref)
-            diff = 0.0 if W_ref is None else rel_diff(W, W_ref)
-            W_ref = W if W_ref is None else W_ref
-            E = W.shape[0]
-            log(f"[global] ELL Jacobian assembly, JAC_ELEM_CHUNK {chunk}: {E} elements in {-(-E // chunk)} "
-                f"batch(es), median {1e3 * statistics.median(times):.1f} ms of {[round(1e3 * t, 1) for t in times]}, "
-                f"peak {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before (W itself "
-                f"{W.numel() * W.element_size() / 2**30:.3f} GiB); bitwise equal to the first chunk's: {same}, "
-                f"max |W - W(first chunk)| / max |W| {diff:.3e}")
-            check(diff <= 1e-6, f"ELL Jacobian blocks agree at JAC_ELEM_CHUNK {chunk}")
-            del W
-    finally:
-        ns_elljac.JAC_ELEM_CHUNK = keep
-    del W_ref
+    W0 = prob.ns.jac(prob.X0, s, STEP_VISC)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    W = prob.ns.jac(prob.X0, s, STEP_VISC)
+    sync()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    diff = rel_diff(W, W0)
+    E, chunk = W.shape[0], ns_elljac.JAC_ELEM_CHUNK
+    log(f"[global] ELL Jacobian assembly, JAC_ELEM_CHUNK {chunk}: {E} elements in {-(-E // chunk)} batch(es), "
+        f"{1e3 * secs:.1f} ms, peak {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before (W itself "
+        f"{W.numel() * W.element_size() / 2**30:.3f} GiB); bitwise equal to the warm-up's {torch.equal(W, W0)}, "
+        f"max |W - W(warm-up)| / max |W| {diff:.3e}")
+    check(diff <= 1e-6, "the ELL Jacobian blocks of two assemblies agree")
+    del W, W0
     torch.cuda.empty_cache()
 
 
@@ -1426,7 +1392,7 @@ def global_phase(ctx_ns, launches, by_lattice, ladder_s=None, patch0=None):
               "the global step's drag decrease within 10% of the patch step's")
     else:
         log("[global] the step phase did not run: no comparison with the patch step 0")
-    jac_elem_chunks(prob, prob.s_final)
+    jac_elem_assembly(prob, prob.s_final)
     torch.cuda.empty_cache()
     sweep_phase()
     return dict(prob=prob, record=g, ladder_s=ladder_s)
@@ -1694,9 +1660,8 @@ def matfree_checks(gctx, s, reps=5):
     torch.func.vjp, re-applied) against the assembled ELL forms within
     1e-5 of max |y|, each apply's median ms; then one adjoint cut to
     VARIANT_ADJOINT_BUDGET iterations with each form (ms per iteration,
-    peak memory), the matrix-free one at NS_ELEM_CHUNK 16384 (6 element
-    blocks at refs=2) and with all elements in one block (the module's
-    chunk)."""
+    peak memory), the matrix-free one at the module's NS_ELEM_CHUNK (all
+    elements of refs=2 in one block; settled on the H100 against 16384)."""
     from admm_optim_tpu_torch.solvers import ns_solver
 
     X, visc = gctx.coords, STEP_VISC
@@ -1718,23 +1683,15 @@ def matfree_checks(gctx, s, reps=5):
         check(e <= 1e-5, f"(a) matrix-free {what} within 1e-5 of the assembled form")
     ms = {"assembled J x": call_ms(lambda: gctx.jv(v, W), reps),
           "assembled J^T x": call_ms(lambda: gctx.jtv(v, W), reps)}
-    keep = nsops.NS_ELEM_CHUNK
     E = gctx.space.elems.shape[0]
-    adjoints = {}
-    try:
-        for chunk in VARIANT_ELEM_CHUNKS:
-            nsops.NS_ELEM_CHUNK = chunk
-            blocks = nsops._elem_chunks(E)[0]
-            ms[f"jvp, {blocks} block(s)"] = call_ms(lambda: torch.func.jvp(R, (s,), (v,))[1], reps)
-            Jt = ns_solver.residual_vjp(gctx.space, X, s, visc, gctx.stab)
-            ms[f"vjp apply, {blocks} block(s)"] = call_ms(lambda: Jt(v), reps)
-            ms[f"residual, {blocks} block(s)"] = call_ms(lambda: R(s), reps)
-            del Jt
-            torch.cuda.empty_cache()
-            # half the assembled adjoint's cut at either chunk
-            adjoints[f"matrix-free, {blocks} block(s)"] = timed_adjoint(mf, s, VARIANT_ADJOINT_BUDGET // 2)
-    finally:
-        nsops.NS_ELEM_CHUNK = keep
+    blocks = nsops._elem_chunks(E)[0]
+    ms[f"jvp, {blocks} block(s)"] = call_ms(lambda: torch.func.jvp(R, (s,), (v,))[1], reps)
+    ms[f"vjp apply, {blocks} block(s)"] = call_ms(lambda: Jt(v), reps)
+    ms[f"residual, {blocks} block(s)"] = call_ms(lambda: R(s), reps)
+    del Jt
+    torch.cuda.empty_cache()
+    # half the assembled adjoint's cut
+    adjoints = {f"matrix-free, {blocks} block(s)": timed_adjoint(mf, s, VARIANT_ADJOINT_BUDGET // 2)}
     del W
     torch.cuda.empty_cache()
     adjoints["assembled"] = timed_adjoint(gctx, s, VARIANT_ADJOINT_BUDGET)
@@ -2012,14 +1969,13 @@ def kernel_table(phases, floor_ms, launches, by_lattice):
                     entry[f"lanes_{B}"] = {k: ln[k] for k in ("max_abs_err", "ms", "call_ms", "bound_ms")}
         if name == "apply_w_pencil_batched":
             entry["k2_x_lanes_ms"] = t["extra_ms"]
-        entry.update({k: v for k, v in t.items()
-                      if k.startswith("ms_block_") or k in ("clean_ms", "warm_ms")})
+        entry.update({k: v for k, v in t.items() if k in ("clean_ms", "warm_ms")})
         if shape != "17^3x224":
             f = phases["17^3x224"][name]
             entry.update(ms_17=f["ms"], call_ms_17=f["call_ms"], plain_ms_17=f["plain_ms"],
                          bound_ms_17=f["bound_ms"], max_abs_err_17=f["max_abs_err"])
-        entry["by_shape"] = {
-            label: {k: v for k, v in phases[label][name].items() if k != "extra_ms"}
+        entry["by_shape"] = {  # no nan: the times not taken at a shape are left out
+            label: {k: v for k, v in phases[label][name].items() if k != "extra_ms" and v == v}
             for label in BY_SHAPE.get(name, ()) if label in phases
         }
         kernels.append(entry)
@@ -2034,13 +1990,16 @@ def main(phases_run=PHASES):
     smi = nvidia_smi()
     log(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # the refs=5 hierarchy's host work, in a child process from the start
-    host = HostHierarchy(max(SIZES)) if "sizes" in phases_run else None
+    # the refs=5 hierarchy's host work, in a child process from the start;
+    # every child process is stopped however the run ends
+    children = []
+    if "sizes" in phases_run:
+        children.append(HostHierarchy(max(SIZES)))
     try:
-        run_phases(kind, phases_run, host)
+        run_phases(kind, phases_run, children)
     finally:
-        if host is not None:
-            host.close()
+        for child in children:
+            child.close()
 
 
 _T0 = time.perf_counter()
@@ -2050,7 +2009,8 @@ def phase_done(name):
     log(f"[phase] {name} done, {time.perf_counter() - _T0:.1f} s since the start")
 
 
-def run_phases(kind, phases_run, host):
+def run_phases(kind, phases_run, children):
+    host = children[0] if children else None
 
     # 2. build
     t0 = time.perf_counter()
@@ -2070,13 +2030,17 @@ def run_phases(kind, phases_run, host):
     # of 15 or 45 products in another order than the twin's (~1e-7), and
     # K4's f64 sums against a float64 apply
     ps_k = stencil_patchset()
+    # (the shapes of the kernels line's entries are also timed with the L2
+    # emptied of clean lines and left warm)
     phases = {
-        "17^3x224": kernel_phase(ps_k, FINE_SHAPE, seed=1, timed=True),
-        "9^3x224": kernel_phase(ps_k, NS_SHAPE, seed=3, timed=True),
-        "5^3x224": kernel_phase(ps_k, PCD_SHAPE, seed=4, timed=True, groups=COARSE_GROUPS),
-        "3^3x224": kernel_phase(ps_k, PCD_COARSE_SHAPE, seed=5, timed=True, groups=COARSE_GROUPS),
-        "5^3x222": kernel_phase(ps_k, ODD_P_SHAPE, seed=6, timed=True, groups=("full",) + PENCIL_GROUPS),
-        "3^3x5": kernel_phase(ps_k, SMALL_SHAPE, seed=2, timed=PENCIL_GROUPS),
+        "17^3x224": kernel_phase(ps_k, FINE_SHAPE, seed=1, timed=True, l2=True),
+        "9^3x224": kernel_phase(ps_k, NS_SHAPE, seed=3, timed=True, l2=True),
+        "5^3x224": kernel_phase(ps_k, PCD_SHAPE, seed=4, timed=True, groups=COARSE_GROUPS, l2=True,
+                                lane_counts=(LANES,)),
+        "3^3x224": kernel_phase(ps_k, PCD_COARSE_SHAPE, seed=5, timed=True, groups=COARSE_GROUPS,
+                                lane_counts=(LANES,)),
+        "5^3x222": kernel_phase(ps_k, ODD_P_SHAPE, seed=6, timed=True, groups=("full", "df") + PENCIL_GROUPS),
+        "3^3x5": kernel_phase(ps_k, SMALL_SHAPE, seed=2, timed=PENCIL_GROUPS + ("df",)),
         # the shard phase's blocks: K1, K2, K4 of the refs=4 solve, K1 on
         # the refs=2 ADMM's lanes
         "17^3x112": kernel_phase(ps_k, SHARD_FINE_SHAPE, seed=7, timed=True, groups=("sym", "pencil", "df")),
@@ -2116,24 +2080,26 @@ def run_phases(kind, phases_run, host):
     if "shard" in phases_run:
         shard_phase(ctx, launches, by_lattice)
         phase_done("shard")
-    # 7. bench.py's largest and smallest sizes, refs=5 and refs=3, after
-    # the refs=4 context's device tensors are released (bench.py:475)
     levels = None if ctx is None else ctx.hier.levels
     del ctx
     torch.cuda.empty_cache()
-    if "sizes" in phases_run:
-        sizes_phase(levels, host, launches, by_lattice, floor_ms, phases)
-        phase_done("sizes")
-    del levels
 
-    # 6. the NS path at refs=2 with the mass block: the ladder, then drag,
+    # 12-13. the refs=1 phases held against float64 CPU runs (small, cli),
+    # in a side process beside the phases from here on
+    side = None
+    if set(SIDE_PHASES) & set(phases_run):
+        side = SidePhases(tuple(n for n in SIDE_PHASES if n in phases_run))
+        children.append(side)
+
+    # 7. the NS path at refs=2 with the mass block: the ladder, then drag,
     # adjoint and J' at visc 0.16; the PCD context's tables serve both
     ctx_pcd = ns_run.build(2, visc=PCD_VISC, pressure_precond="pcd") if {"ns", "pcd"} & set(phases_run) else None
     mass_rungs = ns_phase(ctx_pcd, launches, by_lattice) if "ns" in phases_run else []
     phase_done("ns")
     torch.cuda.empty_cache()
 
-    # 7. the optimization step at refs=2, from the mass ladder's state at STEP_VISC
+
+    # 8. the optimization step at refs=2, from the mass ladder's state at STEP_VISC
     at = [r.newton.s for r in mass_rungs if r.nu == STEP_VISC and r.newton.converged]
     patch0 = None
     if "step" in phases_run:
@@ -2141,7 +2107,7 @@ def run_phases(kind, phases_run, host):
         torch.cuda.empty_cache()
         phase_done("step")
 
-    # 8. the global (block-ELL) backend: one step from the same state, the sweeps
+    # 9. the global (block-ELL) backend: one step from the same state, the sweeps
     gvars = None
     if "global" in phases_run:
         ctx_mass = None if ctx_pcd is None else dataclasses.replace(
@@ -2152,7 +2118,7 @@ def run_phases(kind, phases_run, host):
         phase_done("global")
     del at
 
-    # 9. the PCD path at refs=2: one rung to visc 0.02, drag, adjoint, J'
+    # 10. the PCD path at refs=2: one rung to visc 0.02, drag, adjoint, J'
     pcd_rec = None
     if "pcd" in phases_run:
         pcd_rec = pcd_phase(ctx_pcd, launches, by_lattice, mass_rungs)
@@ -2160,22 +2126,31 @@ def run_phases(kind, phases_run, host):
     del ctx_pcd
     torch.cuda.empty_cache()
 
-    # 10. ROADMAP item 9b: matrix-free, vorder=1, b2nd_order, global PCD, the repair
+    # 11. ROADMAP item 9b: matrix-free, vorder=1, b2nd_order, global PCD, the repair
     if "variants" in phases_run:
         variants_phase(gvars, mass_rungs, pcd_rec, launches, by_lattice)
         phase_done("variants")
     del gvars, mass_rungs
     torch.cuda.empty_cache()
 
-    # 11. small-input agreement: GPU float32 vs the port's float64 CPU runs
-    if "small" in phases_run:
-        small_phase()
-        phase_done("small")
+    # 12-13. small-input agreement (GPU float32 against the port's float64
+    # CPU runs) and the CLI at 3D refs=1: the side process's results
+    if side is not None:
+        out = side.result(SIDE_WAIT_S)
+        launches.update(out["launches"])
+        by_lattice.update(out["by_lattice"])
+        phase_done(", ".join(side.names))
 
-    # 12. the CLI at 3D refs=1, against its float64 CPU run
-    if "cli" in phases_run:
-        cli_phase(launches, by_lattice)
-        phase_done("cli")
+    # 14. bench.py's largest and smallest sizes, refs=5 and refs=3, with the
+    # refs=4 context's device tensors released (bench.py:475); last, so
+    # that the host child has long made the refs=5 hierarchy and nothing
+    # runs after the phase's 7 GiB and its profiled solve
+    if "sizes" in phases_run:
+        gc.collect()  # the earlier phases' contexts, held in reference cycles
+        torch.cuda.empty_cache()
+        sizes_phase(levels, host, launches, by_lattice, floor_ms, phases)
+        phase_done("sizes")
+    del levels
 
     print(json.dumps({"kernels": kernel_table(phases, floor_ms, launches, by_lattice)}))
     print(nvidia_smi())
@@ -2508,6 +2483,70 @@ class HostHierarchy:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
+SIDE_PHASES = ("small", "cli")
+# the seconds the run waits, after its other phases, for the side process
+SIDE_WAIT_S = 300.0
+
+
+def side_phases(names, path, log_path):
+    """In a child process on the same card: the phases of names (of
+    SIDE_PHASES) one after another, its standard output and error into
+    log_path, and their launch counts by path and lattice and seconds
+    pickled to path."""
+    fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    launches, by_lattice, seconds = {}, {}, {}
+    for name in SIDE_PHASES:
+        if name in names:
+            t0 = time.perf_counter()
+            small_phase() if name == "small" else cli_phase(launches, by_lattice)
+            seconds[name] = time.perf_counter() - t0
+    with open(path + ".part", "wb") as f:
+        pickle.dump(dict(launches=launches, by_lattice=by_lattice, seconds=seconds), f)
+    os.replace(path + ".part", path)
+
+
+class SidePhases:
+    """The refs=1 phases held against float64 CPU runs (SIDE_PHASES), run by
+    side_phases in a child process beside the main sequence: host-bound
+    work on a card the other phases leave idle most of the time.  result()
+    waits for it, prints its log and returns what it measured; close()
+    stops it and removes its directory."""
+
+    def __init__(self, names):
+        self.names = names
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_side_")
+        self.path = os.path.join(self.dir, "side.pkl")
+        self.log_path = os.path.join(self.dir, "side.log")
+        self.t0 = time.perf_counter()
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=side_phases, args=(names, self.path, self.log_path), daemon=True)
+        self.proc.start()
+
+    def result(self, timeout):
+        t0 = time.perf_counter()
+        self.proc.join(timeout)
+        waited = time.perf_counter() - t0
+        with open(self.log_path) as f:
+            sys.stdout.write(f.read())
+        check(self.proc.exitcode == 0, f"the side phases {', '.join(self.names)} ran (exit code {self.proc.exitcode})")
+        with open(self.path, "rb") as f:
+            out = pickle.load(f)
+        log(f"[phase] {', '.join(f'{n} {t:.1f} s' for n, t in out['seconds'].items())} in a side process "
+            f"started {self.t0 - _T0:.1f} s after the start; the run waited {waited:.1f} s for it")
+        return out
+
+    def close(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(10)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 def size_solve(refs, hier, launches, by_lattice, ps=None):
     """bench.py's solve at refs on the card, float32: prepare (ps: the
     patchset of hier, built here when None) and assemble at the
@@ -2652,8 +2691,8 @@ def sizes_phase(levels, host, launches, by_lattice, floor_ms, phases):
 
 
 def small_phase():
-    """refs=1 solve, ADMM run and PCD ladder, card float32 against the
-    port's float64 CPU runs."""
+    """refs=1 solve, ADMM run, PCD ladder and optimization step, card
+    float32 against the port's float64 CPU runs."""
     # The solves converge to 1e-8 of their own operator (the
     # float32 rounding of the operator moves x by ~eps * cond).  The bench
     # ADMM stops its Newton after two iterations, short of ns_tol, so u
@@ -2680,6 +2719,7 @@ def small_phase():
     check((ag.admm_it, ag.total_newton) == (ac.admm_it, ac.total_newton) and du <= 1e-2,
           "refs=1 GPU ADMM agrees with the f64 CPU ADMM")
     pcd_small()
+    step_small()
 
 
 def parse_phases(argv):

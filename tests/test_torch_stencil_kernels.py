@@ -179,7 +179,7 @@ def test_slot_table_codes(problem):
     _, tps, _ = problem
     stencil = _stencil(tps)
     kept = tuple(st.half_slots(tps))
-    tab = sk._slot_table(stencil, kept, torch.device("cpu")).numpy()
+    tab = np.array(sk._slot_rows(stencil, kept))
     assert tab.shape == (15, 4)
     for oi, (o0, o1, o2, code) in enumerate(tab):
         assert (o0, o1, o2) == stencil[oi]
@@ -325,11 +325,11 @@ def test_apply_w_full_autograd_backward_is_the_transpose(problem):
 def test_transpose_table_codes(problem):
     _, tps, _ = problem
     stencil = _stencil(tps)
-    tab = sk._transpose_table(stencil, torch.device("cpu")).numpy()
+    tab = np.array(sk._transpose_rows(stencil))
     assert tab.shape == (15, 4)
     for q, (o0, o1, o2, code) in enumerate(tab):
         assert (o0, o1, o2) == tuple(-v for v in stencil[q]) and code == -1 - q
-    direct = sk._slot_table(stencil, tuple(range(15)), torch.device("cpu")).numpy()
+    direct = np.array(sk._slot_rows(stencil, tuple(range(15))))
     assert [tuple(r[:3]) for r in direct] == list(stencil)
     assert list(direct[:, 3]) == list(range(15))
 
@@ -442,25 +442,25 @@ def test_component_counts_the_wrappers_take(problem):
 
 @pytest.mark.parametrize("kind", ["sym", "full", "full_t"])
 def test_by_value_tables_equal_the_device_tables(problem, kind):
-    """The 15 x 4 C ints packed for the kernels that take their slot table
-    by value equal, row for row, the tensors the other kernels read
-    (_slot_table, _transpose_table); both are made once per patchset."""
-    _, tps, _ = problem
-    stencil = _stencil(tps)
-    assert len(stencil) == sk.BY_VALUE_SLOTS == 15
+    """The 15 x 4 C ints packed for the kernels, which all take their slot
+    table by value, equal row for row the rows made from the JAX package's
+    stencil and half slots (_slot_rows, _transpose_rows), and are made once
+    per patchset."""
+    jps, tps, _ = problem
+    stencil = _stencil(jps)
+    assert _stencil(tps) == stencil and len(stencil) == sk.BY_VALUE_SLOTS == 15
+    jkept = tuple(int(h) for h in jst.half_slots(jps))
     tabs = sk.stencil_tables(tps)
     assert sk.stencil_tables(tps) is tabs and tabs.stencil == stencil
-    assert tabs.kept == tuple(st.half_slots(tps)) and tabs.n_slots == 15
+    assert tabs.kept == jkept and tabs.n_slots == 15
     if kind == "full_t":
-        want = sk._transpose_table(stencil, torch.device("cpu"))
+        want = sk._transpose_rows(stencil)
     else:
-        kept = tabs.kept if kind == "sym" else tuple(range(15))
-        want = sk._slot_table(stencil, kept, torch.device("cpu"))
+        want = sk._slot_rows(stencil, jkept if kind == "sym" else tuple(range(15)))
     packed = tabs.packed(kind)
     assert tabs.packed(kind) is packed and len(packed) == 60
-    np.testing.assert_array_equal(np.array(list(packed)).reshape(15, 4), want.numpy())
-    assert tabs.on_device(kind, torch.device("cpu")) is want
-    assert tabs.rows(kind) == want.tolist()
+    np.testing.assert_array_equal(np.array(list(packed)).reshape(15, 4), np.array(want))
+    assert tabs.rows(kind) == want
 
 
 def test_by_value_table_refuses_another_slot_count():
@@ -475,11 +475,12 @@ def test_by_value_table_refuses_another_slot_count():
 @pytest.mark.parametrize("case", ["no lanes", "nine lanes", "strided field", "strided W", "2^31 sites on lanes",
                                   "2^31 sites on a scalar field", "2^31 sites on the scalar transpose",
                                   "2^31 sites on one field of K1", "2^31 sites on K5 at C = 3",
-                                  "2^31 sites on K5^T at C = 3", "2^31 sites on K2", "2^31 sites on K3"])
+                                  "2^31 sites on K5^T at C = 3", "2^31 sites on K2", "2^31 sites on K3",
+                                  "2^31 sites on K4"])
 def test_new_kernels_refusals_on_meta_tensors(problem, case):
     """What the wrappers of the kernels with a by-value table (K1 on lanes
-    and on one field, the scalar kernel, K5 and K5^T at C = 3, K2 and K3)
-    refuse, on meta tensors (no memory behind them): a lane axis of 0 or 9
+    and on one field, the scalar kernel, K5 and K5^T at C = 3, K2, K3 and
+    K4) refuse, on meta tensors (no memory behind them): a lane axis of 0 or 9
     lanes, a field or W that is not contiguous, and a lattice of 2^31 sites
     or more, which the kernels' 32-bit site indices cannot hold.  Each is
     refused for that reason, ahead of the refusal of the meta device."""
@@ -515,6 +516,10 @@ def test_new_kernels_refusals_on_meta_tensors(problem, case):
         else:
             call = lambda: sk.apply_w_pencil_batched(tps, W_pc, torch.empty((2, 3) + big, **meta))  # noqa: E731
         match = "indexes lattice sites in 32 bits"
+    elif case == "2^31 sites on K4":
+        x = torch.empty((3,) + big, **meta)
+        call = lambda: sk.apply_w_df_sym(tps, torch.empty((H, 3, 3) + big, **meta), x, x)  # noqa: E731
+        match = "indexes lattice sites in 32 bits"
     elif case == "2^31 sites on one field of K1":
         call = lambda: sk.apply_w_sym(tps, torch.empty((H, 3, 3) + big, **meta),  # noqa: E731
                                       torch.empty((3,) + big, **meta))
@@ -531,25 +536,13 @@ def test_new_kernels_refusals_on_meta_tensors(problem, case):
         call()
 
 
-def test_kernels_with_64_bit_indices_take_2_31_sites(problem):
-    """The kernel that reads its slot table from device memory keeps 64-bit
-    site indices: on K4, 2^31 sites pass every check and are refused only
-    for the meta device."""
-    _, tps, _ = problem
-    H = len(st.half_slots(tps))
-    big = (2, 1024, 1024, 1024)
-    W = torch.empty((H, 3, 3) + big, device="meta")
-    x = torch.empty((3,) + big, device="meta")
-    with pytest.raises(ValueError, match="must be on the CPU or a CUDA device"):
-        sk.apply_w_df_sym(tps, W, x, x)
-
-
-@pytest.mark.parametrize("kind", ["sym", "sym on one lane", "full", "full_t"])
+@pytest.mark.parametrize("kind", ["sym", "sym on one lane", "full", "full_t", "df"])
 def test_c3_field_kernels_take_the_packed_table_of_their_kind(problem, monkeypatch, kind):
     """K1 on one field (or on a lane axis of one lane), K5 and K5^T at C = 3
     launch the C = 3 entry point with the packed by-value table of their
-    kind, under their own launch counter names: recorded by a stand-in for
-    the launch, on meta tensors, so no card is needed."""
+    kind, under their own launch counter names, and K4 its own entry point
+    with K1's packed table and the lattice: recorded by a stand-in for the
+    launch, on meta tensors, so no card is needed."""
     _, tps, _ = problem
     lat, P = tps.fine.lat_shape, tps.P
     H, O = len(st.half_slots(tps)), len(tps.stencil)
@@ -557,12 +550,23 @@ def test_c3_field_kernels_take_the_packed_table_of_their_kind(problem, monkeypat
     monkeypatch.setattr(sk, "_launch", lambda name, fn, lattice, *args, device: calls.append(
         (name, fn, lattice, args, device)))
     x = torch.empty(((1,) if kind == "sym on one lane" else ()) + (3,) + lat + (P,), device="meta")
+    W = torch.empty((H if kind in ("sym", "sym on one lane", "df") else O, 3, 3) + lat + (P,), device="meta")
+    if kind == "df":
+        xl = torch.empty_like(x)
+        yh, yl = sk.apply_w_df_sym(tps, W, x, xl)
+        assert yh.shape == yl.shape == x.shape and yh.device == yl.device == x.device
+        ((got_name, entry, lattice, args, device),) = calls
+        assert (got_name, entry, device) == ("apply_w_df_sym", "apply_w_df_sym_f32", x.device)
+        assert lattice == tuple(lat) + (P,)
+        assert args[5] is sk.stencil_tables(tps).packed("sym")
+        assert args[6:] == lattice
+        return
     if kind.startswith("sym"):
-        y = sk.apply_w_sym(tps, torch.empty((H, 3, 3) + lat + (P,), device="meta"), x)
+        y = sk.apply_w_sym(tps, W, x)
         table, name = "sym", "apply_w_sym"
     else:
         fn = sk.apply_w_full if kind == "full" else sk.apply_w_full_t
-        y = fn(tps, torch.empty((O, 3, 3) + lat + (P,), device="meta"), x)
+        y = fn(tps, W, x)
         table, name = kind, fn.__name__
     assert y.shape == x.shape and y.device == x.device
     ((got_name, entry, lattice, args, device),) = calls
