@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..core.patches import PatchLevel, PatchSet
+from ..utils.profiling import span
 from . import df
 
 
@@ -458,15 +459,16 @@ def exchange_sum(lvl: PatchLevel, x, tab: LevelTables | None = None, spmd: SpmdC
     bit for bit."""
     if tab is None:
         tab = make_tables(lvl, x.dtype, x.device)
-    n = tab.owner.numel()
-    xf = _with_remote(tab, x.reshape(-1, n), spmd)
-    if x.is_cuda and tab.dfg_bidx:
-        out = exchange_groups(tab, xf)
-    else:
-        out = xf.clone()
-        s = xf.new_zeros((xf.shape[0], tab.nseg)).index_add_(1, tab.bseg, xf[:, tab.bslots])
-        out[:, tab.bslots] = s[:, tab.bseg]
-    return out[:, :n].reshape(x.shape)
+    with span("st.exchange"):
+        n = tab.owner.numel()
+        xf = _with_remote(tab, x.reshape(-1, n), spmd)
+        if x.is_cuda and tab.dfg_bidx:
+            out = exchange_groups(tab, xf)
+        else:
+            out = xf.clone()
+            s = xf.new_zeros((xf.shape[0], tab.nseg)).index_add_(1, tab.bseg, xf[:, tab.bslots])
+            out[:, tab.bslots] = s[:, tab.bseg]
+        return out[:, :n].reshape(x.shape)
 
 
 def exchange_groups(tab: LevelTables, xf):
@@ -505,28 +507,29 @@ def exchange_sum_df(tab: LevelTables, xh, xl, spmd: SpmdCtx | None = None):
     members of the groups that span ranks travel in one all-reduce
     (_with_remote); the folds are those of the single device, so is the
     result, bit for bit."""
-    C = xh.shape[0]
-    n = tab.owner.numel()
-    if spmd is None or tab.n_remote == 0:
-        xfh, xfl = xh.reshape(C, -1), xl.reshape(C, -1)
-    else:  # before any early return: every rank takes part in the all-reduce
-        xf = _with_remote(tab, torch.cat([xh.reshape(C, -1), xl.reshape(C, -1)]), spmd)
-        xfh, xfl = xf[:C], xf[C:]
-    if not tab.dfg_bidx:
-        return xh, xl
-    outh = xfh.clone()
-    outl = xfl.clone()
-    for idx in tab.dfg_bidx:  # (g_k, k)
-        vh = xfh[:, idx]  # (C, g_k, k)
-        vl = xfl[:, idx]
-        sh, sl = vh[..., 0], vl[..., 0]
-        for j in range(1, idx.shape[1]):
-            sh, e = df.two_sum(sh, vh[..., j])
-            sl = sl + e + vl[..., j]
-        sh, sl = df.two_sum(sh, sl)
-        outh[:, idx] = sh[..., None].expand(vh.shape)
-        outl[:, idx] = sl[..., None].expand(vl.shape)
-    return outh[:, :n].reshape(xh.shape), outl[:, :n].reshape(xl.shape)
+    with span("st.exchange_df"):
+        C = xh.shape[0]
+        n = tab.owner.numel()
+        if spmd is None or tab.n_remote == 0:
+            xfh, xfl = xh.reshape(C, -1), xl.reshape(C, -1)
+        else:  # before any early return: every rank takes part in the all-reduce
+            xf = _with_remote(tab, torch.cat([xh.reshape(C, -1), xl.reshape(C, -1)]), spmd)
+            xfh, xfl = xf[:C], xf[C:]
+        if not tab.dfg_bidx:
+            return xh, xl
+        outh = xfh.clone()
+        outl = xfl.clone()
+        for idx in tab.dfg_bidx:  # (g_k, k)
+            vh = xfh[:, idx]  # (C, g_k, k)
+            vl = xfl[:, idx]
+            sh, sl = vh[..., 0], vl[..., 0]
+            for j in range(1, idx.shape[1]):
+                sh, e = df.two_sum(sh, vh[..., j])
+                sl = sl + e + vl[..., j]
+            sh, sl = df.two_sum(sh, sl)
+            outh[:, idx] = sh[..., None].expand(vh.shape)
+            outl[:, idx] = sl[..., None].expand(vl.shape)
+        return outh[:, :n].reshape(xh.shape), outl[:, :n].reshape(xl.shape)
 
 
 def owner_dot(lvl: PatchLevel, x, y, tab: LevelTables | None = None, spmd: SpmdCtx | None = None):

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..solvers import krylov
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,7 +317,8 @@ def admm_iteration(cfg: ADMMConfig, ops_, Jp_base, sigma: float, ref_volume, ref
     solutions; None = zeros) with extra_hvp (newton_xupdate_ops), dual
     ascent and the convergence logic (2d:1226-1250).  Returns (new state,
     new xsols, NewtonResult, stats row)."""
-    q_proj = ops_.z_update(st.u, st.lam, cfg.tau, sigma, cfg.norm_name)
+    with span("admm.z_prox"):
+        q_proj = ops_.z_update(st.u, st.lam, cfg.tau, sigma, cfg.norm_name)
     if cfg.relax_alpha != 1.0:
         # over-relaxation: q_hat enters the x-update and dual ascent
         al = cfg.relax_alpha
@@ -326,11 +328,13 @@ def admm_iteration(cfg: ADMMConfig, ops_, Jp_base, sigma: float, ref_volume, ref
     max_norm = float(ops_.max_grad_norm(st.u_old, cfg.norm_name))
     # multipliers carry across ADMM iterations as in the reference
     # (2d:1068-1142); they are zeroed only by a fresh admm_inner call
-    nr = newton_xupdate_ops(
-        cfg, ops_, Jp_base, st.scaling, st.lam, q_hat, ref_volume, ref_barycenter,
-        st.u, st.Lambda, sols0=xsols, extra_hvp=extra_hvp,
-    )
-    lam, lam_inc = ops_.dual_update(nr.u, st.lam, q_hat, cfg.tau)
+    with span("admm.newton"):
+        nr = newton_xupdate_ops(
+            cfg, ops_, Jp_base, st.scaling, st.lam, q_hat, ref_volume, ref_barycenter,
+            st.u, st.Lambda, sols0=xsols, extra_hvp=extra_hvp,
+        )
+    with span("admm.dual"):
+        lam, lam_inc = ops_.dual_update(nr.u, st.lam, q_hat, cfg.tau)
     u_diff = float(ops_.norm_p1(nr.u - st.u_old))
     lam_inc_n = float(ops_.norm_pc(lam_inc))
     base_conv = (
@@ -396,9 +400,10 @@ def admm_inner(
     xsols = None
     rows, nr = [], None
     while not st.converged and not st.failed and st.admm_it < cfg.admm_steps:
-        st, xsols, nr, row = admm_iteration(
-            cfg, ops_, Jp_base, sigma, ref_volume, ref_barycenter, st, xsols, extra_hvp
-        )
+        with span("admm.iter"):
+            st, xsols, nr, row = admm_iteration(
+                cfg, ops_, Jp_base, sigma, ref_volume, ref_barycenter, st, xsols, extra_hvp
+            )
         if iter_cb is not None:
             iter_cb(len(rows), st.u)
         rows.append(row)

@@ -21,6 +21,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import host_read, span
+
 
 class SolveResult(NamedTuple):
     x: torch.Tensor
@@ -74,23 +76,24 @@ def cg(
     x, p = x0, z
     while True:
         active = (nrm > tol) & (it < max_iters)
-        n_active = int(active.sum())
+        n_active = host_read(active.sum(), int)
         if n_active == 0:
             break
-        Ap = A(p)
-        denom = dot(p, Ap)
-        alpha = rz / torch.where(denom == 0, torch.ones_like(denom), denom)
-        x_n = x + _lane(alpha, p) * p
-        r_n = r - _lane(alpha, Ap) * Ap
-        z = M(r_n)
-        rz_new = dot(r_n, z)
-        beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
-        p_n = z + _lane(beta, p) * p
-        x, r, p, rz, nrm = _freeze(
-            active, n_active,
-            (x_n, r_n, p_n, rz_new, torch.sqrt(dot(r_n, r_n))), (x, r, p, rz, nrm),
-        )
-        it = it + active
+        with span("cg.iter"):
+            Ap = A(p)
+            denom = dot(p, Ap)
+            alpha = rz / torch.where(denom == 0, torch.ones_like(denom), denom)
+            x_n = x + _lane(alpha, p) * p
+            r_n = r - _lane(alpha, Ap) * Ap
+            z = M(r_n)
+            rz_new = dot(r_n, z)
+            beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
+            p_n = z + _lane(beta, p) * p
+            x, r, p, rz, nrm = _freeze(
+                active, n_active,
+                (x_n, r_n, p_n, rz_new, torch.sqrt(dot(r_n, r_n))), (x, r, p, rz, nrm),
+            )
+            it = it + active
     return SolveResult(x, it, nrm, nrm <= tol)
 
 
@@ -158,7 +161,7 @@ def _bicgstab_round(A, b, x, r, nrm, M, dot, nrm_of, tol, budget):
     brk = _breakdown_eps(b.dtype)
     while True:
         active = (nrm > tol) & (it < budget) & ok
-        n_active = int(active.sum())
+        n_active = host_read(active.sum(), int)
         if n_active == 0:
             break
         rho_new = dot(rhat, r)

@@ -24,6 +24,7 @@ from ..core.patches import PatchSet
 from ..ops import df
 from ..ops import patchstencil as st
 from ..ops import stencil_kernels as sk
+from ..utils.profiling import host_read, span
 from . import krylov
 
 
@@ -302,42 +303,47 @@ def vcycle_p(struct: PatchMGStructure, data: PatchMGData, b, x0=None):
     def smooth(l, x, b_l, degree, x_zero=False):
         args = (ps, data.tabs[l], data.smoother_W(l), data.inv_diag[l], data.lmax[l], x, b_l, degree)
         sp = struct.level_spmd(l)
-        if struct.smoother == "jacobi":
-            return jacobi_smooth_p(*args, x_is_zero=x_zero, spmd=sp)
-        return chebyshev_smooth_p(*args, struct.cheb_lower, x_is_zero=x_zero, spmd=sp)
+        with span("mg.smooth", level=l):
+            if struct.smoother == "jacobi":
+                return jacobi_smooth_p(*args, x_is_zero=x_zero, spmd=sp)
+            return chebyshev_smooth_p(*args, struct.cheb_lower, x_is_zero=x_zero, spmd=sp)
 
     def solve_level(l, b_l, x_l, x_zero=False):
         tab = data.tabs[l]
         if l == 0:
             # dense base solve: consistent residual -> owner-picked global
             # (all-reduced when level 0 is sharded) -> dense inverse -> patch
-            n = data.base_inv.shape[0]  # C * V0
-            C = b_l.shape[-ps.dim - 2]
-            bg = st.from_patch_tab(tab, b_l, n // C, mode="owner", spmd=struct.level_spmd(0))
-            xg = (bg.reshape(-1, n) @ data.base_inv.T).reshape(bg.shape)
-            return st.to_patch_tab(tab, xg)
+            with span("mg.base"):
+                n = data.base_inv.shape[0]  # C * V0
+                C = b_l.shape[-ps.dim - 2]
+                bg = st.from_patch_tab(tab, b_l, n // C, mode="owner", spmd=struct.level_spmd(0))
+                xg = (bg.reshape(-1, n) @ data.base_inv.T).reshape(bg.shape)
+                return st.to_patch_tab(tab, xg)
         x_l = smooth(l, x_l, b_l, struct.pre_smooth, x_zero)
-        # restriction acts on the ADDITIVE residual: owner-weighted b minus
-        # the raw per-patch partial sums (restricting a consistent vector
-        # would double-count duplicated sites)
-        owner = tab.owner.to(b_l.dtype)
-        r_add = b_l * owner[None] - st.apply_w(ps, data.smoother_W(l), x_l)
-        rc = st.restrict_p(ps, l - 1, r_add)
-        tab_c = data.tabs[l - 1]
         agglom_edge = spmd is not None and l == struct.replicate_below
-        if agglom_edge:
-            rc = spmd.all_gather_p(rc)
-        rc = st.exchange_sum(None, rc, tab_c, spmd=struct.level_spmd(l - 1)) * tab_c.free[None].to(rc.dtype)
+        with span("mg.transfer", level=l, dir="restrict"):
+            # restriction acts on the ADDITIVE residual: owner-weighted b
+            # minus the raw per-patch partial sums (restricting a consistent
+            # vector would double-count duplicated sites)
+            owner = tab.owner.to(b_l.dtype)
+            r_add = b_l * owner[None] - st.apply_w(ps, data.smoother_W(l), x_l)
+            rc = st.restrict_p(ps, l - 1, r_add)
+            tab_c = data.tabs[l - 1]
+            if agglom_edge:
+                rc = spmd.all_gather_p(rc)
+            rc = st.exchange_sum(None, rc, tab_c, spmd=struct.level_spmd(l - 1)) * tab_c.free[None].to(rc.dtype)
         ec = solve_level(l - 1, rc, torch.zeros_like(rc), x_zero=True)
-        if agglom_edge:
-            ec = spmd.take_block(ec)
-        x_l = x_l + st.prolong_p(ps, l - 1, ec) * tab.free[None].to(x_l.dtype)
+        with span("mg.transfer", level=l, dir="prolong"):
+            if agglom_edge:
+                ec = spmd.take_block(ec)
+            x_l = x_l + st.prolong_p(ps, l - 1, ec) * tab.free[None].to(x_l.dtype)
         return smooth(l, x_l, b_l, struct.post_smooth)
 
-    x_zero = x0 is None
-    if x0 is None:
-        x0 = torch.zeros_like(b)
-    return solve_level(ps.k, b, x0, x_zero=x_zero)
+    with span("mg.vcycle"):
+        x_zero = x0 is None
+        if x0 is None:
+            x0 = torch.zeros_like(b)
+        return solve_level(ps.k, b, x0, x_zero=x_zero)
 
 
 def make_preconditioner_p(struct: PatchMGStructure, data: PatchMGData):
@@ -353,12 +359,13 @@ def residual_df(struct: PatchMGStructure, data: PatchMGData, b, xh, xl):
     duplicate exchange (exchange_sum_df).  b is plain working precision."""
     ps = struct.ps
     tab = data.tabs[ps.k]
-    yh, yl = st.apply_w_df(ps, data.W[ps.k], xh, xl)
-    yh, yl = st.exchange_sum_df(tab, yh, yl, spmd=struct.spmd)
-    free = tab.free[None].to(xh.dtype)
-    # cancellation-safe DF subtraction: b - Ax cancels by construction
-    r = df.add(df.from_f(b * free), df.DF(-yh * free, -yl * free))
-    return r.hi, r.lo
+    with span("ir.residual"):
+        yh, yl = st.apply_w_df(ps, data.W[ps.k], xh, xl)
+        yh, yl = st.exchange_sum_df(tab, yh, yl, spmd=struct.spmd)
+        free = tab.free[None].to(xh.dtype)
+        # cancellation-safe DF subtraction: b - Ax cancels by construction
+        r = df.add(df.from_f(b * free), df.DF(-yh * free, -yl * free))
+        return r.hi, r.lo
 
 
 class IRResult(NamedTuple):
@@ -396,14 +403,15 @@ def cg_ir_p(
     xh = torch.zeros_like(b)
     xl = torch.zeros_like(b)
     rh, rnorm, rounds, inner = b, bnorm, 0, 0
-    while bool(rnorm > tol) and rounds < max_rounds:
-        res = cg_p(struct, data, rh, max_iters=inner_iters, rel_tol=inner_rel, abs_tol=0.0)
-        xh, xl = df.add(df.DF(xh, xl), df.from_f(res.x))
-        rh, _ = residual_df(struct, data, b, xh, xl)
-        rnorm = torch.sqrt(dot(rh, rh))
-        rounds += 1
-        inner += int(res.iters)
-    return IRResult(xh, xl, rounds, inner, rnorm, bool(rnorm <= tol))
+    while host_read(rnorm > tol) and rounds < max_rounds:
+        with span("ir.round"):
+            res = cg_p(struct, data, rh, max_iters=inner_iters, rel_tol=inner_rel, abs_tol=0.0)
+            xh, xl = df.add(df.DF(xh, xl), df.from_f(res.x))
+            rh, _ = residual_df(struct, data, b, xh, xl)
+            rnorm = torch.sqrt(dot(rh, rh))
+            rounds += 1
+            inner += host_read(res.iters, int)
+    return IRResult(xh, xl, rounds, inner, rnorm, host_read(rnorm <= tol))
 
 
 def cg_p(

@@ -35,6 +35,7 @@ from .ops.deformation import deformation_corner_block_fn, deformation_elem_mats
 from .ops.p1space import P1VectorSpace
 from .ops.deformation import vertex_plan as dfm_vertex_plan
 from .solvers import mg, patch_mg
+from .utils.profiling import span
 
 DIRICHLET = ("inlet", "wall", "outlet")
 # bench.py run_size: cg_ir_p(rel_tol=1e-8, max_rounds=8, inner_rel=1e-5,
@@ -87,25 +88,26 @@ def prepare(hier: Hierarchy, device=None, dtype=torch.float32, c_eps: float = 1.
     space's V(3,3) Chebyshev cycle when empty), on any mesh.  ps: the
     patchset of hier when it was built already (build_patchset(hier), in
     another process perhaps); None builds it here."""
-    device = resolve_device(device)
-    t0 = time.perf_counter()
-    if backend == "global":
-        space = P1VectorSpace.build(hier, dirichlet=DIRICHLET)
+    with span("xupdate.prepare"):
+        device = resolve_device(device)
+        t0 = time.perf_counter()
+        if backend == "global":
+            space = P1VectorSpace.build(hier, dirichlet=DIRICHLET)
+            coords = torch.as_tensor(hier.fine.coords, dtype=dtype, device=device)
+            vplan = dfm_vertex_plan(hier.fine.elems, hier.fine.num_vertices)
+            _sync(device)
+            return SolveContext(hier, None, space.mg_structure(**smoothing), None, None, None, None, coords,
+                                time.perf_counter() - t0, 0.0, space=space, coeffs=(c_eps, c_grad, c_mass), vplan=vplan)
+        if ps is None:
+            ps = build_patchset(hier)
+        tabs = patch_mg.make_level_tables(ps, dtype, device)
         coords = torch.as_tensor(hier.fine.coords, dtype=dtype, device=device)
-        vplan = dfm_vertex_plan(hier.fine.elems, hier.fine.num_vertices)
+        struct = patch_mg.PatchMGStructure(ps, **smoothing)
         _sync(device)
-        return SolveContext(hier, None, space.mg_structure(**smoothing), None, None, None, None, coords,
-                            time.perf_counter() - t0, 0.0, space=space, coeffs=(c_eps, c_grad, c_mass), vplan=vplan)
-    if ps is None:
-        ps = build_patchset(hier)
-    tabs = patch_mg.make_level_tables(ps, dtype, device)
-    coords = torch.as_tensor(hier.fine.coords, dtype=dtype, device=device)
-    struct = patch_mg.PatchMGStructure(ps, **smoothing)
-    _sync(device)
-    return SolveContext(
-        hier, ps, struct, tabs, deformation_corner_block_fn(c_eps, c_grad, c_mass),
-        base_solver(hier.levels[0], device, c_eps, c_grad, c_mass), None, coords, time.perf_counter() - t0, 0.0,
-    )
+        return SolveContext(
+            hier, ps, struct, tabs, deformation_corner_block_fn(c_eps, c_grad, c_mass),
+            base_solver(hier.levels[0], device, c_eps, c_grad, c_mass), None, coords, time.perf_counter() - t0, 0.0,
+        )
 
 
 def base_solver(lvl0, device, c_eps: float = 1.0, c_grad: float = 1.0, c_mass: float = 1.0) -> Callable:
@@ -143,11 +145,12 @@ def assemble(ctx: SolveContext, X: torch.Tensor):
     """The multigrid data of ctx's operator on the mesh X (V, d): symmetric
     half stencils on every level and a dense base inverse (PatchMGData),
     or on the global backend the block-ELL levels (mg.MGData)."""
-    if ctx.space is not None:
-        return ctx.space.assemble_mg(ctx.struct, X, *ctx.coeffs)
-    return patch_mg.assemble_patch_mg(
-        ctx.ps, ctx.struct, X.contiguous(), ctx.corner_fn, ctx.base_dense_fn, tabs=ctx.tabs, sym=True,
-    )
+    with span("xupdate.assemble"):
+        if ctx.space is not None:
+            return ctx.space.assemble_mg(ctx.struct, X, *ctx.coeffs)
+        return patch_mg.assemble_patch_mg(
+            ctx.ps, ctx.struct, X.contiguous(), ctx.corner_fn, ctx.base_dense_fn, tabs=ctx.tabs, sym=True,
+        )
 
 
 def build(num_refs: int, device=None, dtype=torch.float32) -> SolveContext:
@@ -180,5 +183,6 @@ def random_rhs(ctx: SolveContext, seed: int = 0) -> torch.Tensor:
 
 
 def solve(ctx: SolveContext, b: torch.Tensor) -> patch_mg.IRResult:
-    """cg_ir_p with bench.py's settings."""
-    return patch_mg.cg_ir_p(ctx.struct, ctx.data, b, **SOLVE_SETTINGS)
+    """cg_ir_p with bench.py's settings; a request's root span."""
+    with span("xupdate.solve"):
+        return patch_mg.cg_ir_p(ctx.struct, ctx.data, b, **SOLVE_SETTINGS)
