@@ -36,7 +36,8 @@ and no lattice-size gate.  ``launches`` counts kernel launches per wrapper
 (the twin never counts); the scalar form of K5 and K5^T counts under names
 of its own, ``apply_w_full/c1`` and ``apply_w_full_t/c1``, and K1's lane
 kernel as ``apply_w_sym/lanes``.  ``launches_by_lattice`` counts the same
-launches per (name, (n0, n1, n2, P)).
+launches per (name, (n0, n1, n2, P)).  A V-cycle replayed from a CUDA
+graph (solvers.patch_mg.vcycle_p) adds the launches its capture counted.
 """
 from __future__ import annotations
 

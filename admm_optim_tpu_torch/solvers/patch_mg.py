@@ -11,6 +11,10 @@ With ``PatchMGStructure.spmd`` set (parallel.patch_shard) the same code
 runs on one rank's patch block: exchanges, dots and the base-solve glue
 take the sharded forms of ops.patchstencil, and levels below
 ``replicate_below`` run agglomerated (every rank holds them whole).
+
+On a CUDA device ``vcycle_p`` captures a cycle from zero into a CUDA graph
+and replays it, one host launch for its ~700 kernels; the graphs live on
+the PatchMGData and are keyed by what the cycle reads (``cycle_key``).
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from ..core.patches import PatchSet
 from ..ops import df
 from ..ops import patchstencil as st
 from ..ops import stencil_kernels as sk
-from ..utils.profiling import host_read, span
+from ..utils.profiling import host_read, recording, span
 from . import krylov
 
 
@@ -66,6 +70,10 @@ class PatchMGData:
     tabs: list  # per level: st.LevelTables
     # optional per-level smoother stencils (PencilW; None entries use W)
     W_sm: list | None = None
+    # vcycle_p's CUDA graphs: {"key": cycle_key, "cycles": {input key:
+    # "warm" after one eager cycle, then a _CycleGraph}}; a new instance
+    # (dataclasses.replace too) starts without
+    graphs: dict | None = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     def smoother_W(self, l):
         if self.W_sm is None or self.W_sm[l] is None:
@@ -290,13 +298,8 @@ def jacobi_smooth_p(ps, tab, W, inv_diag, lmax, x, b, degree, omega=0.7, x_is_ze
     return x
 
 
-def vcycle_p(struct: PatchMGStructure, data: PatchMGData, b, x0=None):
-    """One V(pre,post)-cycle; b, x (C, *latf, P) consistent, free-masked,
-    or (B, C, *latf, P): B independent cycles in one pass, each stencil
-    apply one launch for all lanes.  Under struct.spmd, the restriction
-    into the first agglomerated level gathers the additive residual once,
-    the levels below run whole on every rank (the same arithmetic on
-    each), and the prolongation takes the rank's block back."""
+def _vcycle(struct: PatchMGStructure, data: PatchMGData, b, x0=None):
+    """vcycle_p's launches, run eagerly."""
     ps = struct.ps
     spmd = struct.spmd
 
@@ -339,11 +342,131 @@ def vcycle_p(struct: PatchMGStructure, data: PatchMGData, b, x0=None):
             x_l = x_l + st.prolong_p(ps, l - 1, ec) * tab.free[None].to(x_l.dtype)
         return smooth(l, x_l, b_l, struct.post_smooth)
 
-    with span("mg.vcycle"):
-        x_zero = x0 is None
-        if x0 is None:
-            x0 = torch.zeros_like(b)
-        return solve_level(ps.k, b, x0, x_zero=x_zero)
+    x_zero = x0 is None
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    return solve_level(ps.k, b, x0, x_zero=x_zero)
+
+
+# V-cycles by how vcycle_p ran them: eagerly, captured into a CUDA graph
+# (and replayed once for the caller), or replayed from one
+graph_counts = {"eager": 0, "capture": 0, "replay": 0}
+
+
+def reset_graph_counts():
+    for k in graph_counts:
+        graph_counts[k] = 0
+
+
+@dataclasses.dataclass
+class _CycleGraph:
+    graph: torch.cuda.CUDAGraph
+    b: torch.Tensor  # the static input, b copied in before each replay
+    x: torch.Tensor  # the static output, copied out after each replay
+    launches: dict  # stencil_kernels.launches of one cycle
+    by_lattice: dict  # stencil_kernels.launches_by_lattice of one cycle
+
+
+def _cycle_tensors(data: PatchMGData) -> list:
+    """Every tensor of data that a cycle reads."""
+    out = [data.base_inv]
+    for l, tab in enumerate(data.tabs):
+        out += [data.W[l], data.inv_diag[l], data.lmax[l], tab.owner, tab.free, tab.gid, tab.bslots, tab.bseg,
+                *tab.dfg_bidx]
+        if data.W_sm is not None and data.W_sm[l] is not None:
+            out.append(data.W_sm[l].a)
+    return out
+
+
+def cycle_key(struct: PatchMGStructure, data: PatchMGData) -> tuple:
+    """What a captured cycle depends on beyond its input: the structure's
+    settings and, of each tensor of data it reads, the address, shape,
+    stride and dtype (and whether it requires grad).  A list entry
+    replaced or data assembled anew changes it; a write into the same
+    storage does not, and a replay sees that write as an eager cycle
+    would."""
+    return (id(struct.ps), struct.pre_smooth, struct.post_smooth, struct.cheb_lower, struct.smoother,
+            tuple([(t.data_ptr(), t.shape, t.stride(), t.dtype, t.requires_grad) for t in _cycle_tensors(data)]))
+
+
+def _graph_mode(struct: PatchMGStructure, data: PatchMGData, b, x0):
+    """How vcycle_p runs this call, and the graph to replay or the input
+    key to capture under.  Eager unless b is on a CUDA device, the cycle
+    is not sharded (its collectives run on the host), starts from zero,
+    nothing it reads requires grad, and no capture is under way.  Then the
+    first call under a key runs eagerly (it makes the lazy tables and the
+    library's handles), the second captures, or stays eager while a
+    profiler records, and every later call replays."""
+    if (not b.is_cuda or struct.spmd is not None or x0 is not None or b.requires_grad
+            or torch.cuda.is_current_stream_capturing()):
+        return "eager", None
+    key = cycle_key(struct, data)
+    if data.graphs is None or data.graphs["key"] != key:
+        if any(t[-1] for t in key[-1]):
+            return "eager", None
+        data.graphs = {"key": key, "cycles": {}}  # the old graphs and their pools go
+    cycles = data.graphs["cycles"]
+    at = (b.shape, b.stride(), b.dtype, b.device)
+    cyc = cycles.get(at)
+    if cyc is None:
+        cycles[at] = "warm"
+        return "eager", None
+    if cyc == "warm":
+        return ("eager" if recording() else "capture"), at
+    return "replay", cyc
+
+
+def _capture(struct: PatchMGStructure, data: PatchMGData, b, at):
+    """Capture one cycle of b's shape into a CUDA graph with a private
+    memory pool, keep it under at, and replay it once for this call."""
+    launches, by_lattice = dict(sk.launches), dict(sk.launches_by_lattice)
+    static_b = torch.empty_like(b).copy_(b)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(b.device), torch.cuda.graph(graph):
+        x = _vcycle(struct, data, static_b)
+    cyc = _CycleGraph(
+        graph, static_b, x, {k: n - launches[k] for k, n in sk.launches.items() if n != launches[k]},
+        {k: n - by_lattice.get(k, 0) for k, n in sk.launches_by_lattice.items() if n != by_lattice.get(k, 0)},
+    )
+    data.graphs["cycles"][at] = cyc
+    graph.replay()
+    return x.clone()
+
+
+def _replay(cyc: _CycleGraph, b):
+    cyc.b.copy_(b)
+    cyc.graph.replay()
+    for k, n in cyc.launches.items():
+        sk.launches[k] += n
+    for k, n in cyc.by_lattice.items():
+        sk.launches_by_lattice[k] = sk.launches_by_lattice.get(k, 0) + n
+    # a fresh tensor: a caller may hold the previous cycle's output (CG's
+    # first search direction is its preconditioned residual)
+    return cyc.x.clone()
+
+
+def vcycle_p(struct: PatchMGStructure, data: PatchMGData, b, x0=None):
+    """One V(pre,post)-cycle; b, x (C, *latf, P) consistent, free-masked,
+    or (B, C, *latf, P): B independent cycles in one pass, each stencil
+    apply one launch for all lanes.  Under struct.spmd, the restriction
+    into the first agglomerated level gathers the additive residual once,
+    the levels below run whole on every rank (the same arithmetic on
+    each), and the prolongation takes the rank's block back.
+
+    On a CUDA device a cycle from zero is one CUDA graph, replayed from
+    the third call of a shape on (_graph_mode): the same launches in the
+    same order, for one launch of the host.  The mg.vcycle span says which
+    (its attribute graph: "eager", "capture" or "replay"); a replay
+    records no span inside it and adds a cycle's launches to
+    stencil_kernels' counts."""
+    mode, got = _graph_mode(struct, data, b, x0)
+    graph_counts[mode] += 1
+    with span("mg.vcycle", graph=mode):
+        if mode == "replay":
+            return _replay(got, b)
+        if mode == "capture":
+            return _capture(struct, data, b, got)
+        return _vcycle(struct, data, b, x0)
 
 
 def make_preconditioner_p(struct: PatchMGStructure, data: PatchMGData):

@@ -147,9 +147,14 @@ def span(name: str, **attrs):
     """A context manager marking a region: a record and a user_annotation
     while a torch.profiler profile records, a shared null context
     otherwise."""
-    if not _autograd_profiler._is_profiler_enabled:
+    if not recording():
         return _OFF
     return _Span(name, attrs)
+
+
+def recording() -> bool:
+    """Whether a torch.profiler profile records (and so spans do)."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def spans() -> list[dict]:

@@ -305,3 +305,102 @@ def test_scalar_jacobi_vcycle_on_full_w_matches_jax():
     conv = convert.patch_mg_data(jax.tree_util.tree_map(np.asarray, jdata), ps, "cpu")
     assert _rel(patch_mg.vcycle_p(ctx.pcd_struct, conv, bt), v_j) <= 1e-10
     assert sum(sk.launches.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# the V-cycle's CUDA graphs: what the CPU can show (the key and the gate);
+# replays are held to the eager cycle on the card (test_torch_vcycle_graph)
+# ---------------------------------------------------------------------------
+
+def test_cpu_cycles_run_eager(port):
+    """CPU tensors never capture: every cycle counts as eager, data keeps
+    no graph, and each mg.vcycle span says graph="eager"."""
+    from admm_optim_tpu_torch.utils import profiling
+
+    b = xupdate_solve.random_rhs(port, seed=2)
+    data = dataclasses.replace(port.data)
+    patch_mg.reset_graph_counts()
+    x = [patch_mg.vcycle_p(port.struct, data, b) for _ in range(3)]
+    profiling.reset_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        res = patch_mg.cg_p(port.struct, data, b, max_iters=5, rel_tol=1e-4)
+    recs = [r for r in profiling.spans() if r["name"] == "mg.vcycle"]
+    profiling.reset_spans()
+    n = 3 + int(res.iters) + 1
+    assert patch_mg.graph_counts == {"eager": n, "capture": 0, "replay": 0}
+    assert data.graphs is None
+    assert len(recs) == n - 3 and all(r["attrs"] == {"graph": "eager"} for r in recs)
+    assert torch.equal(x[0], x[2])
+
+
+def test_cycle_key_follows_storage(port):
+    """The key changes when a W or W_sm entry is replaced, when data is
+    assembled anew and with the structure's settings; it stays the same
+    for writes into the same storage."""
+    ps, struct = port.ps, port.struct
+    data = dataclasses.replace(port.data, W=[w.clone() for w in port.data.W],
+                               inv_diag=[v.clone() for v in port.data.inv_diag])
+    assert data.graphs is None
+    key = patch_mg.cycle_key(struct, data)
+    assert patch_mg.cycle_key(struct, data) == key
+    assert patch_mg.cycle_key(struct, port.data) != key  # another copy of the operator
+    data.W[1].mul_(2.0)
+    data.inv_diag[0].add_(1.0)
+    assert patch_mg.cycle_key(struct, data) == key
+    data.W[1] = data.W[1].clone()
+    k2 = patch_mg.cycle_key(struct, data)
+    assert k2 != key
+    pencil = st.PencilW(sk.to_pencil_major(ps, data.W[ps.k], torch.bfloat16))
+    data.W_sm = [None] * ps.k + [pencil]
+    k3 = patch_mg.cycle_key(struct, data)
+    assert k3 != k2
+    pencil.a.zero_()
+    assert patch_mg.cycle_key(struct, data) == k3
+    data.W_sm[ps.k] = st.PencilW(pencil.a.clone())
+    assert patch_mg.cycle_key(struct, data) != k3
+    again = xupdate_solve.assemble(port, torch.as_tensor(port.hier.fine.coords, dtype=torch.float64))
+    assert patch_mg.cycle_key(struct, again) != patch_mg.cycle_key(struct, port.data)
+    assert patch_mg.cycle_key(dataclasses.replace(struct, pre_smooth=3), port.data) != \
+        patch_mg.cycle_key(struct, port.data)
+
+
+@pytest.mark.parametrize("case", ["cpu", "spmd", "x0", "b_grad", "data_grad", "capturing"])
+def test_graph_gate_leaves_calls_eager(port, monkeypatch, case):
+    """_graph_mode with b taken for a CUDA tensor: a CPU tensor, a sharded
+    cycle, a given x0, an input or a data tensor that requires grad, and a
+    call inside another capture run eagerly and leave data without a
+    graph; the same call otherwise runs eagerly once (the warm-up), then
+    captures, or stays eager while a profiler records, and a replaced W
+    entry starts that over."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: case == "capturing")
+    if case != "cpu":
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    struct = port.struct
+    data = dataclasses.replace(port.data, W=list(port.data.W), inv_diag=list(port.data.inv_diag))
+    b = xupdate_solve.random_rhs(port, seed=3)
+    x0 = None
+    if case == "spmd":
+        struct = dataclasses.replace(struct, spmd=st.SpmdCtx(group=None, rank=0, nshards=1))
+    elif case == "x0":
+        x0 = torch.zeros_like(b)
+    elif case == "b_grad":
+        b.requires_grad_()
+    elif case == "data_grad":
+        data.inv_diag[1] = data.inv_diag[1].clone().requires_grad_()
+    for _ in range(3):
+        assert patch_mg._graph_mode(struct, data, b, x0) == ("eager", None)
+    assert data.graphs is None
+    # the same call, eligible
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    b = b.detach()
+    data.inv_diag[1] = data.inv_diag[1].detach()
+    at = (b.shape, b.stride(), b.dtype, b.device)
+    assert patch_mg._graph_mode(port.struct, data, b, None) == ("eager", None)
+    assert data.graphs["cycles"] == {at: "warm"}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert patch_mg._graph_mode(port.struct, data, b, None) == ("eager", at)
+    assert patch_mg._graph_mode(port.struct, data, b, None) == ("capture", at)
+    data.W[1] = data.W[1].clone()
+    assert patch_mg._graph_mode(port.struct, data, b, None) == ("eager", None)
+    assert data.graphs["key"] == patch_mg.cycle_key(port.struct, data)
