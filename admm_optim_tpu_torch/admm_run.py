@@ -5,11 +5,15 @@ bench.py's ``admm_throughput``.
     out = admm_run.run(ctx)   # BENCH_CFG: 5 ADMM iterations, CG x-solves
     out.state.admm_it, out.state.total_newton, out.seconds
 
+    prob = admm_run.problem(ctx)   # the operator bundle and the constraint targets, once
+    out = admm_run.run(ctx, cfg, Jp=Jp, iter_cb=cb, prob=prob)   # any ADMMConfig, a given J'
+
 Each ADMM iteration runs the z-prox, the constrained Newton x-update (at
-most ns_max_its = 2 iterations, each one batched CG solve over the 1+m = 5
-lanes, preconditioned by the V-cycle on the stencils ``ctx`` keeps
-resident) and the dual ascent.  The shape gradient is random from a seed,
-as bench.py makes it.
+most ns_max_its iterations, 2 in BENCH_CFG, each one batched CG solve over
+the 1+m = 5 lanes, preconditioned by the V-cycle on the stencils ``ctx``
+keeps resident) and the dual ascent.  The shape gradient is random from a
+seed, as bench.py makes it, unless one is given.  The operator is ctx's:
+its c_grad stands for the ADMM step's tau.
 """
 from __future__ import annotations
 
@@ -28,16 +32,22 @@ from .xupdate_solve import DIRICHLET, SolveContext
 
 # bench.py admm_throughput's settings: admm_tolerance 0 runs every iteration
 BENCH_CFG = admm.ADMMConfig(
-    admm_steps=5, admm_tolerance=0.0, tau=1.0, ns_max_its=2, ns_tol=1e-4,
+    admm_steps=5, admm_tolerance=0.0, tau=1.0, sigma_threshold=0.3, scaling=1.0, ns_max_its=2, ns_tol=1e-4,
     lin_max_iters=40, lin_abs_tol=1e-7, lin_rel_tol=1e-5, x_solver="cg",
 )
-SIGMA = 0.3
-SCALING = 1.0
 
 
 class ADMMRun(NamedTuple):
     state: admm.ADMMState  # counters, flags and norms as the loop left them
     seconds: float  # wall time of admm_inner, synchronized
+
+
+class Problem(NamedTuple):
+    """What every run on one context shares."""
+
+    ops: PatchOps  # the operator bundle over ctx's multigrid data
+    ref_volume: torch.Tensor  # 0-d, the undeformed volume
+    ref_barycenter: torch.Tensor  # (d,), the undeformed unnormalized barycenter
 
 
 def reference_targets(hier):
@@ -59,14 +69,22 @@ def shape_gradient(ctx: SolveContext, seed: int = 1) -> torch.Tensor:
     return st.to_patch(ctx.ps.fine, Jp * free) * 0.01
 
 
-def run(ctx: SolveContext, cfg: admm.ADMMConfig = BENCH_CFG, seed: int = 1) -> ADMMRun:
-    """admm_inner on PatchOps over ctx's multigrid data, sigma 0.3, scaling 1."""
+def problem(ctx: SolveContext) -> Problem:
+    """PatchOps over ctx's multigrid data at ctx's coordinates, and the
+    constraint targets in ctx's dtype on its device."""
     dev, dtype = ctx.coords.device, ctx.coords.dtype
-    ops_ = PatchOps(ctx.struct, ctx.data, st.to_patch(ctx.ps.fine, ctx.coords.T))
-    Jp = shape_gradient(ctx, seed)
-    ref_vol, ref_bary = reference_targets(ctx.hier)
-    ref_vol = torch.as_tensor(ref_vol, dtype=dtype, device=dev)
-    ref_bary = torch.as_tensor(ref_bary, dtype=dtype, device=dev)
+    ref_vol, ref_bary = (torch.as_tensor(v, dtype=dtype, device=dev) for v in reference_targets(ctx.hier))
+    return Problem(PatchOps(ctx.struct, ctx.data, st.to_patch(ctx.ps.fine, ctx.coords.T)), ref_vol, ref_bary)
+
+
+def run(ctx: SolveContext, cfg: admm.ADMMConfig = BENCH_CFG, seed: int = 1, Jp: torch.Tensor | None = None,
+        iter_cb=None, prob: Problem | None = None) -> ADMMRun:
+    """admm_inner from the zero state at cfg's sigma_threshold and scaling,
+    on prob (problem(ctx) if None), with the shape gradient Jp in patch
+    layout (shape_gradient(ctx, seed) if None); iter_cb is admm_inner's."""
+    prob = problem(ctx) if prob is None else prob
+    Jp = shape_gradient(ctx, seed) if Jp is None else Jp
     t0 = admm._clock(Jp)
-    state = admm.admm_inner(cfg, ops_, Jp, SIGMA, SCALING, ref_vol, ref_bary)
+    state = admm.admm_inner(cfg, prob.ops, Jp, cfg.sigma_threshold, cfg.scaling, prob.ref_volume,
+                            prob.ref_barycenter, iter_cb=iter_cb)
     return ADMMRun(state, admm._clock(Jp) - t0)

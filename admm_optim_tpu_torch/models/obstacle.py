@@ -300,7 +300,8 @@ class ObstacleShapeOpt:
         if not self.use_patch:
             return admm.admm_inner_global(
                 self.cfg.admm, self.xu.struct, mgdata, X, self.elems, self.ns.free_def, Jp, sigma, scaling,
-                self.ref_volume, self.ref_barycenter, vplan=self.xu.vplan, iter_cb=iter_cb,
+                self.ref_volume, self.ref_barycenter, vplan=self.xu.vplan,
+                iter_cb=None if iter_cb is None else (lambda k, u, _Lambda: iter_cb(k, u)),
                 extra_hvp=self._extra_hvp(X) if self.cfg.b2nd_order else None, **hooks)
         ps = self.xu.ps
 
@@ -310,7 +311,8 @@ class ObstacleShapeOpt:
         ops_ = PatchOps(self.xu.struct, mgdata, st.to_patch(ps.fine, X.T))
         res = admm.admm_inner(
             self.cfg.admm, ops_, st.to_patch(ps.fine, Jp), sigma, scaling, self.ref_volume,
-            self.ref_barycenter, iter_cb=None if iter_cb is None else (lambda k, up: iter_cb(k, to_global(up))),
+            self.ref_barycenter,
+            iter_cb=None if iter_cb is None else (lambda k, up, _Lambda: iter_cb(k, to_global(up))),
             **hooks,
         )
         if debug_out:

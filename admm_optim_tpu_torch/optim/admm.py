@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..solvers import krylov
-from ..utils.profiling import span
+from ..utils.profiling import host_read, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +125,14 @@ class ADMMState:
     # the Hessian stencil, and the batched Krylov solves
     wh_seconds: float = 0.0
     krylov_seconds: float = 0.0
+    # the last x-update's Newton failed: a Krylov solve failed, or ns_max_its
+    # passed short of the tolerances (with admm_tolerance 0 the loop ends
+    # failed at admm_steps all the same, so this tells a sound fixed-depth
+    # loop from a broken one)
+    newton_failed: bool = False
+    # accumulated batched Krylov iterations: per x-update solve the most any
+    # of its 1+m lanes took, which a lane-batched solve runs for every lane
+    batch_iters: int = 0
 
 
 def initial_state(cfg: ADMMConfig, ops_, scaling, dtype) -> ADMMState:
@@ -165,13 +173,15 @@ def l2_norm_pc(coords, elems, T):
 
 
 def _clock(t: torch.Tensor) -> float:
-    if t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
-    return time.perf_counter()
+    """The host's clock once the device has finished: a host.sync span."""
+    with span("host.sync"):
+        if t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
+        return time.perf_counter()
 
 
 def _norm(v) -> float:
-    return float(torch.sqrt(torch.dot(v, v)))
+    return host_read(torch.sqrt(torch.dot(v, v)), float)
 
 
 class NewtonResult(NamedTuple):
@@ -188,6 +198,7 @@ class NewtonResult(NamedTuple):
     debug: tuple  # (Lu, rhs_large, du) of the last applied iteration
     wh_seconds: float
     krylov_seconds: float
+    batch_iters: int  # per Krylov solve the most iterations of a lane, summed
 
 
 def _hess_apply(ops_, u, Lambda, ref_volume, ref_barycenter, extra_hvp):
@@ -237,6 +248,7 @@ def newton_xupdate_ops(
     sols = torch.zeros((1 + m,) + u0.shape, dtype=u0.dtype, device=u0.device) if sols0 is None else sols0
     it = lin = 0
     lin_each = [0] * (1 + m)
+    batch = 0
     done = failed = False
     lu0 = g0 = 0.0
     hist = []
@@ -255,34 +267,38 @@ def newton_xupdate_ops(
         # Newton iteration's solutions; the constraint Hessian is assembled
         # into the stencil once per iterate
         t0 = _clock(u)
-        if extra_hvp is None:
-            hess = ops_.hess_fn(u, Lambda, ref_volume, ref_barycenter)
-        else:
-            hess = _hess_apply(ops_, u, Lambda, ref_volume, ref_barycenter, extra_hvp)
+        with span("admm.hess"):
+            if extra_hvp is None:
+                hess = ops_.hess_fn(u, Lambda, ref_volume, ref_barycenter)
+            else:
+                hess = _hess_apply(ops_, u, Lambda, ref_volume, ref_barycenter, extra_hvp)
         t1 = _clock(u)
-        res = _solve_lanes(cfg, solver, hess, rhs, sols, ops_)
+        with span("admm.lanes"):
+            res = _solve_lanes(cfg, solver, hess, rhs, sols, ops_)
         ok_each = res.converged
         if cfg.lin_accept_rel > 0.0:
             ok_each = ok_each | (res.res_norm <= cfg.lin_accept_rel * torch.sqrt(ops_.dot(rhs, rhs)))
-        its_each = res.iters.tolist()
-        ok = bool(ok_each.all())
+        its_each = host_read(res.iters, torch.Tensor.tolist)
+        ok = host_read(ok_each.all(), bool)
         t2 = _clock(u)
         wh_s += t1 - t0
         kr_s += t2 - t1
         it += 1
         lin += sum(its_each)
         lin_each = [a + b for a, b in zip(lin_each, its_each)]
+        batch += max(its_each)
         if not ok:
             # a failed Krylov solve must NOT contaminate the iterate: the
             # reference breaks out before applying the update (2d:960/988/1054)
             failed = True
             break
-        # Schur assembly in one Gram pass: col 0 = B.st, cols 1: = S
-        G = ops_.dot_batch(B, res.x)
-        dLambda = torch.linalg.solve(G[:, 1:], g - G[:, 0])
-        du = -res.x[0] - torch.tensordot(dLambda, res.x[1:], dims=1)
-        u = (u + du) * free
-        Lambda = Lambda + dLambda
+        with span("admm.schur"):
+            # Schur assembly in one Gram pass: col 0 = B.st, cols 1: = S
+            G = ops_.dot_batch(B, res.x)
+            dLambda = torch.linalg.solve(G[:, 1:], g - G[:, 0])
+            du = -res.x[0] - torch.tensordot(dLambda, res.x[1:], dims=1)
+            u = (u + du) * free
+            Lambda = Lambda + dLambda
         sols = res.x
         # -bDebugOutput fields: the pre-update defect Lu, the eliminated
         # large problem's RHS, and the increment
@@ -291,7 +307,7 @@ def newton_xupdate_ops(
         # defect, the constraint norm that of the UPDATED iterate; the
         # relative tests are against the first iteration's norms
         dlam_norm = _norm(dLambda)
-        lu_norm = float(ops_.norm_p1(Lu))
+        lu_norm = host_read(ops_.norm_p1(Lu), float)
         g_norm = _norm(ops_.constraints(u, ref_volume, ref_barycenter))
         if it == 1:
             lu0, g0 = lu_norm, g_norm
@@ -303,10 +319,11 @@ def newton_xupdate_ops(
             or (lu_norm < cfg.ns_abs_tol and g_norm < cfg.ns_abs_llambda_tol)
             or rel_ok
         )
-        hist.append([0.0, float(ops_.norm_p1(du * free)), dlam_norm, lu_norm] + [float(i) for i in its_each])
+        hist.append([0.0, host_read(ops_.norm_p1(du * free), float), dlam_norm, lu_norm]
+                    + [float(i) for i in its_each])
     # not converging within ns_max_its counts as failure (reference 2d:1084-1090)
     return NewtonResult(
-        u, Lambda, it, lin, lin_each, failed or not done, sols, hist, dbg, wh_s, kr_s
+        u, Lambda, it, lin, lin_each, failed or not done, sols, hist, dbg, wh_s, kr_s, batch
     )
 
 
@@ -317,15 +334,20 @@ def admm_iteration(cfg: ADMMConfig, ops_, Jp_base, sigma: float, ref_volume, ref
     solutions; None = zeros) with extra_hvp (newton_xupdate_ops), dual
     ascent and the convergence logic (2d:1226-1250).  Returns (new state,
     new xsols, NewtonResult, stats row)."""
-    with span("admm.z_prox"):
+    with span("admm.z_prox") as rec:
         q_proj = ops_.z_update(st.u, st.lam, cfg.tau, sigma, cfg.norm_name)
+        if rec is not None:
+            # traced only, and not a host.sync span: the read exists for the
+            # trace's sake.  The cells (this rank's) whose tensor the prox moved
+            moved = (q_proj != ops_.grad_tensor(st.u) + st.lam / cfg.tau).flatten(0, 1).any(dim=0)
+            rec["attrs"]["projected"] = int(moved.sum())
     if cfg.relax_alpha != 1.0:
         # over-relaxation: q_hat enters the x-update and dual ascent
         al = cfg.relax_alpha
         q_hat = al * q_proj + (1.0 - al) * ops_.grad_tensor(st.u)
     else:
         q_hat = q_proj
-    max_norm = float(ops_.max_grad_norm(st.u_old, cfg.norm_name))
+    max_norm = host_read(ops_.max_grad_norm(st.u_old, cfg.norm_name), float)
     # multipliers carry across ADMM iterations as in the reference
     # (2d:1068-1142); they are zeroed only by a fresh admm_inner call
     with span("admm.newton"):
@@ -335,8 +357,8 @@ def admm_iteration(cfg: ADMMConfig, ops_, Jp_base, sigma: float, ref_volume, ref
         )
     with span("admm.dual"):
         lam, lam_inc = ops_.dual_update(nr.u, st.lam, q_hat, cfg.tau)
-    u_diff = float(ops_.norm_p1(nr.u - st.u_old))
-    lam_inc_n = float(ops_.norm_pc(lam_inc))
+    u_diff = host_read(ops_.norm_p1(nr.u - st.u_old), float)
+    lam_inc_n = host_read(ops_.norm_pc(lam_inc), float)
     base_conv = (
         lam_inc_n < cfg.admm_tolerance
         and u_diff < cfg.admm_tolerance
@@ -364,6 +386,8 @@ def admm_iteration(cfg: ADMMConfig, ops_, Jp_base, sigma: float, ref_volume, ref
         stats=stats,
         wh_seconds=st.wh_seconds + nr.wh_seconds,
         krylov_seconds=st.krylov_seconds + nr.krylov_seconds,
+        newton_failed=nr.failed,
+        batch_iters=st.batch_iters + nr.batch_iters,
     )
     return new, nr.sols, nr, row
 
@@ -387,26 +411,28 @@ def admm_inner(
     extra_hvp(x) -> J'' x (b2nd_order): newton_xupdate_ops's hook, one
     field (C, V) in and out.
 
-    iter_cb(k, u): called after every ADMM iteration with the running
-    iteration count k (monotone across fake-convergence restarts) and the
-    iterate u (-bOutputIntermediateUp, reference 2d:84).
+    iter_cb(k, u, Lambda): called after every ADMM iteration with the
+    running iteration count k (monotone across fake-convergence restarts),
+    the iterate u (-bOutputIntermediateUp, reference 2d:84) and the
+    geometric multipliers Lambda the x-update ended with.
     newton_hist_out: filled with the LAST ADMM iteration's per-Newton rows
     (NewtonResult.hist; the reference writes them once per step, 2d:1256-1259).
     full_stats_out: filled with EVERY ADMM stats row, across restarts.
     debug_out: filled with the last Newton iteration's fields under
     "Lu" / "rhs_large" / "du" (-bDebugOutput, 2d:962-1076)."""
-    sigma = float(sigma_threshold)
-    st = initial_state(cfg, ops_, scaling0, Jp_base.dtype)
-    xsols = None
-    rows, nr = [], None
-    while not st.converged and not st.failed and st.admm_it < cfg.admm_steps:
-        with span("admm.iter"):
-            st, xsols, nr, row = admm_iteration(
-                cfg, ops_, Jp_base, sigma, ref_volume, ref_barycenter, st, xsols, extra_hvp
-            )
-        if iter_cb is not None:
-            iter_cb(len(rows), st.u)
-        rows.append(row)
+    with span("admm.inner"):
+        sigma = float(sigma_threshold)
+        st = initial_state(cfg, ops_, scaling0, Jp_base.dtype)
+        xsols = None
+        rows, nr = [], None
+        while not st.converged and not st.failed and st.admm_it < cfg.admm_steps:
+            with span("admm.iter"):
+                st, xsols, nr, row = admm_iteration(
+                    cfg, ops_, Jp_base, sigma, ref_volume, ref_barycenter, st, xsols, extra_hvp
+                )
+            if iter_cb is not None:
+                iter_cb(len(rows), st.u, st.Lambda)
+            rows.append(row)
     if nr is not None:
         if newton_hist_out is not None:
             newton_hist_out[:] = nr.hist

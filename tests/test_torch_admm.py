@@ -50,7 +50,7 @@ def _admm_run(problem, cfg):
     ks, rows, hist, dbg = [], [], [], {}
     st = admm.admm_inner(
         cfg, problem.ops, problem.Jp, SIGMA, SCALING, problem.ref_vol, problem.ref_bary,
-        iter_cb=lambda k, u: ks.append(k), newton_hist_out=hist, full_stats_out=rows,
+        iter_cb=lambda k, u, Lambda: ks.append(k), newton_hist_out=hist, full_stats_out=rows,
         debug_out=dbg,
     )
     return st, ks, rows, hist, dbg

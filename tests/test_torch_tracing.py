@@ -147,19 +147,25 @@ def test_same_answer_traced(traced):
 
 def test_admm_phases(ctx):
     """admm_run at bench.py's settings (one ADMM iteration on the refs=1
-    context): the iteration is a root with its z-prox, Newton x-update and
-    dual update as children, in that order, the x-update's CG under it."""
+    context): the loop is a root between admm_run's two clock syncs, the
+    iteration its child, with its z-prox, Newton x-update and dual update
+    as children, in that order, among the loop's host reads, the
+    x-update's CG under its lane solve."""
     profiling.reset_spans()
     with _profile():
         out = admm_run.run(ctx)
     recs = profiling.spans()
     profiling.reset_spans()
     roots = [i for i, r in enumerate(recs) if r["parent"] is None]
-    assert [recs[i]["name"] for i in roots] == ["admm.iter"] * out.state.admm_it
-    kids = [(i, r["name"]) for i, r in enumerate(recs) if r["parent"] == roots[0]]
-    assert [name for _, name in kids] == ["admm.z_prox", "admm.newton", "admm.dual"]
-    iters = [r for r in recs if r["name"] == "cg.iter"]
-    assert iters and all(r["parent"] == kids[1][0] for r in iters)
+    assert [recs[i]["name"] for i in roots] == ["host.sync", "admm.inner", "host.sync"]
+    iters = [i for i, r in enumerate(recs) if r["parent"] == roots[1]]
+    assert [recs[i]["name"] for i in iters] == ["admm.iter"] * out.state.admm_it
+    kids = [(i, r["name"]) for i, r in enumerate(recs) if r["parent"] == iters[0]]
+    assert [name for _, name in kids if name != "host.sync"] == ["admm.z_prox", "admm.newton", "admm.dual"]
+    lanes = [i for i, r in enumerate(recs) if r["name"] == "admm.lanes"]
+    assert lanes and all(recs[i]["parent"] == kids[2][0] for i in lanes)
+    cg = [r for r in recs if r["name"] == "cg.iter"]
+    assert cg and all(r["parent"] in lanes for r in cg)
 
 
 def test_profiler_phase_opens_a_span():
