@@ -31,7 +31,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
-PARTS = 3  # csrc/stencil.cu's STENCIL_PART values
+PARTS = 4  # csrc/stencil.cu's STENCIL_PART values
 
 _lib = None
 
@@ -103,6 +103,7 @@ def lib() -> ctypes.CDLL:
         ("apply_w_scalar_f32", 4, 6),
         ("apply_w_c3_f32", 4, 5),
         ("launch_empty", 0, 1),
+        ("assemble_hess_f32", 8, 6),
     ):
         fn = getattr(handle, name)
         fn.argtypes = [p] * n_ptr + [i] * n_int + [p]

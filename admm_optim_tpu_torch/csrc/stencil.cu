@@ -35,11 +35,12 @@
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 //
-// The build (_build.py) compiles this file once per part, -DSTENCIL_PART=1,
-// 2 and 3, all at once, and links the three objects: part 1 holds every
-// entry point but K2/K3's, part 2 K2/K3 on 1 to 4 lanes, part 3 K3 on 5 to
-// 8 (the templates are instantiated only where an entry point uses them).
-// Without STENCIL_PART the file is the whole library.
+// The build (_build.py) compiles this file once per part, -DSTENCIL_PART=1
+// to 4, all at once, and links the four objects: part 1 holds every
+// entry point but K2/K3's and the Hessian assembly's, part 2 K2/K3 on 1 to
+// 4 lanes, part 3 K3 on 5 to 8, part 4 the Hessian assembly (the templates
+// are instantiated only where an entry point uses them).  Without
+// STENCIL_PART the file is the whole library.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -837,6 +838,202 @@ int pencil_entry(const void* W, const void* x, void* y, const int* slots, int n0
   return static_cast<int>(cudaGetLastError());
 }
 
+// The Hessian stencil of the ADMM x-update's Newton step:
+//   W_H = W_A + pvalid * sum_k Lambda_k g_k'',
+// the constraint Hessian assembled into the storage of the operator W_A
+// (symmetric half, H = 8 slots, or full slot-major, H = 15), Dirichlet rows
+// and columns of the Hessian part zeroed.  It replaces no TPU kernel: the
+// JAX package leaves this assembly to XLA (optim/spaces.py PatchOps.hess_fn
+// over patchdeform.hvp_corner_block_fn), which fuses it; the port's plain
+// form of it (stencil_kernels._assemble_hess) is ~27,000 eager launches a
+// call at 17^3 x 224, seconds of host dispatch every Newton step.
+//
+// Per cell (class t of 6 Kuhn tetrahedra, corner offsets co[t][0..3], at
+// an anchor of the (n - 1)^3 cell lattice) and corner pair (a, b), with
+// A = I + grad u, C = cof(A), S = L0 + sum_j L_{1+j} cent_j, g the physical
+// P1 gradients, vol the reference volume and nl = 4:
+//   blk(a,b)[c,f] = vol [S eps_{cfj} (A (g_a x g_b))_j
+//                        + (C g_a)_c L_{1+f}/nl + L_{1+c}/nl (C g_b)_f],
+// where the first term is patchdeform's S (dC/dA)[e_f (x) g_b]^{ck} g_a^k
+// in closed form (d cof(A)[E]_{ck} = eps_{cij} eps_{klm} E_{il} A_{jm});
+// it vanishes identically on the diagonal blocks (g_a x g_a = 0).  The
+// block adds into the slot of offset co[b] - co[a] at the site of corner
+// a, times free at both corners.
+//
+// Design: a gather, no atomics.  One thread per output site (i, j, k, p),
+// p the fastest index, so each load of a warp is one run along the patch
+// axis.  The thread walks the 24 (class, corner a) pairs in a fixed order,
+// recomputes the state of the cell whose corner a is its site (geometry,
+// A, cof, S: ~200 flops from the 4 corners' coordinates and u, read
+// through L1/L2), and adds the stored blocks (a, b) of that cell: 10 of 16
+// a class in half storage, 60 blocks a site.  The order is fixed, so two
+// calls give the same bits.  The centre slot's 9 sums stay in registers;
+// the other slots' 63 (half) or 126 (full) sums live in the thread's own
+// column of shared memory (a slot index comes from the table at run time,
+// which registers cannot take without spilling).  The table (class
+// offsets, and the storage position of every pair's slot or -1) comes by
+// value.
+//
+// Bounds at 17^3 x 224, half storage: bytes 288 of W_A read and 288 of
+// W_H written a site, 28 of coords, u and free: 0.665 GB, 0.198 ms at 3.35
+// TB/s; FP32, 24 cell states (~215 flops each) and 60 blocks (54 or 112)
+// a site, ~10,500 flops (chip_smoke.py counts them), 11.6 GFLOP, 0.17 ms
+// at 67 TFLOP/s.  The two bounds are close, so the kernel keeps the cell's
+// state in registers and its loads in L1 (each corner value is read by up
+// to 24 cells of one thread and by the thread's neighbours).
+constexpr int kClasses = 6;
+constexpr int kCorners = 4;
+constexpr int kHessThreads = 64;
+
+struct HessTable {
+  int co[kClasses][kCorners][3];         // corner offsets of each class
+  int pos[kClasses][kCorners][kCorners];  // storage position of pair (a, b)'s slot; -1: not stored
+};
+
+// One cell's block (a, b), b != a, into the 9 values out (row-major c, f).
+__device__ __forceinline__ void hess_block(const float (&A)[3][3], const float (&C)[3][3],
+                                           const float (&ga)[3], const float (&gb)[3],
+                                           const float (&cga)[3], const float (&lf)[3], float S,
+                                           float vol, float (&out)[9]) {
+  const float cr[3] = {ga[1] * gb[2] - ga[2] * gb[1], ga[2] * gb[0] - ga[0] * gb[2],
+                       ga[0] * gb[1] - ga[1] * gb[0]};
+  float w[3], cgb[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    w[q] = A[q][0] * cr[0] + A[q][1] * cr[1] + A[q][2] * cr[2];
+    cgb[q] = C[q][0] * gb[0] + C[q][1] * gb[1] + C[q][2] * gb[2];
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      // eps_{cfj} w_j: +w_j on a cyclic (c, f, j), -w_j on an anticyclic one
+      const float e = c == f ? 0.f : ((f - c + 3) % 3 == 1 ? w[3 - c - f] : -w[3 - c - f]);
+      out[c * 3 + f] = vol * (S * e + cga[c] * lf[f] + lf[c] * cgb[f]);
+    }
+}
+
+template <int H>
+__global__ void __launch_bounds__(kHessThreads)
+assemble_hess_kernel(const float* __restrict__ WA, const float* __restrict__ X,
+                     const float* __restrict__ U, const float* __restrict__ lam,
+                     const float* __restrict__ fmask, const float* __restrict__ pvalid,
+                     float* __restrict__ WH, const __grid_constant__ HessTable tab, int n0, int n1,
+                     int n2, int P) {
+  constexpr int T = kHessThreads;
+  __shared__ float off_sums[(H - 1) * 9 * T];  // slot h >= 1, entry cf: [((h - 1) * 9 + cf) * T]
+  float* sums = off_sums + threadIdx.x;
+  const int row = n2 * P;
+  const int r = blockIdx.x * T + threadIdx.x;
+  if (r >= row) return;  // no thread waits for another: each reads only its own column
+  const int j = blockIdx.y, i = blockIdx.z;
+  const int k = r / P;
+  const int s = (i * n1 + j) * row + r;
+  const size_t sp = static_cast<size_t>(n0) * n1 * row;
+  const float l0 = lam[0];
+  float lj[3], lf[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    lj[q] = lam[1 + q];
+    lf[q] = lj[q] / 4.f;  // L_{1+q} / nl
+  }
+  const float fs = fmask[s];
+  float centre[9];
+#pragma unroll
+  for (int e = 0; e < 9; ++e) centre[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < (H - 1) * 9; ++e) sums[e * T] = 0.f;
+  for (int t = 0; t < kClasses; ++t) {
+#pragma unroll
+    for (int a = 0; a < kCorners; ++a) {
+      const int* oa = tab.co[t][a];
+      // the cell whose corner a is this site: anchor (i, j, k) - co[t][a]
+      if (static_cast<unsigned>(i - oa[0]) >= static_cast<unsigned>(n0 - 1) ||
+          static_cast<unsigned>(j - oa[1]) >= static_cast<unsigned>(n1 - 1) ||
+          static_cast<unsigned>(k - oa[2]) >= static_cast<unsigned>(n2 - 1))
+        continue;
+      int at[kCorners];
+      float x[kCorners][3], u[kCorners][3];
+#pragma unroll
+      for (int q = 0; q < kCorners; ++q) {
+        const int* oq = tab.co[t][q];
+        at[q] = s + ((oq[0] - oa[0]) * n1 + (oq[1] - oa[1])) * row + (oq[2] - oa[2]) * P;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          x[q][c] = X[c * sp + at[q]];
+          u[q][c] = U[c * sp + at[q]];
+        }
+      }
+      // geometry (ops/geometry.corner_geometry): J[c][e] = x[e + 1][c] - x[0][c]
+      float J[3][3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int e = 0; e < 3; ++e) J[c][e] = x[e + 1][c] - x[0][c];
+      const float det = J[0][0] * (J[1][1] * J[2][2] - J[1][2] * J[2][1]) -
+                        J[0][1] * (J[1][0] * J[2][2] - J[1][2] * J[2][0]) +
+                        J[0][2] * (J[1][0] * J[2][1] - J[1][1] * J[2][0]);
+      const float rdet = 1.f / det;
+      const float vol = fabsf(det) / 6.f;
+      // g[1 + e] = row e of J^-1 (its adjugate's cyclic form), g[0] = -their sum
+      float g[kCorners][3];
+#pragma unroll
+      for (int e = 0; e < 3; ++e)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          g[1 + e][c] = (J[(c + 1) % 3][(e + 1) % 3] * J[(c + 2) % 3][(e + 2) % 3] -
+                         J[(c + 1) % 3][(e + 2) % 3] * J[(c + 2) % 3][(e + 1) % 3]) * rdet;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) g[0][c] = -(g[1][c] + g[2][c] + g[3][c]);
+      // A = I + grad u, C = cof(A), S = L0 + sum_j L_{1+j} cent_j
+      float A[3][3], C[3][3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          A[c][d] = (c == d ? 1.f : 0.f) + g[0][d] * u[0][c] + g[1][d] * u[1][c] + g[2][d] * u[2][c] +
+                    g[3][d] * u[3][c];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          C[c][d] = A[(c + 1) % 3][(d + 1) % 3] * A[(c + 2) % 3][(d + 2) % 3] -
+                    A[(c + 1) % 3][(d + 2) % 3] * A[(c + 2) % 3][(d + 1) % 3];
+      float S = l0;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        S += lj[c] * (((x[0][c] + u[0][c]) + (x[1][c] + u[1][c]) + (x[2][c] + u[2][c]) +
+                       (x[3][c] + u[3][c])) / 4.f);
+      float cga[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) cga[c] = C[c][0] * g[a][0] + C[c][1] * g[a][1] + C[c][2] * g[a][2];
+#pragma unroll
+      for (int b = 0; b < kCorners; ++b) {
+        const int p = tab.pos[t][a][b];
+        if (p < 0) continue;
+        const float m = fs * fmask[at[b]];
+        if (b == a) {  // the centre slot (position 0): the S term vanishes
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+#pragma unroll
+            for (int f = 0; f < 3; ++f) centre[c * 3 + f] += vol * (cga[c] * lf[f] + lf[c] * cga[f]) * m;
+        } else {
+          float blk[9];
+          hess_block(A, C, g[a], g[b], cga, lf, S, vol, blk);
+          float* sum = sums + (p - 1) * 9 * T;
+#pragma unroll
+          for (int e = 0; e < 9; ++e) sum[e * T] += blk[e] * m;
+        }
+      }
+    }
+  }
+  const float pv = pvalid ? pvalid[r - k * P] : 1.f;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) WH[e * sp + s] = WA[e * sp + s] + centre[e] * pv;
+#pragma unroll
+  for (int e = 9; e < H * 9; ++e) WH[e * sp + s] = WA[e * sp + s] + sums[(e - 9) * T] * pv;
+}
+
 }  // namespace
 
 extern "C" {
@@ -960,6 +1157,47 @@ int apply_w_scalar_f32(const void* W, const void* x, void* y, const int* slots,
   return static_cast<int>(cudaGetLastError());
 }
 
+#endif
+
+#if STENCIL_IN_PART(4)
+// The Hessian assembly W_H = W_A + pvalid * sum_k Lambda_k g_k'' in
+// storage of `slots` slots (8: half, 15: full); x and u (3, n0, n1, n2, P),
+// lam the 4 multipliers, fmask the Dirichlet mask free (n0, n1, n2, P) and
+// pvalid (P,) or null, all f32 on the device; table the HessTable's 6 x 4 x
+// 3 offsets, then its 6 x 4 x 4 positions (ints, host memory).  A lattice
+// of 2^31 sites or more is refused.
+int assemble_hess_f32(const void* WA, const void* x, const void* u, const void* lam, const void* fmask,
+                      const void* pvalid, void* WH, const int* table, int n0, int n1, int n2, int P,
+                      int slots, int device, void* stream) {
+  if (static_cast<long long>(n0) * n1 * n2 * P == 0) return 0;
+  if ((slots != 8 && slots != kSlots) || n0 > 65535 || n1 > 65535 ||
+      static_cast<long long>(n0) * n1 * n2 * P >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  HessTable tab;
+  int* flat = &tab.co[0][0][0];
+  for (int v = 0; v < kClasses * kCorners * 3; ++v) flat[v] = table[v];
+  flat = &tab.pos[0][0][0];
+  for (int v = 0; v < kClasses * kCorners * kCorners; ++v) flat[v] = table[kClasses * kCorners * 3 + v];
+  const long long row = static_cast<long long>(n2) * P;
+  const dim3 grid(static_cast<unsigned int>((row + kHessThreads - 1) / kHessThreads), n1, n0);
+  cudaSetDevice(device);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* W = static_cast<const float*>(WA);
+  const auto* X = static_cast<const float*>(x);
+  const auto* U = static_cast<const float*>(u);
+  const auto* L = static_cast<const float*>(lam);
+  const auto* F = static_cast<const float*>(fmask);
+  const auto* V = static_cast<const float*>(pvalid);
+  auto* Y = static_cast<float*>(WH);
+  if (slots == 8)
+    assemble_hess_kernel<8><<<grid, kHessThreads, 0, s>>>(W, X, U, L, F, V, Y, tab, n0, n1, n2, P);
+  else
+    assemble_hess_kernel<kSlots><<<grid, kHessThreads, 0, s>>>(W, X, U, L, F, V, Y, tab, n0, n1, n2, P);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
+#if STENCIL_IN_PART(1)
 // one launch of a kernel that does nothing
 int launch_empty(int device, void* stream) {
   cudaSetDevice(device);

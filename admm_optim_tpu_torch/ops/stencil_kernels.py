@@ -29,10 +29,14 @@ Kernels (sources in ../csrc/stencil.cu, built on first use by _build):
   apply_w_full_t          K5^T, the exact transpose of K5 (the jax.vjp of
                           K5 in ns_solver.transpose_M); ApplyWFull is K5
                           with K5^T as its autograd backward
+  assemble_hess           the ADMM x-update's Hessian stencil W_A +
+                          Lambda . g'' in one launch; replaces no TPU kernel
+                          (the JAX package leaves the assembly to XLA)
 
 Dispatch is the same for all of them: a tensor on the CPU takes the plain
-twin; a CUDA tensor launches the kernel or raises.  There is no fallback
-and no lattice-size gate.  ``launches`` counts kernel launches per wrapper
+twin; a CUDA tensor launches the kernel or raises (assemble_hess also
+takes the plain form on a 2D lattice, as patchstencil.apply_w does).
+There is no fallback and no lattice-size gate.  ``launches`` counts kernel launches per wrapper
 (the twin never counts); the scalar form of K5 and K5^T counts under names
 of its own, ``apply_w_full/c1`` and ``apply_w_full_t/c1``, and K1's lane
 kernel as ``apply_w_sym/lanes``.  ``launches_by_lattice`` counts the same
@@ -48,17 +52,20 @@ import torch
 
 from .. import _build
 from . import df
-from .patchstencil import expand_sym_w, half_slots, shift_read
+from .patchdeform import hvp_corner_block_fn
+from .patchstencil import assemble_w, expand_sym_w, half_slots, shift_read
 
 launches = {
     "apply_w_sym": 0, "apply_w_sym/lanes": 0, "apply_w_pencil": 0, "apply_w_pencil_batched": 0,
     "apply_w_df_sym": 0, "apply_w_full": 0, "apply_w_full_t": 0, "apply_w_full/c1": 0, "apply_w_full_t/c1": 0,
+    "assemble_hess": 0,
 }
 # the same launches by lattice: (name, (n0, n1, n2, P)) -> count
 launches_by_lattice = {}
 MAX_LANES = 8  # K3 and K1's lane kernel are templated on the lane count up to this
 BY_VALUE_SLOTS = 15  # the 3D stencil: what a by-value slot table holds
 MAX_SITES = 2**31  # the kernels with a by-value table index lattice sites in 32 bits
+HESS_CLASSES = (6, 4)  # the Hessian assembly's table: Kuhn classes of a 3D cell, corners of each
 # Block size of the scalar kernel, a multiple of 32 up to 256 (64, 128 and
 # 256 timed within 3% of each other at the PCD path's shapes on the H100).
 SCALAR_THREADS = 64
@@ -192,6 +199,20 @@ def _apply_w_df_full(ps, W, xh, xl):
     return s.reshape(xh.shape), e.reshape(xh.shape)
 
 
+def _assemble_hess(ps, W_A, coords_p, u, Lmbda, free, pvalid=None):
+    """Twin of the Hessian assembly kernel: W_A + pvalid * the constraint
+    Hessian sum_k Lambda_k g_k'' assembled into W_A's storage (half or
+    full) by patchstencil.assemble_w over patchdeform.hvp_corner_block_fn,
+    its Dirichlet rows and columns zeroed by free."""
+    sym = W_A.shape[0] != len(ps.stencil)
+    W_h = assemble_w(ps, ps.k, torch.cat([coords_p, u], dim=0), hvp_corner_block_fn(Lmbda), sym=sym, free=free)
+    if pvalid is not None:
+        # padded dummy patches replicate real geometry; their Hessian
+        # contributions must vanish like the pvalid-masked volumes do
+        W_h = W_h * pvalid
+    return W_A + W_h
+
+
 def to_pencil_major(ps, W, dtype=None):
     """(O|H, C, C, n0, n1, n2, P) slot-major (full or symmetric half) ->
     (n0, n1, O, C, C, n2, P) pencil-major full stencil, expanding sym
@@ -266,14 +287,16 @@ def _transpose_rows(stencil):
 
 class StencilTables:
     """What a launch needs of one patchset's stencil, made once per
-    patchset instead of once per call: the stencil as a tuple, the half
-    slots, and K1's, K5's and K5^T's slot tables ("sym", "full", "full_t"),
-    packed as the 15 x 4 C ints that every kernel takes by value."""
+    patchset instead of once per call: the stencil and the class offsets
+    as tuples, the half slots, K1's, K5's and K5^T's slot tables ("sym",
+    "full", "full_t"), packed as the 15 x 4 C ints that every kernel takes
+    by value, and the Hessian assembly's ("hess/half", "hess/full")."""
 
     def __init__(self, ps):
         self.stencil = tuple(tuple(int(v) for v in o) for o in ps.stencil)
         self.n_slots = len(self.stencil)
         self.kept = tuple(half_slots(ps))
+        self.class_offsets = tuple(tuple(tuple(int(v) for v in c) for c in co) for co in ps.class_offsets)
         self._packed = {}
 
     def __getstate__(self):
@@ -288,12 +311,35 @@ class StencilTables:
         kept = self.kept if kind == "sym" else tuple(range(self.n_slots))
         return _slot_rows(self.stencil, kept)
 
+    def hess_rows(self, sym):
+        """The Hessian assembly's table, flat: per class its corner offsets,
+        then per class and corner pair (a, b) the storage position of the
+        slot of offset co[b] - co[a] (half_slots order where sym), -1 where
+        that slot is not stored.  The kernel adds pair (a, a) to its centre
+        sums, so every such pair must sit at position 0, and no other."""
+        co = self.class_offsets
+        if (len(co), len(co[0])) != HESS_CLASSES:
+            raise ValueError(f"the Hessian assembly takes {HESS_CLASSES} (classes, corners), "
+                             f"got {(len(co), len(co[0]))}")
+        kept = self.kept if sym else tuple(range(self.n_slots))
+        pos = {k: i for i, k in enumerate(kept)}
+        slot = {o: q for q, o in enumerate(self.stencil)}
+        rows = [[[pos.get(slot[tuple(vb - va for va, vb in zip(ca, cb))], -1) for cb in c] for ca in c] for c in co]
+        if any((p == 0) != (b == a) for c in rows for a, r in enumerate(c) for b, p in enumerate(r)):
+            raise ValueError("the Hessian assembly needs the centre slot, and only it, at storage position 0")
+        return [v for c in co for o in c for v in o] + [p for c in rows for r in c for p in r]
+
     def packed(self, kind):
+        """The table of kind ("sym", "full", "full_t", or "hess/half" and
+        "hess/full", the Hessian assembly's) as C ints, made once."""
         tab = self._packed.get(kind)
         if tab is None:
             if self.n_slots != BY_VALUE_SLOTS:
                 raise ValueError(f"the by-value table holds {BY_VALUE_SLOTS} slots, the stencil has {self.n_slots}")
-            flat = [v for row in self.rows(kind) for v in row]
+            if kind.startswith("hess/"):
+                flat = self.hess_rows(kind == "hess/half")
+            else:
+                flat = [v for row in self.rows(kind) for v in row]
             tab = self._packed[kind] = (ctypes.c_int * len(flat))(*flat)
         return tab
 
@@ -484,6 +530,43 @@ def apply_w_full_t(ps, W, x):
     if x.device.type == "cpu":
         return _apply_w_full_t(ps, W, x)
     return _full("apply_w_full_t", "full_t", ps, W, x)
+
+
+def hess_path(ps, u):
+    """Which form assemble_hess takes for the field u: "kernel" for a 3D
+    CUDA field, "plain" otherwise."""
+    return "kernel" if ps.dim == 3 and u.device.type == "cuda" else "plain"
+
+
+def assemble_hess(ps, W_A, coords_p, u, Lmbda, free, pvalid=None):
+    """W_H = W_A + pvalid * sum_k Lambda_k g_k'' in W_A's storage, symmetric
+    half (H = 8 slots) or full slot-major (O = 15), the constraint Hessian's
+    Dirichlet rows and columns zeroed by free: the matrix of the ADMM
+    x-update's Newton step, assembled once a step.  coords_p and u
+    (3, n0, n1, n2, P), Lmbda (4,), free (n0, n1, n2, P), pvalid (P,) or
+    None, all float32 on one CUDA device: one launch of the kernel; a CPU
+    tensor or a 2D lattice: the plain twin (hess_path)."""
+    if hess_path(ps, u) == "plain":
+        return _assemble_hess(ps, W_A, coords_p, u, Lmbda, free, pvalid)
+    _, _, n0, n1, n2, P = _check("assemble_hess", ps, u, (W_A, coords_p, u), torch.float32, max_sites=MAX_SITES)
+    tabs = stencil_tables(ps)
+    lattice = (n0, n1, n2, P)
+    H = W_A.shape[0]
+    if H not in (len(tabs.kept), tabs.n_slots) or W_A.shape != (H, 3, 3) + lattice:
+        raise ValueError(f"assemble_hess: W_A shape {tuple(W_A.shape)} does not match u")
+    extra = [(Lmbda, (4,)), (free, lattice)] + ([] if pvalid is None else [(pvalid, (P,))])
+    for a, shape in extra:
+        if a.dtype != torch.float32 or a.shape != shape or a.device != u.device or not a.is_contiguous():
+            raise ValueError(f"assemble_hess: Lambda, free and pvalid must be contiguous float32 of shapes (4,), "
+                             f"{lattice} and ({P},) on {u.device}")
+    kind = "hess/half" if H == len(tabs.kept) else "hess/full"
+    W_H = torch.empty_like(W_A)
+    _launch(
+        "assemble_hess", "assemble_hess_f32", lattice, W_A.data_ptr(), coords_p.data_ptr(), u.data_ptr(),
+        Lmbda.data_ptr(), free.data_ptr(), None if pvalid is None else pvalid.data_ptr(), W_H.data_ptr(),
+        tabs.packed(kind), *lattice, H, device=u.device,
+    )
+    return W_H
 
 
 class ApplyWFull(torch.autograd.Function):

@@ -267,11 +267,13 @@ def newton_xupdate_ops(
         # Newton iteration's solutions; the constraint Hessian is assembled
         # into the stencil once per iterate
         t0 = _clock(u)
-        with span("admm.hess"):
+        with span("admm.hess") as rec:
             if extra_hvp is None:
                 hess = ops_.hess_fn(u, Lambda, ref_volume, ref_barycenter)
             else:
                 hess = _hess_apply(ops_, u, Lambda, ref_volume, ref_barycenter, extra_hvp)
+            if rec is not None:  # recording: which form assembled the Hessian
+                rec["attrs"]["path"] = getattr(hess, "path", "plain")
         t1 = _clock(u)
         with span("admm.lanes"):
             res = _solve_lanes(cfg, solver, hess, rhs, sols, ops_)

@@ -26,6 +26,7 @@ from ..ops import deformation as dfm
 from ..ops import patchdeform as pdfm
 from ..ops import patchstencil as pst
 from ..ops import sparsity
+from ..ops import stencil_kernels as sk
 from ..solvers import mg as mgmod
 from ..solvers import patch_mg as pmg
 
@@ -249,21 +250,20 @@ class PatchOps:
     def hess_fn(self, u, Lmbda, ref_volume, ref_barycenter):
         """x -> (A + sum_k Lambda_k g_k'') x with the constraint Hessian
         assembled into the stencil once per Newton iterate
-        (pdfm.hvp_corner_block_fn): every Krylov matvec is then one stencil
-        apply + exchange, for one field or all lanes."""
-        ps = self.ps
-        W_A = self.data.W[ps.k]
-        sym = W_A.shape[0] == len(pst.half_slots(ps))
-        W_h = pst.assemble_w(
-            ps, ps.k, torch.cat([self.coords_p, u], dim=0), pdfm.hvp_corner_block_fn(Lmbda),
-            sym=sym, free=self.tab.free.to(u.dtype),
-        )
-        if self.pvalid is not None:
-            # padded dummy patches replicate real geometry; their Hessian
-            # contributions must vanish like the pvalid-masked volumes do
-            W_h = W_h * self.pvalid
-        W_H = W_A + W_h
-        return lambda x: self._apply(W_H, x)
+        (stencil_kernels.assemble_hess: one kernel launch for a 3D field on
+        the card, assemble_w over pdfm.hvp_corner_block_fn otherwise, in
+        A's storage): every Krylov matvec is then one stencil apply +
+        exchange, for one field or all lanes.  The apply's ``path`` says
+        which form assembled it, "kernel" or "plain".  Padded dummy patches
+        (pvalid 0) add no Hessian."""
+        W_H = sk.assemble_hess(self.ps, self.data.W[self.ps.k], self.coords_p, u, Lmbda,
+                               self.tab.free.to(u.dtype), self.pvalid)
+
+        def apply(x):
+            return self._apply(W_H, x)
+
+        apply.path = sk.hess_path(self.ps, u)
+        return apply
 
     def tensor_rhs(self, M):
         return self._cons(pdfm.tensor_rhs_p(self.ps, self.coords_p, M))

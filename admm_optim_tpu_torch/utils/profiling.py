@@ -146,7 +146,8 @@ class _Span:
 def span(name: str, **attrs):
     """A context manager marking a region: a record and a user_annotation
     while a torch.profiler profile records, a shared null context
-    otherwise."""
+    otherwise.  ``with span(...) as rec`` gives the record, whose attrs
+    the region may add to, or None when nothing records."""
     if not recording():
         return _OFF
     return _Span(name, attrs)

@@ -43,7 +43,10 @@ they run:
      the kernels line's entries (17^3, 9^3 and 5^3 x 224) each kernel's
      time also with the L2 emptied of clean lines (by reading, not zeroing,
      the 512 MB buffer: no write-back of the buffer's lines) and with the
-     L2 left warm;
+     L2 left warm; the Hessian assembly of the ADMM x-update (group
+     "hess") at 17^3 x 224, 9^3 x 224 and 3^3 x 5 on a jittered lattice,
+     beside its byte and FP32 bounds, its twin timed once, twice bit for
+     bit;
   4. slice: xupdate_solve.build(4) + solve on the GPU (2,843,910 DoF), its
      convergence to a true relative residual <= 1e-8 (evaluated once in
      f64 with the plain apply), the kernel launch counts of that run, its
@@ -185,6 +188,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import multiprocessing
 import os
 import pathlib
@@ -240,7 +244,7 @@ SHARD_ADMM_SHAPE = ((5, 5, 5), 112)
 # the kernel groups of kernel_phase: all at 17^3, 9^3 and 3^3 x 5; what the
 # coarse levels, the PCD path and the step's x-update (K1 on 5 lanes) run
 # at 5^3 and 3^3 x 224
-GROUPS = ("full", "sym", "pencil", "lanes", "batched", "df")
+GROUPS = ("full", "sym", "pencil", "lanes", "batched", "df", "hess")
 COARSE_GROUPS = ("full", "sym", "pencil", "lanes", "batched")
 PENCIL_GROUPS = ("pencil", "batched")  # K2 and K3, also timed at the scalar-width shapes
 # the device kernel of K1, K5 and K5^T on a field of C = 3, as the profiler names it
@@ -322,7 +326,7 @@ PCD_FROM_VISC = 0.04
 # the kernels each path must launch, and the TPU kernel each replaces
 PATHS = {
     "solve": ("apply_w_sym", "apply_w_pencil", "apply_w_df_sym"),
-    "admm": ("apply_w_sym/lanes", "apply_w_pencil_batched"),
+    "admm": ("apply_w_sym/lanes", "apply_w_pencil_batched", "assemble_hess"),
     "ns": ("apply_w_full", "apply_w_full_t"),
     "pcd": ("apply_w_full", "apply_w_full_t", "apply_w_full/c1", "apply_w_full_t/c1"),
     # K1 on lanes in the x-update's batched CG, K5 in the NS re-solve, K5^T in the adjoint
@@ -369,6 +373,8 @@ REPLACES = {
     # the same Pallas kernel at C = 1 (C = y_ref.shape[0], :68), reached from the PCD Schur block
     "apply_w_full/c1": f"{PALLAS}:97 (C = 1, from admm_optim_tpu/solvers/ns_solver.py:772-773)",
     "apply_w_full_t/c1": f"{PALLAS}:97 (C = 1, its jax.vjp, admm_optim_tpu/solvers/ns_solver.py:907)",
+    # no TPU kernel: the JAX package leaves the assembly to XLA
+    "assemble_hess": "none (admm_optim_tpu/optim/spaces.py PatchOps.hess_fn, assembled by XLA)",
 }
 # the shape each kernel's JSON entry is timed at: the main path's fine level
 JSON_SHAPE = {name: "17^3x224" for name in REPLACES}
@@ -387,7 +393,13 @@ BY_SHAPE = {
     "apply_w_full_t": ("5^3x224", "3^3x224"),
     "apply_w_full/c1": ("3^3x224", "5^3x222"),
     "apply_w_full_t/c1": ("3^3x224", "5^3x222"),
+    "assemble_hess": ("9^3x224", "3^3x5"),
 }
+# the Hessian assembly's floating-point operations (csrc/stencil.cu, an FMA
+# as 2): a cell's state at one of its corners (geometry, A, cof(A), S,
+# C g_a), a diagonal block, an off-diagonal block (with its mask and sum),
+# and per site the W_A + pvalid * sums of each stored entry
+HESS_STATE_FLOPS, HESS_DIAG_FLOPS, HESS_BLOCK_FLOPS, HESS_OUT_FLOPS = 215, 54, 112, 2
 
 
 def log(*a):
@@ -486,7 +498,7 @@ def ptxas_report(nvcc_log):
     per entry function of nvcc's -Xptxas -v output."""
     out, kernel, spills = [], None, ""
     for line in nvcc_log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d+((?:apply_w|empty)\w*?_kernel)(I\w+)?", line)
+        m = re.search(r"Compiling entry function '\w*?\d+((?:apply_w|empty|assemble_hess)\w*?_kernel)(I\w+)?", line)
         if m:
             args = template_args(m.group(2)) if m.group(2) else []
             kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
@@ -539,13 +551,14 @@ def bound(moved, flops, flops_per_s):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_times(got, ref, fn, plain, moved, flops, rate=F32_FLOPS, extra=None, timed=True, scale=None, l2=True):
+def kernel_times(got, ref, fn, plain, moved, flops, rate=F32_FLOPS, extra=None, timed=True, scale=None, l2=True,
+                 plain_reps=REPS):
     """One kernel's result got against its twin's ref: max_abs_err, rel_err
     (over scale, max |ref| when None); when timed, ms (device, L2
-    emptied), call_ms (one call to an idle card), plain_ms (the twin),
-    extra_ms (extra, where given) and, where l2, clean_ms (L2 emptied of
-    clean lines) and warm_ms (L2 left warm), else nan; bound_ms and
-    bound_by of moved bytes and flops at rate."""
+    emptied), call_ms (one call to an idle card), plain_ms (the twin, the
+    median of plain_reps runs), extra_ms (extra, where given) and, where
+    l2, clean_ms (L2 emptied of clean lines) and warm_ms (L2 left warm),
+    else nan; bound_ms and bound_by of moved bytes and flops at rate."""
     err = float((got - ref).abs().max())
     nan = float("nan")
     bms, bby = bound(moved, flops, rate)
@@ -553,7 +566,7 @@ def kernel_times(got, ref, fn, plain, moved, flops, rate=F32_FLOPS, extra=None, 
         max_abs_err=err, rel_err=err / (float(ref.abs().max()) if scale is None else scale),
         ms=median_ms(fn) if timed else nan, clean_ms=clean_ms(fn) if timed and l2 else nan,
         warm_ms=warm_ms(fn) if timed and l2 else nan, call_ms=call_ms(fn) if timed else nan,
-        plain_ms=median_ms(plain) if timed else nan,
+        plain_ms=median_ms(plain, plain_reps) if timed else nan,
         extra_ms=median_ms(extra) if timed and extra else nan, bound_ms=bms, bound_by=bby,
     )
 
@@ -578,8 +591,9 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda", l2=False,
     free = (torch.rand(lat + (P,), generator=g, device=dev) > 0.2).float()
     out = {}
 
-    def record(group, name, got, ref, fn, plain, moved, fl, extra=None, rate=F32_FLOPS):
-        out[name] = kernel_times(got, ref, fn, plain, moved, fl, rate, extra, timed is True or group in timed, l2=l2)
+    def record(group, name, got, ref, fn, plain, moved, fl, extra=None, rate=F32_FLOPS, plain_reps=REPS):
+        out[name] = kernel_times(got, ref, fn, plain, moved, fl, rate, extra, timed is True or group in timed, l2=l2,
+                                 plain_reps=plain_reps)
 
     def poisoned(what, W, pairs):
         """The same result, bit for bit, with POISON in every W entry whose
@@ -698,7 +712,37 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda", l2=False,
             nbytes(W, xh, xl, yh, yl), flops, rate=F64_FLOPS,  # f64 accumulation
         )
         poisoned("K4", W, ((lambda Wp: torch.cat(sk.apply_w_df_sym(ps, Wp, xh, xl)), torch.cat((yh, yl))),))
+    if "hess" in groups:
+        hess_group(ps, lat, P, W, free, g, dev, record, out)
     return out
+
+
+def hess_group(ps, lat, P, W, free, g, dev, record, out):
+    """The Hessian assembly (stencil_kernels.assemble_hess) on W as W_A, the
+    coordinates of a lattice of spacing 1/16 jittered by a tenth of it
+    (every Kuhn cell keeps its orientation), u of 0.05 of the spacing and
+    a random Lambda: against its twin, the twin timed once (its ~27,000
+    launches at 17^3 x 224 take most of a second), twice bit for bit, and
+    its byte and FP32 bounds beside each other (out[name]["bounds_ms"])."""
+    h = 1.0 / 16
+    site = torch.stack(torch.meshgrid(*[torch.arange(n, device=dev) for n in lat], indexing="ij")).float()
+    patch = torch.arange(P, device=dev).float() * (lat[0] - 1)  # patches side by side along x
+    cp = site[..., None] * h + torch.stack([patch * h, 0 * patch, 0 * patch]).reshape(3, 1, 1, 1, P)
+    cp = (cp + 0.1 * h * torch.rand(cp.shape, generator=g, device=dev)).contiguous()
+    u = (0.05 * h * torch.randn(cp.shape, generator=g, device=dev) * free).contiguous()
+    lam = torch.randn(4, generator=g, device=dev)
+    args = (W, cp, u, lam, free)
+    y = sk.assemble_hess(ps, *args)
+    check(torch.equal(y, sk.assemble_hess(ps, *args)), f"assemble_hess at {lat} x {P}: two calls, the same bits")
+    cells = math.prod(n - 1 for n in lat) * P
+    stored = sum(p >= 0 for p in sk.stencil_tables(ps).hess_rows(True)[72:])  # of the 6 x 16 pairs
+    fl = cells * (24 * HESS_STATE_FLOPS + 24 * HESS_DIAG_FLOPS + (stored - 24) * HESS_BLOCK_FLOPS)
+    fl += HESS_OUT_FLOPS * y.numel()
+    moved = nbytes(W, cp, u, free, y)
+    record("hess", "assemble_hess", y, sk._assemble_hess(ps, *args), lambda: sk.assemble_hess(ps, *args),
+           lambda: sk._assemble_hess(ps, *args), moved, fl, plain_reps=1)
+    out["assemble_hess"]["bounds_ms"] = {
+        "bytes": moved / (H100_SXM_GBPS * 1e9) * 1e3, "fp32": fl / F32_FLOPS * 1e3, "gflop": fl / 1e9}
 
 
 def log_kernel(tag, name, label, t, floor_ms):
@@ -713,6 +757,8 @@ def log_kernel(tag, name, label, t, floor_ms):
         + (f" {LANES} x K2 {t['extra_ms']:.4f} ms" if name == "apply_w_pencil_batched" else "")
         + (f" L2 emptied of clean lines {t['clean_ms']:.4f} ms, L2 warm {t['warm_ms']:.4f} ms"
            if t["clean_ms"] == t["clean_ms"] else "")
+        + (f" bounds: bytes {t['bounds_ms']['bytes']:.4f} ms, FP32 {t['bounds_ms']['fp32']:.4f} ms "
+           f"({t['bounds_ms']['gflop']:.2f} GFLOP)" if "bounds_ms" in t else "")
     )
     check(t["rel_err"] <= limit, f"{name} at {label}: rel err {t['rel_err']:.3e} > {limit:.0e}")
 
@@ -1969,7 +2015,7 @@ def kernel_table(phases, floor_ms, launches, by_lattice):
                     entry[f"lanes_{B}"] = {k: ln[k] for k in ("max_abs_err", "ms", "call_ms", "bound_ms")}
         if name == "apply_w_pencil_batched":
             entry["k2_x_lanes_ms"] = t["extra_ms"]
-        entry.update({k: v for k, v in t.items() if k in ("clean_ms", "warm_ms")})
+        entry.update({k: v for k, v in t.items() if k in ("clean_ms", "warm_ms", "bounds_ms")})
         if shape != "17^3x224":
             f = phases["17^3x224"][name]
             entry.update(ms_17=f["ms"], call_ms_17=f["call_ms"], plain_ms_17=f["plain_ms"],

@@ -87,7 +87,7 @@ def test_k2_twin_matches_interpret_pallas_pencil_bf16(problem):
     assert torch.equal(st.apply_w(tps, st.PencilW(Wpc_t), torch.from_numpy(x)), y_twin)
     assert set(sk.launches) == {
         "apply_w_sym", "apply_w_sym/lanes", "apply_w_pencil", "apply_w_pencil_batched", "apply_w_df_sym",
-        "apply_w_full", "apply_w_full_t", "apply_w_full/c1", "apply_w_full_t/c1",
+        "apply_w_full", "apply_w_full_t", "apply_w_full/c1", "apply_w_full_t/c1", "assemble_hess",
     }
     assert sum(sk.launches.values()) == 0
 
