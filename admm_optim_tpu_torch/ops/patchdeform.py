@@ -12,6 +12,9 @@ as
                               cells = (m,)^dim lattice cell boxes
 
 All vertex-field access is static corner slicing (see ops.patchstencil).
+The mesh's fixed cell geometry (basis gradients, volumes, corner
+coordinates) is derived from the coordinates once, by cell_geometry, and
+every op takes that value.
 The constraint derivatives are the JAX package's closed cofactor forms;
 its jacrev/jvp forms (constraint_grads_p, constraint_hvp_p) exist there
 only as test references and are not ported.
@@ -21,6 +24,8 @@ Parity: the same reference plugin classes as the global ops
 LambdaUpdate - 2d_admm.lua:423-669, 883-905).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,8 +39,9 @@ def _cell_slice(cv, m):
     return tuple(slice(int(o), int(o) + m) for o in cv)
 
 
-def class_corners(ps: PatchSet, x_p, m: int):
+def class_corners(ps: PatchSet, x_p):
     """x_p (C, *lat, P) -> corner values (C, nl, T, *cells, P)."""
+    m = x_p.shape[1] - 1
     pre = (slice(None),)
     per_class = [
         torch.stack([x_p[pre + _cell_slice(cv, m)] for cv in co], dim=1)
@@ -44,12 +50,24 @@ def class_corners(ps: PatchSet, x_p, m: int):
     return torch.stack(per_class, dim=2)
 
 
-def cell_geometry(ps: PatchSet, coords_p):
-    """-> (g (nl, d, T, *cells, P) basis grads, vol (T, *cells, P))."""
-    m = coords_p.shape[1] - 1
-    xc = class_corners(ps, coords_p, m)  # (d, nl, T, *cells, P)
+class CellGeometry(NamedTuple):
+    """The mesh's fixed per-cell geometry on the patch lattices."""
+
+    g: torch.Tensor  # (nl, d, T, *cells, P) physical P1 basis gradients
+    vol: torch.Tensor  # (T, *cells, P) cell volumes
+    vol_valid: torch.Tensor  # vol masked by patch validity (vol itself unmasked)
+    xc: torch.Tensor  # (d, nl, T, *cells, P) corner coordinates
+
+
+def cell_geometry(ps: PatchSet, coords_p, pvalid=None) -> CellGeometry:
+    """The geometry of coords_p (d, *lat, P) that every op of this module
+    takes.  pvalid (P_local,) masks vol_valid, the weights of the
+    reductions and of the constraint derivatives: padded dummy patches
+    carry copies of patch 0's geometry and must not contribute
+    (core.patches.pad_patchset)."""
+    xc = class_corners(ps, coords_p)
     _, _, Jinv, vol = corner_geometry(xc)
-    return p1_phys_grads(Jinv), vol
+    return CellGeometry(p1_phys_grads(Jinv), vol, vol if pvalid is None else vol * pvalid, xc)
 
 
 def _grads(g, uc):
@@ -62,19 +80,16 @@ def _grads(g, uc):
     ])
 
 
-def cell_grads(ps: PatchSet, coords_p, u_p):
-    """Per-cell gradient of a P1 field u_p (C, *lat, P):
-    (G (C, d, T, *cells, P), vol (T, *cells, P))."""
-    m = coords_p.shape[1] - 1
-    g, vol = cell_geometry(ps, coords_p)
-    return _grads(g, class_corners(ps, u_p, m)), vol
+def cell_grads(ps: PatchSet, geo: CellGeometry, u_p):
+    """Per-cell gradient G (C, d, T, *cells, P) of a P1 field u_p (C, *lat, P)."""
+    return _grads(geo.g, class_corners(ps, u_p))
 
 
-def _corner_add(ps: PatchSet, contrib, m):
+def _corner_add(ps: PatchSet, contrib):
     """Additive (C, *lat, P) field from per-corner cell values contrib
     (C, nl, T, *cells, P): each corner adds into the cell box at its
     offset, in the JAX package's padded-sum order."""
-    C = contrib.shape[0]
+    C, m = contrib.shape[0], contrib.shape[3]
     lat = (m + 1,) * ps.dim
     r = contrib.new_zeros((C,) + lat + contrib.shape[-1:])
     for t, co in enumerate(ps.class_offsets):
@@ -83,59 +98,40 @@ def _corner_add(ps: PatchSet, contrib, m):
     return r
 
 
-def tensor_rhs_p(ps: PatchSet, coords_p, M, vol=None):
+def tensor_rhs_p(ps: PatchSet, geo: CellGeometry, M, masked=False):
     """Additive r (C, *lat, P): r = int M : grad w dx for per-cell tensor
-    M (d, d, T, *cells, P).  vol: optional per-cell weights overriding the
-    geometric volumes (the analytic constraint derivatives pass
-    pvalid-masked volumes)."""
-    dim = ps.dim
-    m = coords_p.shape[1] - 1
-    g, vol_geo = cell_geometry(ps, coords_p)
-    if vol is None:
-        vol = vol_geo
+    M (d, d, T, *cells, P), over the masked volumes if masked (the
+    analytic constraint derivatives)."""
+    dim, g = ps.dim, geo.g
+    vol = geo.vol_valid if masked else geo.vol
     contrib = torch.stack([
         torch.stack([vol * sum(M[c, dd] * g[i, dd] for dd in range(dim)) for i in range(dim + 1)])
         for c in range(M.shape[0])
     ])  # (C, nl, T, *cells, P)
-    return _corner_add(ps, contrib, m)
-
-
-def _vmask(vol, pvalid):
-    """Mask cell volumes by patch validity (padded dummy patches carry
-    copies of patch 0's geometry and must not contribute to reductions;
-    core.patches.pad_patchset).  pvalid (P_local,) broadcasts on the
-    trailing patch axis."""
-    return vol if pvalid is None else vol * pvalid
+    return _corner_add(ps, contrib)
 
 
 def _eye(d, like, ndim):
     return torch.eye(d, dtype=like.dtype, device=like.device).reshape((d, d) + (1,) * (ndim - 2))
 
 
-def volume_defect_p(ps: PatchSet, coords_p, u_p, ref_volume, pvalid=None):
-    """g_vol(u) = int det(I + grad u) dx - V_ref (exact; cells partitioned)."""
-    G, vol = cell_grads(ps, coords_p, u_p)
-    vol = _vmask(vol, pvalid)
-    det = sdet(_eye(ps.dim, G, G.dim()) + G)
-    return torch.sum(vol * det) - ref_volume
+def _cell_state(ps, geo, u_p):
+    """Per cell A = I + grad u and cent = the corner mean of x + u."""
+    uc = class_corners(ps, u_p)
+    G = _grads(geo.g, uc)
+    return _eye(ps.dim, G, G.dim()) + G, (geo.xc + uc).mean(dim=1)
 
 
-def barycenter_p(ps: PatchSet, coords_p, u_p, pvalid=None):
-    """b_i(u) = int (x_i + u_i) det(I + grad u) dx (unnormalized, (d,))."""
-    m = coords_p.shape[1] - 1
-    G, vol = cell_grads(ps, coords_p, u_p)
-    vol = _vmask(vol, pvalid)
-    det = sdet(_eye(ps.dim, G, G.dim()) + G)
-    centroid = (class_corners(ps, coords_p, m) + class_corners(ps, u_p, m)).mean(dim=1)
-    w = vol * det  # (T, *cells, P)
-    return torch.sum(w * centroid, dim=tuple(range(1, centroid.dim())))
-
-
-def constraints_p(ps: PatchSet, coords_p, u_p, ref_volume, ref_barycenter, pvalid=None):
-    """g(u) in R^m, m = 1 + d (volume + barycenter defects)."""
+def constraints_p(ps: PatchSet, geo: CellGeometry, u_p, ref_volume, ref_barycenter):
+    """g(u) in R^m, m = 1 + d (exact; cells partitioned): the volume defect
+    int det(I + grad u) dx - V_ref, then the barycenter defects
+    b_i(u) - b_ref_i, b_i(u) = int (x_i + u_i) det(I + grad u) dx
+    (unnormalized)."""
+    A, cent = _cell_state(ps, geo, u_p)
+    w = geo.vol_valid * sdet(A)  # (T, *cells, P)
     return torch.cat([
-        volume_defect_p(ps, coords_p, u_p, ref_volume, pvalid)[None],
-        barycenter_p(ps, coords_p, u_p, pvalid) - ref_barycenter,
+        (torch.sum(w) - ref_volume)[None],
+        torch.sum(w * cent, dim=tuple(range(1, cent.dim()))) - ref_barycenter,
     ])
 
 
@@ -193,7 +189,7 @@ def scalar_rhs_p(ps: PatchSet, S):
     the barycenter derivatives)."""
     nl = ps.dim + 1
     contrib = (S / nl)[:, None].expand((S.shape[0], nl) + S.shape[1:])
-    return _corner_add(ps, contrib, S.shape[2])
+    return _corner_add(ps, contrib)
 
 
 def _unit_rows(d, j, v):
@@ -203,62 +199,52 @@ def _unit_rows(d, j, v):
     return torch.stack([v if r == j else z for r in range(d)])
 
 
-def _cell_state(ps, coords_p, u_p, pvalid):
-    m = coords_p.shape[1] - 1
-    G, vol = cell_grads(ps, coords_p, u_p)
-    vol = _vmask(vol, pvalid)
-    A = _eye(ps.dim, G, G.dim()) + G
-    cent = (class_corners(ps, coords_p, m) + class_corners(ps, u_p, m)).mean(dim=1)
-    return A, vol, cent, m
-
-
-def constraint_grads_analytic_p(ps, coords_p, u_p, ref_volume, ref_barycenter, pvalid=None):
+def constraint_grads_analytic_p(ps, geo, u_p, ref_volume, ref_barycenter):
     """ADDITIVE B (m, C, *lat, P) = dg/du, closed form:
     B_vol       = sum_cells vol cof(A)[c,b] g[i,b]
     B_bar_j     = sum_cells vol (cof(A)[c,b] g[i,b] cent_j + det(A) e_j/nl)."""
     d = ps.dim
-    A, vol, cent, m = _cell_state(ps, coords_p, u_p, pvalid)
+    A, cent = _cell_state(ps, geo, u_p)
     cof = _cof(A)
     det = sdet(A)
-    rows = [tensor_rhs_p(ps, coords_p, cof, vol=vol)]
+    rows = [tensor_rhs_p(ps, geo, cof, masked=True)]
     for j in range(d):
-        r = tensor_rhs_p(ps, coords_p, cof * cent[j], vol=vol)
-        rows.append(r + scalar_rhs_p(ps, _unit_rows(d, j, vol * det)))
+        r = tensor_rhs_p(ps, geo, cof * cent[j], masked=True)
+        rows.append(r + scalar_rhs_p(ps, _unit_rows(d, j, geo.vol_valid * det)))
     return torch.stack(rows)
 
 
-def hvp_state_p(ps, coords_p, u_p, Lmbda, pvalid=None):
+def hvp_state_p(ps, geo, u_p, Lmbda):
     """(u, Lambda)-dependent cell state of the constraint HVP, computed
     once per Newton iterate (the HVP is applied at every Krylov matvec)."""
-    A, vol, cent, m = _cell_state(ps, coords_p, u_p, pvalid)
-    return (A, _cof(A), vol, cent, Lmbda, m)
+    A, cent = _cell_state(ps, geo, u_p)
+    return (A, _cof(A), cent, Lmbda)
 
 
-def constraint_hvp_apply_p(ps, coords_p, state, x_p):
+def constraint_hvp_apply_p(ps, geo, state, x_p):
     """ADDITIVE (sum_k Lambda_k d2g_k/du2) @ x at the precomputed state:
     h = sum vol [ (L0 Dcof(A)[Ex]
                    + sum_j L_{1+j} (Dcof(A)[Ex] cent_j + cof(A) cx_j))
                      : grad w
                  + sum_j L_{1+j} (cof(A):Ex) e_j . w/nl ]"""
     d = ps.dim
-    A, cof, vol, cent, Lmbda, m = state
-    Ex, _ = cell_grads(ps, coords_p, x_p)
-    cx = class_corners(ps, x_p, m).mean(dim=1)  # (d, T, *cells, P)
+    A, cof, cent, Lmbda = state
+    xc = class_corners(ps, x_p)
+    Ex = _grads(geo.g, xc)
+    cx = xc.mean(dim=1)  # (d, T, *cells, P)
     dc = _dcof(A, Ex)
     M = Lmbda[0] * dc
     cofEx = sum(cof[a, b] * Ex[a, b] for a in range(d) for b in range(d))
     for j in range(d):
         M = M + Lmbda[1 + j] * (dc * cent[j] + cof * cx[j])
-    S = torch.stack([Lmbda[1 + j] * vol * cofEx for j in range(d)])
-    return tensor_rhs_p(ps, coords_p, M, vol=vol) + scalar_rhs_p(ps, S)
+    S = torch.stack([Lmbda[1 + j] * geo.vol_valid * cofEx for j in range(d)])
+    return tensor_rhs_p(ps, geo, M, masked=True) + scalar_rhs_p(ps, S)
 
 
-def constraint_hvp_analytic_p(ps, coords_p, u_p, Lmbda, ref_volume, ref_barycenter, x_p,
-                              pvalid=None):
+def constraint_hvp_analytic_p(ps, geo, u_p, Lmbda, ref_volume, ref_barycenter, x_p):
     """One-shot form (state recomputed inline); the solver path uses
     hvp_state_p + constraint_hvp_apply_p."""
-    state = hvp_state_p(ps, coords_p, u_p, Lmbda, pvalid=pvalid)
-    return constraint_hvp_apply_p(ps, coords_p, state, x_p)
+    return constraint_hvp_apply_p(ps, geo, hvp_state_p(ps, geo, u_p, Lmbda), x_p)
 
 
 def hvp_corner_block_fn(Lmbda):
@@ -315,33 +301,31 @@ def hvp_corner_block_fn(Lmbda):
     return fn
 
 
-def z_update_p(ps, coords_p, u_p, lam, tau, sigma, norm_name="frobenius"):
+def z_update_p(ps, geo, u_p, lam, tau, sigma, norm_name="frobenius"):
     """q* = Proj_sigma(grad u + lambda/tau), per cell (d, d, T, *cells, P)."""
-    G, _ = cell_grads(ps, coords_p, u_p)
-    Q = G + lam / tau
+    Q = cell_grads(ps, geo, u_p) + lam / tau
     if norm_name == "spectral":
         d = ps.dim
         return project_spectral(Q.reshape(d, d, -1), sigma).reshape(Q.shape)
     return project_frobenius(Q, sigma)
 
 
-def dual_update_p(ps, coords_p, u_p, lam, q_proj, tau):
+def dual_update_p(ps, geo, u_p, lam, q_proj, tau):
     """lambda += tau*(grad u - q*); returns (new lam, increment)."""
-    G, _ = cell_grads(ps, coords_p, u_p)
-    inc = tau * (G - q_proj)
+    inc = tau * (cell_grads(ps, geo, u_p) - q_proj)
     return lam + inc, inc
 
 
-def max_frobenius_norm_p(ps, coords_p, u_p, pvalid=None):
-    G, _ = cell_grads(ps, coords_p, u_p)
+def max_frobenius_norm_p(ps, geo, u_p, pvalid=None):
+    G = cell_grads(ps, geo, u_p)
     n2 = torch.sum(G * G, dim=(0, 1))
     if pvalid is not None:
         n2 = n2 * pvalid
     return torch.max(torch.sqrt(n2))
 
 
-def max_spectral_norm_p(ps, coords_p, u_p, pvalid=None):
-    G, _ = cell_grads(ps, coords_p, u_p)
+def max_spectral_norm_p(ps, geo, u_p, pvalid=None):
+    G = cell_grads(ps, geo, u_p)
     if pvalid is not None:
         G = G * pvalid
     if ps.dim == 2:
@@ -352,23 +336,18 @@ def max_spectral_norm_p(ps, coords_p, u_p, pvalid=None):
     return torch.max(s[:, 0])
 
 
-def l2_norm_p1_p(ps, coords_p, f_p, pvalid=None):
+def l2_norm_p1_p(ps, geo, f_p):
     """sqrt(int |f|^2) for a consistent P1 patch field f (C, *lat, P)."""
-    m = coords_p.shape[1] - 1
-    _, vol = cell_geometry(ps, coords_p)
-    vol = _vmask(vol, pvalid)
-    fc = class_corners(ps, f_p, m)  # (C, nl, T, *cells, P)
+    fc = class_corners(ps, f_p)  # (C, nl, T, *cells, P)
     nl = ps.dim + 1
     mfac = torch.as_tensor(
         (np.ones((nl, nl)) + np.eye(nl)) / ((ps.dim + 1) * (ps.dim + 2)),
         dtype=f_p.dtype, device=f_p.device,
     )
-    val = torch.einsum("...,ij,ci...,cj...->", vol, mfac, fc, fc)
+    val = torch.einsum("...,ij,ci...,cj...->", geo.vol_valid, mfac, fc, fc)
     return torch.sqrt(torch.clamp_min(val, 0.0))
 
 
-def l2_norm_pc_p(ps, coords_p, T, pvalid=None):
+def l2_norm_pc_p(ps, geo, T):
     """sqrt(int |T|^2) for a per-cell tensor field (d, d, T, *cells, P)."""
-    _, vol = cell_geometry(ps, coords_p)
-    vol = _vmask(vol, pvalid)
-    return torch.sqrt(torch.clamp_min(torch.einsum("...,cd...,cd...->", vol, T, T), 0.0))
+    return torch.sqrt(torch.clamp_min(torch.einsum("...,cd...,cd...->", geo.vol_valid, T, T), 0.0))

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -121,10 +120,6 @@ class ADMMState:
     # (admm_steps, 6) float64 on the host, row min(admm_it, admm_steps-1) of
     # each iteration: [scaling, sigma, u_diff, lam_inc, max_grad, sigma - max_grad]
     stats: torch.Tensor
-    # wall seconds of the x-updates, synchronized: assembling W_h into
-    # the Hessian stencil, and the batched Krylov solves
-    wh_seconds: float = 0.0
-    krylov_seconds: float = 0.0
     # the last x-update's Newton failed: a Krylov solve failed, or ns_max_its
     # passed short of the tolerances (with admm_tolerance 0 the loop ends
     # failed at admm_steps all the same, so this tells a sound fixed-depth
@@ -172,14 +167,6 @@ def l2_norm_pc(coords, elems, T):
     return torch.sqrt(torch.clamp_min(torch.einsum("e,cde,cde->", vol, T, T), 0.0))
 
 
-def _clock(t: torch.Tensor) -> float:
-    """The host's clock once the device has finished: a host.sync span."""
-    with span("host.sync"):
-        if t.device.type == "cuda":
-            torch.cuda.synchronize(t.device)
-        return time.perf_counter()
-
-
 def _norm(v) -> float:
     return host_read(torch.sqrt(torch.dot(v, v)), float)
 
@@ -196,8 +183,6 @@ class NewtonResult(NamedTuple):
     # rhs_iters, constraint_iters...] (reference 2d:1111-1120)
     hist: list
     debug: tuple  # (Lu, rhs_large, du) of the last applied iteration
-    wh_seconds: float
-    krylov_seconds: float
     batch_iters: int  # per Krylov solve the most iterations of a lane, summed
 
 
@@ -253,9 +238,10 @@ def newton_xupdate_ops(
     lu0 = g0 = 0.0
     hist = []
     dbg = (torch.zeros_like(u0),) * 3
-    wh_s = kr_s = 0.0
+    # the constraint values of the current iterate: one pass per iterate,
+    # read by the Schur update and by the convergence test
+    g = ops_.constraints(u, ref_volume, ref_barycenter)
     while not done and not failed and it < cfg.ns_max_its:
-        g = ops_.constraints(u, ref_volume, ref_barycenter)
         B = ops_.constraint_grads(u, ref_volume, ref_barycenter)
         Lu = (ops_.A(u) + r_lin + torch.tensordot(Lambda, B, dims=1)) * free
         if extra_hvp is not None:
@@ -266,7 +252,6 @@ def newton_xupdate_ops(
         # H x = b for the 1+m lanes at once, warm-started from the previous
         # Newton iteration's solutions; the constraint Hessian is assembled
         # into the stencil once per iterate
-        t0 = _clock(u)
         with span("admm.hess") as rec:
             if extra_hvp is None:
                 hess = ops_.hess_fn(u, Lambda, ref_volume, ref_barycenter)
@@ -274,7 +259,6 @@ def newton_xupdate_ops(
                 hess = _hess_apply(ops_, u, Lambda, ref_volume, ref_barycenter, extra_hvp)
             if rec is not None:  # recording: which form assembled the Hessian
                 rec["attrs"]["path"] = getattr(hess, "path", "plain")
-        t1 = _clock(u)
         with span("admm.lanes"):
             res = _solve_lanes(cfg, solver, hess, rhs, sols, ops_)
         ok_each = res.converged
@@ -282,9 +266,6 @@ def newton_xupdate_ops(
             ok_each = ok_each | (res.res_norm <= cfg.lin_accept_rel * torch.sqrt(ops_.dot(rhs, rhs)))
         its_each = host_read(res.iters, torch.Tensor.tolist)
         ok = host_read(ok_each.all(), bool)
-        t2 = _clock(u)
-        wh_s += t1 - t0
-        kr_s += t2 - t1
         it += 1
         lin += sum(its_each)
         lin_each = [a + b for a, b in zip(lin_each, its_each)]
@@ -310,7 +291,8 @@ def newton_xupdate_ops(
         # relative tests are against the first iteration's norms
         dlam_norm = _norm(dLambda)
         lu_norm = host_read(ops_.norm_p1(Lu), float)
-        g_norm = _norm(ops_.constraints(u, ref_volume, ref_barycenter))
+        g = ops_.constraints(u, ref_volume, ref_barycenter)
+        g_norm = _norm(g)
         if it == 1:
             lu0, g0 = lu_norm, g_norm
         rel_ok = (lu_norm / max(lu0, tiny) < cfg.ns_rel_tol) and (
@@ -324,9 +306,7 @@ def newton_xupdate_ops(
         hist.append([0.0, host_read(ops_.norm_p1(du * free), float), dlam_norm, lu_norm]
                     + [float(i) for i in its_each])
     # not converging within ns_max_its counts as failure (reference 2d:1084-1090)
-    return NewtonResult(
-        u, Lambda, it, lin, lin_each, failed or not done, sols, hist, dbg, wh_s, kr_s, batch
-    )
+    return NewtonResult(u, Lambda, it, lin, lin_each, failed or not done, sols, hist, dbg, batch)
 
 
 def admm_iteration(cfg: ADMMConfig, ops_, Jp_base, sigma: float, ref_volume, ref_barycenter,
@@ -386,8 +366,6 @@ def admm_iteration(cfg: ADMMConfig, ops_, Jp_base, sigma: float, ref_volume, ref
         failed=nr.failed or (admm_it >= cfg.admm_steps and not converged),
         u_diff_norm=u_diff, lam_inc_norm=lam_inc_n, max_grad_norm=max_norm,
         stats=stats,
-        wh_seconds=st.wh_seconds + nr.wh_seconds,
-        krylov_seconds=st.krylov_seconds + nr.krylov_seconds,
         newton_failed=nr.failed,
         batch_iters=st.batch_iters + nr.batch_iters,
     )

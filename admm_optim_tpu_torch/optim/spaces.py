@@ -18,6 +18,7 @@ too, so optim.admm's loops decide on values every rank holds alike.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -166,6 +167,12 @@ class PatchOps:
     def free(self):
         return self.tab.free.to(self.coords_p.dtype)  # (*lat, P); bcasts
 
+    @functools.cached_property
+    def geo(self):
+        """The mesh's cell geometry (pdfm.cell_geometry), derived once: a
+        bundle's coordinates and mask stay as they were made."""
+        return pdfm.cell_geometry(self.ps, self.coords_p, self.pvalid)
+
     def _psum(self, v):
         return v if self.spmd is None else self.spmd.all_reduce(v)
 
@@ -216,9 +223,7 @@ class PatchOps:
         return pst.exchange_sum(None, x_add, self.tab, spmd=self.spmd) * self.free
 
     def constraints(self, u, ref_volume, ref_barycenter):
-        g = pdfm.constraints_p(
-            self.ps, self.coords_p, u, 0.0, self.coords_p.new_zeros(self.dim), pvalid=self.pvalid,
-        )
+        g = pdfm.constraints_p(self.ps, self.geo, u, 0.0, self.coords_p.new_zeros(self.dim))
         refs = torch.cat([
             torch.as_tensor(ref_volume, dtype=g.dtype, device=g.device).reshape(1),
             torch.as_tensor(ref_barycenter, dtype=g.dtype, device=g.device),
@@ -227,23 +232,18 @@ class PatchOps:
         return self._psum(g) - refs
 
     def constraint_grads(self, u, ref_volume, ref_barycenter):
-        B = pdfm.constraint_grads_analytic_p(
-            self.ps, self.coords_p, u, ref_volume, ref_barycenter, pvalid=self.pvalid,
-        )
-        return self._cons(B)
+        return self._cons(pdfm.constraint_grads_analytic_p(self.ps, self.geo, u, ref_volume, ref_barycenter))
 
     def constraint_hvp(self, u, Lmbda, ref_volume, ref_barycenter, x):
-        h = pdfm.constraint_hvp_analytic_p(
-            self.ps, self.coords_p, u, Lmbda, ref_volume, ref_barycenter,
-            x * self.free, pvalid=self.pvalid,
-        )
-        return self._cons(h)
+        return self._cons(pdfm.constraint_hvp_analytic_p(
+            self.ps, self.geo, u, Lmbda, ref_volume, ref_barycenter, x * self.free,
+        ))
 
     def hvp_fn(self, u, Lmbda, ref_volume, ref_barycenter):
-        state = pdfm.hvp_state_p(self.ps, self.coords_p, u, Lmbda, pvalid=self.pvalid)
+        state = pdfm.hvp_state_p(self.ps, self.geo, u, Lmbda)
 
         def apply(x):
-            return self._cons(pdfm.constraint_hvp_apply_p(self.ps, self.coords_p, state, x * self.free))
+            return self._cons(pdfm.constraint_hvp_apply_p(self.ps, self.geo, state, x * self.free))
 
         return apply
 
@@ -266,24 +266,24 @@ class PatchOps:
         return apply
 
     def tensor_rhs(self, M):
-        return self._cons(pdfm.tensor_rhs_p(self.ps, self.coords_p, M))
+        return self._cons(pdfm.tensor_rhs_p(self.ps, self.geo, M))
 
     def grad_tensor(self, u):
-        return pdfm.cell_grads(self.ps, self.coords_p, u)[0]
+        return pdfm.cell_grads(self.ps, self.geo, u)
 
     def z_update(self, u, lam, tau, sigma, norm_name):
-        return pdfm.z_update_p(self.ps, self.coords_p, u, lam, tau, sigma, norm_name)
+        return pdfm.z_update_p(self.ps, self.geo, u, lam, tau, sigma, norm_name)
 
     def dual_update(self, u, lam, q_proj, tau):
-        return pdfm.dual_update_p(self.ps, self.coords_p, u, lam, q_proj, tau)
+        return pdfm.dual_update_p(self.ps, self.geo, u, lam, q_proj, tau)
 
     def max_grad_norm(self, u, norm_name):
         if norm_name == "spectral":
-            return self._pmax(pdfm.max_spectral_norm_p(self.ps, self.coords_p, u, self.pvalid))
-        return self._pmax(pdfm.max_frobenius_norm_p(self.ps, self.coords_p, u, self.pvalid))
+            return self._pmax(pdfm.max_spectral_norm_p(self.ps, self.geo, u, self.pvalid))
+        return self._pmax(pdfm.max_frobenius_norm_p(self.ps, self.geo, u, self.pvalid))
 
     def norm_p1(self, f):
-        return self._norm(pdfm.l2_norm_p1_p(self.ps, self.coords_p, f, self.pvalid))
+        return self._norm(pdfm.l2_norm_p1_p(self.ps, self.geo, f))
 
     def norm_pc(self, T):
-        return self._norm(pdfm.l2_norm_pc_p(self.ps, self.coords_p, T, self.pvalid))
+        return self._norm(pdfm.l2_norm_pc_p(self.ps, self.geo, T))

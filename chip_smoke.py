@@ -2291,8 +2291,7 @@ def admm_phase(ctx, launches, by_lattice):
             f"[admm] refs=4 {label}: admm_it {s_.admm_it} total_newton {s_.total_newton} "
             f"total_lin_iters {s_.total_lin_iters} solver_iters {s_.solver_iters} "
             f"converged {s_.converged} failed {s_.failed}; {r_.seconds:.3f} s, "
-            f"{s_.admm_it / r_.seconds:.4f} ADMM it/s, W_h assembly {s_.wh_seconds:.3f} s, "
-            f"Krylov {s_.krylov_seconds:.3f} s, Lambda {[round(float(v), 6) for v in s_.Lambda]} "
+            f"{s_.admm_it / r_.seconds:.4f} ADMM it/s, Lambda {[round(float(v), 6) for v in s_.Lambda]} "
             f"(recorded before: admm_it {ADMM_COUNTS[0]}, {ADMM_COUNTS[1]} Newton, {ADMM_COUNTS[2]} Krylov)"
         )
     log(

@@ -87,7 +87,6 @@ def test_admm_inner_matches_jax(problem, name, request):
     assert any(_rel(rows[-1], r) <= 1e-12 for r in st.stats.numpy())
     assert 1 <= len(hist) <= cfg.ns_max_its and all(len(r) == 4 + 1 + 4 for r in hist)
     assert set(dbg) == {"Lu", "rhs_large", "du"} and dbg["du"].shape == st.u.shape
-    assert st.wh_seconds > 0.0 and st.krylov_seconds > 0.0
 
 
 def test_relaxed_run_needs_its_acceptance(problem):
@@ -151,7 +150,7 @@ def test_admm_run_cpu_drive():
     assert s.solver_iters == [12, 13, 12, 12, 13] and s.total_lin_iters == 62
     assert s.u.shape == (3,) + ctx.ps.fine.lat_shape + (ctx.ps.P,)
     assert bool(torch.isfinite(s.u).all()) and float(s.u.abs().max()) > 0.0
-    assert out.seconds >= s.wh_seconds + s.krylov_seconds > 0.0
+    assert out.seconds > 0.0
 
 
 def test_xsolve_sequential_equals_the_lane_batched_run(problem, bicgstab_run):

@@ -11,17 +11,19 @@ import pytest
 import torch
 
 from admm_optim_tpu_torch import admm_run, xupdate_solve
+from admm_optim_tpu_torch.ops import patchdeform
+from admm_optim_tpu_torch.optim.spaces import PatchOps
 from admm_optim_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
 CFG = dataclasses.replace(admm_run.BENCH_CFG, ns_max_its=10)
-# the direct children of admm.newton, a Newton step: the clock sync, the
-# Hessian assembly, the clock sync, the lane solve, the lane counts, the
-# flags, the clock sync, the Schur update, then |DLambda|, |Lu|, |g| and |du|
-# (and the exchanges of the operator and constraint applies between them)
-STEP = ["host.sync", "admm.hess", "host.sync", "admm.lanes", "host.sync", "host.sync", "host.sync", "admm.schur",
-        "host.sync", "host.sync", "host.sync", "host.sync"]
+# the direct children of admm.newton, a Newton step: the Hessian assembly,
+# the lane solve, the lane counts, the flags, the Schur update, then
+# |DLambda|, |Lu|, |g| and |du| (and the exchanges of the operator and
+# constraint applies between them)
+STEP = ["admm.hess", "admm.lanes", "host.sync", "host.sync", "admm.schur", "host.sync", "host.sync", "host.sync",
+        "host.sync"]
 
 
 @pytest.fixture(scope="module")
@@ -130,3 +132,25 @@ def test_no_records_without_a_profiler(ctx, monkeypatch):
     out = admm_run.run(ctx, dataclasses.replace(CFG, admm_steps=2), seed=4)
     assert out.state.admm_it == 2 and profiling.spans() == []
     assert profiling.span("admm.z_prox") is profiling.span("admm.inner")
+
+
+def test_geometry_once_and_one_constraint_pass_a_newton_step(ctx, monkeypatch):
+    """One run derives its bundle's cell geometry once, and evaluates the
+    constraints once per Newton step and once per x-update: a step's
+    values of the updated iterate serve the next step's Schur update."""
+    calls = collections.Counter()
+
+    def spy(name, f):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return f(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(patchdeform, "cell_geometry", spy("geometry", patchdeform.cell_geometry))
+    monkeypatch.setattr(PatchOps, "constraints", spy("constraints", PatchOps.constraints))
+    xupdates = []
+    out = admm_run.run(ctx, CFG, seed=3, iter_cb=lambda k, u, Lambda: xupdates.append(k))
+    s = out.state
+    assert (s.admm_it, s.newton_failed) == (5, False) and len(xupdates) == s.admm_it
+    assert calls["geometry"] == 1
+    assert calls["constraints"] == s.total_newton + len(xupdates)

@@ -68,25 +68,26 @@ def test_constraint_functionals_match_jax(case, masked):
     jpv = None if jpv is None else jnp.asarray(jpv)
     zd = np.zeros(c.dim)
     ja = (c.jps, jnp.asarray(c.cp), jnp.asarray(c.u))
-    ta = (c.ps, _t(c.cp), _t(c.u))
+    geo = tpd.cell_geometry(c.ps, _t(c.cp), tpv)
+    ta = (c.ps, geo, _t(c.u))
     g_j = jpd.constraints_p(*ja, 0.3, jnp.asarray(zd + 0.1), pvalid=jpv)
-    g_t = tpd.constraints_p(*ta, 0.3, _t(zd + 0.1), pvalid=tpv)
+    g_t = tpd.constraints_p(*ta, 0.3, _t(zd + 0.1))
     assert _rel(g_t, g_j) <= 1e-12
     B_j = jpd.constraint_grads_analytic_p(*ja, 0.0, jnp.asarray(zd), pvalid=jpv)
-    B_t = tpd.constraint_grads_analytic_p(*ta, 0.0, _t(zd), pvalid=tpv)
+    B_t = tpd.constraint_grads_analytic_p(*ta, 0.0, _t(zd))
     assert B_t.shape == (1 + c.dim,) + c.u.shape and _rel(B_t, B_j) <= 1e-12
     h_j = jpd.constraint_hvp_analytic_p(*ja, jnp.asarray(c.Lm), 0.0, jnp.asarray(zd), jnp.asarray(c.x), pvalid=jpv)
-    h_t = tpd.constraint_hvp_analytic_p(*ta, _t(c.Lm), 0.0, _t(zd), _t(c.x), pvalid=tpv)
+    h_t = tpd.constraint_hvp_analytic_p(*ta, _t(c.Lm), 0.0, _t(zd), _t(c.x))
     assert _rel(h_t, h_j) <= 1e-12
     r_j = jpd.tensor_rhs_p(c.jps, jnp.asarray(c.cp), jnp.asarray(c.M))
-    r_t = tpd.tensor_rhs_p(c.ps, _t(c.cp), _t(c.M))
+    r_t = tpd.tensor_rhs_p(c.ps, geo, _t(c.M))
     assert _rel(r_t, r_j) <= 1e-12
 
 
 def test_prox_dual_update_and_norms_match_jax(case):
     c = case
     ja = (c.jps, jnp.asarray(c.cp), jnp.asarray(c.u))
-    ta = (c.ps, _t(c.cp), _t(c.u))
+    ta = (c.ps, tpd.cell_geometry(c.ps, _t(c.cp)), _t(c.u))
     lam_j, lam_t = jnp.asarray(c.M), _t(c.M)
     for norm in ("frobenius", "spectral"):
         # sigma small enough that many cells hit the projection boundary
@@ -99,14 +100,15 @@ def test_prox_dual_update_and_norms_match_jax(case):
     for masked in (False, True):
         jpv, tpv = _pv(c, masked)
         jpv = None if jpv is None else jnp.asarray(jpv)
+        geo = tpd.cell_geometry(c.ps, _t(c.cp), tpv)
         for jf, tf in (
             (jpd.max_frobenius_norm_p, tpd.max_frobenius_norm_p),
             (jpd.max_spectral_norm_p, tpd.max_spectral_norm_p),
         ):
-            assert _rel(tf(*ta, tpv), jf(*ja, jpv)) <= 1e-12
-        assert _rel(tpd.l2_norm_p1_p(*ta, tpv), jpd.l2_norm_p1_p(*ja, jpv)) <= 1e-12
+            assert _rel(tf(c.ps, geo, _t(c.u), tpv), jf(*ja, jpv)) <= 1e-12
+        assert _rel(tpd.l2_norm_p1_p(c.ps, geo, _t(c.u)), jpd.l2_norm_p1_p(*ja, jpv)) <= 1e-12
         assert _rel(
-            tpd.l2_norm_pc_p(c.ps, _t(c.cp), lam_t, tpv),
+            tpd.l2_norm_pc_p(c.ps, geo, lam_t),
             jpd.l2_norm_pc_p(c.jps, jnp.asarray(c.cp), lam_j, jpv),
         ) <= 1e-12
 
