@@ -31,7 +31,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
-PARTS = 4  # csrc/stencil.cu's STENCIL_PART values
+PARTS = 5  # csrc/stencil.cu's STENCIL_PART values
 
 _lib = None
 
@@ -104,6 +104,7 @@ def lib() -> ctypes.CDLL:
         ("apply_w_c3_f32", 4, 5),
         ("launch_empty", 0, 1),
         ("assemble_hess_f32", 8, 6),
+        ("constraint_grads_f32", 5, 5),
     ):
         fn = getattr(handle, name)
         fn.argtypes = [p] * n_ptr + [i] * n_int + [p]

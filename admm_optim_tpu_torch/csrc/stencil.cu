@@ -36,9 +36,10 @@
 // returns cudaGetLastError().
 //
 // The build (_build.py) compiles this file once per part, -DSTENCIL_PART=1
-// to 4, all at once, and links the four objects: part 1 holds every
-// entry point but K2/K3's and the Hessian assembly's, part 2 K2/K3 on 1 to
-// 4 lanes, part 3 K3 on 5 to 8, part 4 the Hessian assembly (the templates
+// to 5, all at once, and links the five objects: part 1 holds every
+// entry point but K2/K3's, the Hessian assembly's and the constraint
+// gradients', part 2 K2/K3 on 1 to 4 lanes, part 3 K3 on 5 to 8, part 4
+// the Hessian assembly, part 5 the constraint gradients (the templates
 // are instantiated only where an entry point uses them).  Without
 // STENCIL_PART the file is the whole library.
 
@@ -890,6 +891,84 @@ struct HessTable {
   int pos[kClasses][kCorners][kCorners];  // storage position of pair (a, b)'s slot; -1: not stored
 };
 
+// Whether the cell whose corner of offset oa is the site (i, j, k), its
+// anchor (i, j, k) - oa, lies in the (n0 - 1) x (n1 - 1) x (n2 - 1) cell
+// lattice.
+__device__ __forceinline__ bool cell_inside(const int* oa, int i, int j, int k, int n0, int n1, int n2) {
+  return static_cast<unsigned>(i - oa[0]) < static_cast<unsigned>(n0 - 1) &&
+         static_cast<unsigned>(j - oa[1]) < static_cast<unsigned>(n1 - 1) &&
+         static_cast<unsigned>(k - oa[2]) < static_cast<unsigned>(n2 - 1);
+}
+
+// The state of one Kuhn cell that the Hessian assembly and the constraint
+// gradients derive at each of its corners, from the 4 corners'
+// coordinates and u: the corners' sites, their x and u, the reference
+// volume, the physical P1 gradients g and A = I + grad u with its
+// cofactor C.
+struct CellState {
+  int at[kCorners];
+  float x[kCorners][3], u[kCorners][3];
+  float vol;
+  float g[kCorners][3];
+  float A[3][3], C[3][3];
+
+  // component c of the cell's centroid, the corner mean of x + u
+  __device__ __forceinline__ float cent(int c) const {
+    return ((x[0][c] + u[0][c]) + (x[1][c] + u[1][c]) + (x[2][c] + u[2][c]) + (x[3][c] + u[3][c])) / 4.f;
+  }
+};
+
+// The state of the cell of class offsets co whose corner a is the site s
+// (row = n2 * P sites a pencil row, sp the sites of one component).
+__device__ __forceinline__ void cell_state(const float* __restrict__ X, const float* __restrict__ U,
+                                           const int (&co)[kCorners][3], int a, int s, int n1, int row,
+                                           int P, size_t sp, CellState& cs) {
+  const int* oa = co[a];
+#pragma unroll
+  for (int q = 0; q < kCorners; ++q) {
+    const int* oq = co[q];
+    cs.at[q] = s + ((oq[0] - oa[0]) * n1 + (oq[1] - oa[1])) * row + (oq[2] - oa[2]) * P;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      cs.x[q][c] = X[c * sp + cs.at[q]];
+      cs.u[q][c] = U[c * sp + cs.at[q]];
+    }
+  }
+  // geometry (ops/geometry.corner_geometry): J[c][e] = x[e + 1][c] - x[0][c]
+  float J[3][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int e = 0; e < 3; ++e) J[c][e] = cs.x[e + 1][c] - cs.x[0][c];
+  const float det = J[0][0] * (J[1][1] * J[2][2] - J[1][2] * J[2][1]) -
+                    J[0][1] * (J[1][0] * J[2][2] - J[1][2] * J[2][0]) +
+                    J[0][2] * (J[1][0] * J[2][1] - J[1][1] * J[2][0]);
+  const float rdet = 1.f / det;
+  cs.vol = fabsf(det) / 6.f;
+  // g[1 + e] = row e of J^-1 (its adjugate's cyclic form), g[0] = -their sum
+#pragma unroll
+  for (int e = 0; e < 3; ++e)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      cs.g[1 + e][c] = (J[(c + 1) % 3][(e + 1) % 3] * J[(c + 2) % 3][(e + 2) % 3] -
+                        J[(c + 1) % 3][(e + 2) % 3] * J[(c + 2) % 3][(e + 1) % 3]) * rdet;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) cs.g[0][c] = -(cs.g[1][c] + cs.g[2][c] + cs.g[3][c]);
+  // A = I + grad u, C = cof(A)
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      cs.A[c][d] = (c == d ? 1.f : 0.f) + cs.g[0][d] * cs.u[0][c] + cs.g[1][d] * cs.u[1][c] +
+                   cs.g[2][d] * cs.u[2][c] + cs.g[3][d] * cs.u[3][c];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      cs.C[c][d] = cs.A[(c + 1) % 3][(d + 1) % 3] * cs.A[(c + 2) % 3][(d + 2) % 3] -
+                   cs.A[(c + 1) % 3][(d + 2) % 3] * cs.A[(c + 2) % 3][(d + 1) % 3];
+}
+
 // One cell's block (a, b), b != a, into the 9 values out (row-major c, f).
 __device__ __forceinline__ void hess_block(const float (&A)[3][3], const float (&C)[3][3],
                                            const float (&ga)[3], const float (&gb)[3],
@@ -946,64 +1025,17 @@ assemble_hess_kernel(const float* __restrict__ WA, const float* __restrict__ X,
   for (int t = 0; t < kClasses; ++t) {
 #pragma unroll
     for (int a = 0; a < kCorners; ++a) {
-      const int* oa = tab.co[t][a];
-      // the cell whose corner a is this site: anchor (i, j, k) - co[t][a]
-      if (static_cast<unsigned>(i - oa[0]) >= static_cast<unsigned>(n0 - 1) ||
-          static_cast<unsigned>(j - oa[1]) >= static_cast<unsigned>(n1 - 1) ||
-          static_cast<unsigned>(k - oa[2]) >= static_cast<unsigned>(n2 - 1))
-        continue;
-      int at[kCorners];
-      float x[kCorners][3], u[kCorners][3];
-#pragma unroll
-      for (int q = 0; q < kCorners; ++q) {
-        const int* oq = tab.co[t][q];
-        at[q] = s + ((oq[0] - oa[0]) * n1 + (oq[1] - oa[1])) * row + (oq[2] - oa[2]) * P;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          x[q][c] = X[c * sp + at[q]];
-          u[q][c] = U[c * sp + at[q]];
-        }
-      }
-      // geometry (ops/geometry.corner_geometry): J[c][e] = x[e + 1][c] - x[0][c]
-      float J[3][3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int e = 0; e < 3; ++e) J[c][e] = x[e + 1][c] - x[0][c];
-      const float det = J[0][0] * (J[1][1] * J[2][2] - J[1][2] * J[2][1]) -
-                        J[0][1] * (J[1][0] * J[2][2] - J[1][2] * J[2][0]) +
-                        J[0][2] * (J[1][0] * J[2][1] - J[1][1] * J[2][0]);
-      const float rdet = 1.f / det;
-      const float vol = fabsf(det) / 6.f;
-      // g[1 + e] = row e of J^-1 (its adjugate's cyclic form), g[0] = -their sum
-      float g[kCorners][3];
-#pragma unroll
-      for (int e = 0; e < 3; ++e)
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          g[1 + e][c] = (J[(c + 1) % 3][(e + 1) % 3] * J[(c + 2) % 3][(e + 2) % 3] -
-                         J[(c + 1) % 3][(e + 2) % 3] * J[(c + 2) % 3][(e + 1) % 3]) * rdet;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) g[0][c] = -(g[1][c] + g[2][c] + g[3][c]);
-      // A = I + grad u, C = cof(A), S = L0 + sum_j L_{1+j} cent_j
-      float A[3][3], C[3][3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int d = 0; d < 3; ++d)
-          A[c][d] = (c == d ? 1.f : 0.f) + g[0][d] * u[0][c] + g[1][d] * u[1][c] + g[2][d] * u[2][c] +
-                    g[3][d] * u[3][c];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int d = 0; d < 3; ++d)
-          C[c][d] = A[(c + 1) % 3][(d + 1) % 3] * A[(c + 2) % 3][(d + 2) % 3] -
-                    A[(c + 1) % 3][(d + 2) % 3] * A[(c + 2) % 3][(d + 1) % 3];
+      if (!cell_inside(tab.co[t][a], i, j, k, n0, n1, n2)) continue;
+      CellState cs;
+      cell_state(X, U, tab.co[t], a, s, n1, row, P, sp, cs);
+      const auto& A = cs.A;
+      const auto& C = cs.C;
+      const auto& g = cs.g;
+      const float vol = cs.vol;
+      // S = L0 + sum_j L_{1+j} cent_j
       float S = l0;
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-        S += lj[c] * (((x[0][c] + u[0][c]) + (x[1][c] + u[1][c]) + (x[2][c] + u[2][c]) +
-                       (x[3][c] + u[3][c])) / 4.f);
+      for (int c = 0; c < 3; ++c) S += lj[c] * cs.cent(c);
       float cga[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) cga[c] = C[c][0] * g[a][0] + C[c][1] * g[a][1] + C[c][2] * g[a][2];
@@ -1011,7 +1043,7 @@ assemble_hess_kernel(const float* __restrict__ WA, const float* __restrict__ X,
       for (int b = 0; b < kCorners; ++b) {
         const int p = tab.pos[t][a][b];
         if (p < 0) continue;
-        const float m = fs * fmask[at[b]];
+        const float m = fs * fmask[cs.at[b]];
         if (b == a) {  // the centre slot (position 0): the S term vanishes
 #pragma unroll
           for (int c = 0; c < 3; ++c)
@@ -1032,6 +1064,81 @@ assemble_hess_kernel(const float* __restrict__ WA, const float* __restrict__ X,
   for (int e = 0; e < 9; ++e) WH[e * sp + s] = WA[e * sp + s] + centre[e] * pv;
 #pragma unroll
   for (int e = 9; e < H * 9; ++e) WH[e * sp + s] = WA[e * sp + s] + sums[(e - 9) * T] * pv;
+}
+
+// KC, the constraint gradients of the ADMM x-update's Newton step: the
+// additive field B = dg/du (4, 3, n0, n1, n2, P) of the volume and the
+// three barycenter constraints, g_vol = sum vol det(A) and g_bar_j = sum
+// vol det(A) cent_j.  Per cell, corner a and component c, with
+// vv = vol * pvalid:
+//   B_vol[c]   += vv sum_b C[c][b] g_a[b],
+//   B_bar_j[c] += vv (cent_j sum_b C[c][b] g_a[b] + delta_cj det(A) / nl).
+// It replaces no TPU kernel: the JAX package leaves this pass to XLA
+// (optim/spaces.py PatchOps.constraint_grads over
+// patchdeform.constraint_grads_analytic_p); the port's plain form of it is
+// ~970 eager ops a call (~680 kernel launches at 17^3 x 224).
+//
+// Design: KH's gather.  One thread per output site (i, j, k, p), p the
+// fastest index; it walks the 24 (class, corner a) pairs in a fixed order,
+// derives the state of the cell whose corner a is its site (cell_state:
+// geometry, A and C from the 4 corners, read through L1/L2), and adds the
+// cell's 12 values at corner a to sums in registers; no atomics, so two
+// calls give the same bits.  Padded patches (pvalid 0) add nothing.
+//
+// Bounds at 17^3 x 224 (1,100,512 sites, 5,505,024 cells): bytes 24 of
+// coords and u read and 48 of B written a site, 79 MB, 0.024 ms at 3.35
+// TB/s; FP32, 24 cell states (~255 flops each, chip_smoke.py counts them)
+// a site, 5.6 GFLOP, 0.084 ms at 67 TFLOP/s.  So it is bound by FP32 work,
+// like KH, and keeps each cell's state in registers; it takes 0.28 ms on
+// an H100 SXM (the plain form ~22 ms).
+constexpr int kCgradsThreads = 128;
+
+struct CellTable {
+  int co[kClasses][kCorners][3];  // corner offsets of each class
+};
+
+__global__ void __launch_bounds__(kCgradsThreads)
+constraint_grads_kernel(const float* __restrict__ X, const float* __restrict__ U,
+                        const float* __restrict__ pvalid, float* __restrict__ B,
+                        const __grid_constant__ CellTable tab, int n0, int n1, int n2, int P) {
+  const int row = n2 * P;
+  const int r = blockIdx.x * kCgradsThreads + threadIdx.x;
+  if (r >= row) return;
+  const int j = blockIdx.y, i = blockIdx.z;
+  const int k = r / P;
+  const int s = (i * n1 + j) * row + r;
+  const size_t sp = static_cast<size_t>(n0) * n1 * row;
+  float bvol[3] = {0.f, 0.f, 0.f};
+  float bbar[3][3] = {};  // [j][c]
+  for (int t = 0; t < kClasses; ++t) {
+#pragma unroll
+    for (int a = 0; a < kCorners; ++a) {
+      if (!cell_inside(tab.co[t][a], i, j, k, n0, n1, n2)) continue;
+      CellState cs;
+      cell_state(X, U, tab.co[t], a, s, n1, row, P, sp, cs);
+      // det(A) along C's first row: sdet's expansion
+      const float det = cs.A[0][0] * cs.C[0][0] + cs.A[0][1] * cs.C[0][1] + cs.A[0][2] * cs.C[0][2];
+      float cga[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        cga[c] = cs.C[c][0] * cs.g[a][0] + cs.C[c][1] * cs.g[a][1] + cs.C[c][2] * cs.g[a][2];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) bvol[c] += cs.vol * cga[c];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const float cent = cs.cent(q);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) bbar[q][c] += cs.vol * (cent * cga[c] + (c == q ? det / 4.f : 0.f));
+      }
+    }
+  }
+  const float pv = pvalid ? pvalid[r - k * P] : 1.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) B[c * sp + s] = bvol[c] * pv;
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) B[(3 + q * 3 + c) * sp + s] = bbar[q][c] * pv;
 }
 
 }  // namespace
@@ -1193,6 +1300,29 @@ int assemble_hess_f32(const void* WA, const void* x, const void* u, const void* 
     assemble_hess_kernel<8><<<grid, kHessThreads, 0, s>>>(W, X, U, L, F, V, Y, tab, n0, n1, n2, P);
   else
     assemble_hess_kernel<kSlots><<<grid, kHessThreads, 0, s>>>(W, X, U, L, F, V, Y, tab, n0, n1, n2, P);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
+#if STENCIL_IN_PART(5)
+// KC: the constraint gradients B (4, 3, n0, n1, n2, P) of x and u (3, n0,
+// n1, n2, P) and pvalid (P,) or null, all f32 on the device; table the 6 x
+// 4 x 3 class offsets (ints, host memory).  A lattice of 2^31 sites or
+// more is refused.
+int constraint_grads_f32(const void* x, const void* u, const void* pvalid, void* B, const int* table, int n0,
+                         int n1, int n2, int P, int device, void* stream) {
+  if (static_cast<long long>(n0) * n1 * n2 * P == 0) return 0;
+  if (n0 > 65535 || n1 > 65535 || static_cast<long long>(n0) * n1 * n2 * P >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CellTable tab;
+  int* flat = &tab.co[0][0][0];
+  for (int v = 0; v < kClasses * kCorners * 3; ++v) flat[v] = table[v];
+  const long long row = static_cast<long long>(n2) * P;
+  const dim3 grid(static_cast<unsigned int>((row + kCgradsThreads - 1) / kCgradsThreads), n1, n0);
+  cudaSetDevice(device);
+  constraint_grads_kernel<<<grid, kCgradsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(u), static_cast<const float*>(pvalid),
+      static_cast<float*>(B), tab, n0, n1, n2, P);
   return static_cast<int>(cudaGetLastError());
 }
 #endif

@@ -32,10 +32,15 @@ Kernels (sources in ../csrc/stencil.cu, built on first use by _build):
   assemble_hess           the ADMM x-update's Hessian stencil W_A +
                           Lambda . g'' in one launch; replaces no TPU kernel
                           (the JAX package leaves the assembly to XLA)
+  constraint_grads        KC, the x-update's constraint gradients B = dg/du
+                          in one launch; replaces no TPU kernel (XLA's
+                          there too), its twin patchdeform
+                          .constraint_grads_analytic_p
 
 Dispatch is the same for all of them: a tensor on the CPU takes the plain
-twin; a CUDA tensor launches the kernel or raises (assemble_hess also
-takes the plain form on a 2D lattice, as patchstencil.apply_w does).
+twin; a CUDA tensor launches the kernel or raises (assemble_hess and
+constraint_grads also take the plain form on a 2D lattice, as
+patchstencil.apply_w does: kernel_path).
 There is no fallback and no lattice-size gate.  ``launches`` counts kernel launches per wrapper
 (the twin never counts); the scalar form of K5 and K5^T counts under names
 of its own, ``apply_w_full/c1`` and ``apply_w_full_t/c1``, and K1's lane
@@ -52,20 +57,20 @@ import torch
 
 from .. import _build
 from . import df
-from .patchdeform import hvp_corner_block_fn
+from .patchdeform import constraint_grads_analytic_p, hvp_corner_block_fn
 from .patchstencil import assemble_w, expand_sym_w, half_slots, shift_read
 
 launches = {
     "apply_w_sym": 0, "apply_w_sym/lanes": 0, "apply_w_pencil": 0, "apply_w_pencil_batched": 0,
     "apply_w_df_sym": 0, "apply_w_full": 0, "apply_w_full_t": 0, "apply_w_full/c1": 0, "apply_w_full_t/c1": 0,
-    "assemble_hess": 0,
+    "assemble_hess": 0, "constraint_grads": 0,
 }
 # the same launches by lattice: (name, (n0, n1, n2, P)) -> count
 launches_by_lattice = {}
 MAX_LANES = 8  # K3 and K1's lane kernel are templated on the lane count up to this
 BY_VALUE_SLOTS = 15  # the 3D stencil: what a by-value slot table holds
 MAX_SITES = 2**31  # the kernels with a by-value table index lattice sites in 32 bits
-HESS_CLASSES = (6, 4)  # the Hessian assembly's table: Kuhn classes of a 3D cell, corners of each
+HESS_CLASSES = (6, 4)  # the Hessian assembly's and KC's table: Kuhn classes of a 3D cell, corners of each
 # Block size of the scalar kernel, a multiple of 32 up to 256 (64, 128 and
 # 256 timed within 3% of each other at the PCD path's shapes on the H100).
 SCALAR_THREADS = 64
@@ -330,13 +335,16 @@ class StencilTables:
         return [v for c in co for o in c for v in o] + [p for c in rows for r in c for p in r]
 
     def packed(self, kind):
-        """The table of kind ("sym", "full", "full_t", or "hess/half" and
-        "hess/full", the Hessian assembly's) as C ints, made once."""
+        """The table of kind ("sym", "full", "full_t", "hess/half" and
+        "hess/full", the Hessian assembly's, or "classes", KC's: the class
+        offsets that head the Hessian assembly's) as C ints, made once."""
         tab = self._packed.get(kind)
         if tab is None:
             if self.n_slots != BY_VALUE_SLOTS:
                 raise ValueError(f"the by-value table holds {BY_VALUE_SLOTS} slots, the stencil has {self.n_slots}")
-            if kind.startswith("hess/"):
+            if kind == "classes":
+                flat = self.hess_rows(True)[:math.prod(HESS_CLASSES) * 3]
+            elif kind.startswith("hess/"):
                 flat = self.hess_rows(kind == "hess/half")
             else:
                 flat = [v for row in self.rows(kind) for v in row]
@@ -532,9 +540,9 @@ def apply_w_full_t(ps, W, x):
     return _full("apply_w_full_t", "full_t", ps, W, x)
 
 
-def hess_path(ps, u):
-    """Which form assemble_hess takes for the field u: "kernel" for a 3D
-    CUDA field, "plain" otherwise."""
+def kernel_path(ps, u):
+    """Which form assemble_hess and constraint_grads take for the field u:
+    "kernel" for a 3D CUDA field, "plain" otherwise."""
     return "kernel" if ps.dim == 3 and u.device.type == "cuda" else "plain"
 
 
@@ -545,8 +553,8 @@ def assemble_hess(ps, W_A, coords_p, u, Lmbda, free, pvalid=None):
     x-update's Newton step, assembled once a step.  coords_p and u
     (3, n0, n1, n2, P), Lmbda (4,), free (n0, n1, n2, P), pvalid (P,) or
     None, all float32 on one CUDA device: one launch of the kernel; a CPU
-    tensor or a 2D lattice: the plain twin (hess_path)."""
-    if hess_path(ps, u) == "plain":
+    tensor or a 2D lattice: the plain twin (kernel_path)."""
+    if kernel_path(ps, u) == "plain":
         return _assemble_hess(ps, W_A, coords_p, u, Lmbda, free, pvalid)
     _, _, n0, n1, n2, P = _check("assemble_hess", ps, u, (W_A, coords_p, u), torch.float32, max_sites=MAX_SITES)
     tabs = stencil_tables(ps)
@@ -567,6 +575,31 @@ def assemble_hess(ps, W_A, coords_p, u, Lmbda, free, pvalid=None):
         tabs.packed(kind), *lattice, H, device=u.device,
     )
     return W_H
+
+
+def constraint_grads(ps, geo, coords_p, u, pvalid=None):
+    """B = dg/du (4, 3, n0, n1, n2, P), additive: the derivatives of the
+    volume and the three barycenter constraints, the ADMM x-update's
+    constraint gradients, once a Newton step.  coords_p and u (3, n0, n1,
+    n2, P), pvalid (P,) or None, all float32 on one CUDA device: one launch
+    of KC, which derives its cells from coords_p; a CPU tensor or a 2D
+    lattice: the plain twin patchdeform.constraint_grads_analytic_p over
+    geo, the cell geometry of coords_p and pvalid (kernel_path)."""
+    if kernel_path(ps, u) == "plain":
+        return constraint_grads_analytic_p(ps, geo, u, 0.0, None)
+    # u first as the array whose dtype _check holds, then coords_p to u's shape
+    _, _, n0, n1, n2, P = _check("constraint_grads", ps, u, (u, coords_p), torch.float32, max_sites=MAX_SITES)
+    if pvalid is not None and (pvalid.dtype != torch.float32 or pvalid.shape != (P,) or pvalid.device != u.device
+                               or not pvalid.is_contiguous()):
+        raise ValueError(f"constraint_grads: pvalid must be contiguous float32 of shape ({P},) on {u.device}")
+    lattice = (n0, n1, n2, P)
+    B = u.new_empty((4,) + tuple(u.shape))
+    _launch(
+        "constraint_grads", "constraint_grads_f32", lattice, coords_p.data_ptr(), u.data_ptr(),
+        None if pvalid is None else pvalid.data_ptr(), B.data_ptr(), stencil_tables(ps).packed("classes"),
+        *lattice, device=u.device,
+    )
+    return B
 
 
 class ApplyWFull(torch.autograd.Function):

@@ -242,7 +242,10 @@ def newton_xupdate_ops(
     # read by the Schur update and by the convergence test
     g = ops_.constraints(u, ref_volume, ref_barycenter)
     while not done and not failed and it < cfg.ns_max_its:
-        B = ops_.constraint_grads(u, ref_volume, ref_barycenter)
+        with span("admm.cgrads") as rec:
+            B = ops_.constraint_grads(u, ref_volume, ref_barycenter)
+            if rec is not None:  # recording: which form computed B
+                rec["attrs"]["path"] = ops_.cgrads_path(u)
         Lu = (ops_.A(u) + r_lin + torch.tensordot(Lambda, B, dims=1)) * free
         if extra_hvp is not None:
             # the J'' term is part of the x-update operator (2d:389), so the

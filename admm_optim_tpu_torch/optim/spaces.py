@@ -79,6 +79,10 @@ class GlobalOps:
         return dfm.constraint_grads(self.coords, self.elems, u, ref_volume, ref_barycenter, self.free,
                                     plan=self.vplan)
 
+    def cgrads_path(self, u):
+        """constraint_grads has no kernel on this backend."""
+        return "plain"
+
     def constraint_hvp(self, u, Lmbda, ref_volume, ref_barycenter, x):
         return dfm.constraint_hvp(self.coords, self.elems, u, Lmbda, ref_volume, ref_barycenter,
                                   x * self.free, plan=self.vplan) * self.free
@@ -232,7 +236,15 @@ class PatchOps:
         return self._psum(g) - refs
 
     def constraint_grads(self, u, ref_volume, ref_barycenter):
-        return self._cons(pdfm.constraint_grads_analytic_p(self.ps, self.geo, u, ref_volume, ref_barycenter))
+        """B = dg/du, consistent and free-masked, from the additive field of
+        stencil_kernels.constraint_grads: one launch of KC for a 3D field on
+        the card, pdfm.constraint_grads_analytic_p on self.geo otherwise
+        (cgrads_path says which).  Padded dummy patches add nothing."""
+        return self._cons(sk.constraint_grads(self.ps, self.geo, self.coords_p, u, self.pvalid))
+
+    def cgrads_path(self, u):
+        """Which form constraint_grads takes for u: "kernel" or "plain"."""
+        return sk.kernel_path(self.ps, u)
 
     def constraint_hvp(self, u, Lmbda, ref_volume, ref_barycenter, x):
         return self._cons(pdfm.constraint_hvp_analytic_p(
@@ -262,7 +274,7 @@ class PatchOps:
         def apply(x):
             return self._apply(W_H, x)
 
-        apply.path = sk.hess_path(self.ps, u)
+        apply.path = sk.kernel_path(self.ps, u)
         return apply
 
     def tensor_rhs(self, M):

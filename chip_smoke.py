@@ -46,7 +46,8 @@ they run:
      L2 left warm; the Hessian assembly of the ADMM x-update (group
      "hess") at 17^3 x 224, 9^3 x 224 and 3^3 x 5 on a jittered lattice,
      beside its byte and FP32 bounds, its twin timed once, twice bit for
-     bit;
+     bit; KC, the constraint gradients (group "cgrads"), the same way at
+     the same shapes, with and without pvalid, its twin timed thrice;
   4. slice: xupdate_solve.build(4) + solve on the GPU (2,843,910 DoF), its
      convergence to a true relative residual <= 1e-8 (evaluated once in
      f64 with the plain apply), the kernel launch counts of that run, its
@@ -213,6 +214,7 @@ from admm_optim_tpu_torch.io.telemetry import TelemetryWriter
 from admm_optim_tpu_torch.models.obstacle import ObstacleShapeOpt, ProblemConfig, f32_presets
 from admm_optim_tpu_torch.ops import navier_stokes as nsops
 from admm_optim_tpu_torch.ops import ns_patchjac as nsjac
+from admm_optim_tpu_torch.ops import patchdeform as pdfm
 from admm_optim_tpu_torch.ops import patchstencil as st
 from admm_optim_tpu_torch.ops import stencil_kernels as sk
 from admm_optim_tpu_torch.ops.deformation import barycenter
@@ -244,7 +246,7 @@ SHARD_ADMM_SHAPE = ((5, 5, 5), 112)
 # the kernel groups of kernel_phase: all at 17^3, 9^3 and 3^3 x 5; what the
 # coarse levels, the PCD path and the step's x-update (K1 on 5 lanes) run
 # at 5^3 and 3^3 x 224
-GROUPS = ("full", "sym", "pencil", "lanes", "batched", "df", "hess")
+GROUPS = ("full", "sym", "pencil", "lanes", "batched", "df", "hess", "cgrads")
 COARSE_GROUPS = ("full", "sym", "pencil", "lanes", "batched")
 PENCIL_GROUPS = ("pencil", "batched")  # K2 and K3, also timed at the scalar-width shapes
 # the device kernel of K1, K5 and K5^T on a field of C = 3, as the profiler names it
@@ -326,7 +328,7 @@ PCD_FROM_VISC = 0.04
 # the kernels each path must launch, and the TPU kernel each replaces
 PATHS = {
     "solve": ("apply_w_sym", "apply_w_pencil", "apply_w_df_sym"),
-    "admm": ("apply_w_sym/lanes", "apply_w_pencil_batched", "assemble_hess"),
+    "admm": ("apply_w_sym/lanes", "apply_w_pencil_batched", "assemble_hess", "constraint_grads"),
     "ns": ("apply_w_full", "apply_w_full_t"),
     "pcd": ("apply_w_full", "apply_w_full_t", "apply_w_full/c1", "apply_w_full_t/c1"),
     # K1 on lanes in the x-update's batched CG, K5 in the NS re-solve, K5^T in the adjoint
@@ -375,6 +377,8 @@ REPLACES = {
     "apply_w_full_t/c1": f"{PALLAS}:97 (C = 1, its jax.vjp, admm_optim_tpu/solvers/ns_solver.py:907)",
     # no TPU kernel: the JAX package leaves the assembly to XLA
     "assemble_hess": "none (admm_optim_tpu/optim/spaces.py PatchOps.hess_fn, assembled by XLA)",
+    # KC: no TPU kernel either, XLA computes the pass
+    "constraint_grads": "none (admm_optim_tpu/optim/spaces.py PatchOps.constraint_grads, computed by XLA)",
 }
 # the shape each kernel's JSON entry is timed at: the main path's fine level
 JSON_SHAPE = {name: "17^3x224" for name in REPLACES}
@@ -394,12 +398,17 @@ BY_SHAPE = {
     "apply_w_full/c1": ("3^3x224", "5^3x222"),
     "apply_w_full_t/c1": ("3^3x224", "5^3x222"),
     "assemble_hess": ("9^3x224", "3^3x5"),
+    "constraint_grads": ("9^3x224", "3^3x5"),
 }
 # the Hessian assembly's floating-point operations (csrc/stencil.cu, an FMA
 # as 2): a cell's state at one of its corners (geometry, A, cof(A), S,
 # C g_a), a diagonal block, an off-diagonal block (with its mask and sum),
 # and per site the W_A + pvalid * sums of each stored entry
 HESS_STATE_FLOPS, HESS_DIAG_FLOPS, HESS_BLOCK_FLOPS, HESS_OUT_FLOPS = 215, 54, 112, 2
+# KC's (csrc/stencil.cu, an FMA as 2): a cell's state at one of its
+# corners with its 12 values there (cell_state 166, det(A), C g_a, the
+# centroid and the sums 89), and per output value the pvalid product
+CGRADS_CELL_FLOPS, CGRADS_OUT_FLOPS = 255, 1
 
 
 def log(*a):
@@ -498,7 +507,8 @@ def ptxas_report(nvcc_log):
     per entry function of nvcc's -Xptxas -v output."""
     out, kernel, spills = [], None, ""
     for line in nvcc_log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d+((?:apply_w|empty|assemble_hess)\w*?_kernel)(I\w+)?", line)
+        m = re.search(r"Compiling entry function '\w*?\d+((?:apply_w|empty|assemble_hess|constraint_grads)\w*?_kernel)"
+                      r"(I\w+)?", line)
         if m:
             args = template_args(m.group(2)) if m.group(2) else []
             kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
@@ -714,22 +724,31 @@ def kernel_phase(ps, shape, seed, timed, groups=GROUPS, device="cuda", l2=False,
         poisoned("K4", W, ((lambda Wp: torch.cat(sk.apply_w_df_sym(ps, Wp, xh, xl)), torch.cat((yh, yl))),))
     if "hess" in groups:
         hess_group(ps, lat, P, W, free, g, dev, record, out)
+    if "cgrads" in groups:
+        cgrads_group(ps, lat, P, free, g, dev, record, out)
     return out
 
 
-def hess_group(ps, lat, P, W, free, g, dev, record, out):
-    """The Hessian assembly (stencil_kernels.assemble_hess) on W as W_A, the
-    coordinates of a lattice of spacing 1/16 jittered by a tenth of it
-    (every Kuhn cell keeps its orientation), u of 0.05 of the spacing and
-    a random Lambda: against its twin, the twin timed once (its ~27,000
-    launches at 17^3 x 224 take most of a second), twice bit for bit, and
-    its byte and FP32 bounds beside each other (out[name]["bounds_ms"])."""
+def jittered_lattice(lat, P, free, g, dev):
+    """The coordinates of a lattice of spacing 1/16 jittered by a tenth of
+    it (every Kuhn cell keeps its orientation), P patches side by side
+    along x, and u of 0.05 of the spacing, zero where free is."""
     h = 1.0 / 16
     site = torch.stack(torch.meshgrid(*[torch.arange(n, device=dev) for n in lat], indexing="ij")).float()
-    patch = torch.arange(P, device=dev).float() * (lat[0] - 1)  # patches side by side along x
+    patch = torch.arange(P, device=dev).float() * (lat[0] - 1)
     cp = site[..., None] * h + torch.stack([patch * h, 0 * patch, 0 * patch]).reshape(3, 1, 1, 1, P)
     cp = (cp + 0.1 * h * torch.rand(cp.shape, generator=g, device=dev)).contiguous()
     u = (0.05 * h * torch.randn(cp.shape, generator=g, device=dev) * free).contiguous()
+    return cp, u
+
+
+def hess_group(ps, lat, P, W, free, g, dev, record, out):
+    """The Hessian assembly (stencil_kernels.assemble_hess) on W as W_A, a
+    jittered lattice and a random Lambda: against its twin, the twin timed
+    once (its ~27,000 launches at 17^3 x 224 take most of a second), twice
+    bit for bit, and its byte and FP32 bounds beside each other
+    (out[name]["bounds_ms"])."""
+    cp, u = jittered_lattice(lat, P, free, g, dev)
     lam = torch.randn(4, generator=g, device=dev)
     args = (W, cp, u, lam, free)
     y = sk.assemble_hess(ps, *args)
@@ -741,8 +760,36 @@ def hess_group(ps, lat, P, W, free, g, dev, record, out):
     moved = nbytes(W, cp, u, free, y)
     record("hess", "assemble_hess", y, sk._assemble_hess(ps, *args), lambda: sk.assemble_hess(ps, *args),
            lambda: sk._assemble_hess(ps, *args), moved, fl, plain_reps=1)
-    out["assemble_hess"]["bounds_ms"] = {
-        "bytes": moved / (H100_SXM_GBPS * 1e9) * 1e3, "fp32": fl / F32_FLOPS * 1e3, "gflop": fl / 1e9}
+    out["assemble_hess"]["bounds_ms"] = bounds_ms(moved, fl)
+
+
+def cgrads_group(ps, lat, P, free, g, dev, record, out):
+    """KC, the constraint gradients (stencil_kernels.constraint_grads), on
+    a jittered lattice: against its twin (patchdeform
+    .constraint_grads_analytic_p over the cell geometry, which the
+    program derives once), without pvalid and with one that zeroes every
+    fifth patch, twice bit for bit, and its byte and FP32 bounds beside
+    each other (out[name]["bounds_ms"])."""
+    cp, u = jittered_lattice(lat, P, free, g, dev)
+    pvalid = (torch.arange(P, device=dev) % 5 != 0).float()
+    for pv in (pvalid, None):  # the unmasked call last: it is timed
+        geo = pdfm.cell_geometry(ps, cp, pv)
+        y = sk.constraint_grads(ps, geo, cp, u, pv)
+        ref = pdfm.constraint_grads_analytic_p(ps, geo, u, 0.0, None)
+        what = f"constraint_grads at {lat} x {P}{'' if pv is None else ' with pvalid'}"
+        check(torch.equal(y, sk.constraint_grads(ps, geo, cp, u, pv)), f"{what}: two calls, the same bits")
+        err = float((y - ref).abs().max()) / float(ref.abs().max())
+        check(err <= 1e-5, f"{what}: rel err {err:.3e} > 1e-05")
+    fl = math.prod(n - 1 for n in lat) * P * 24 * CGRADS_CELL_FLOPS + CGRADS_OUT_FLOPS * y.numel()
+    moved = nbytes(cp, u, y)
+    record("cgrads", "constraint_grads", y, ref, lambda: sk.constraint_grads(ps, geo, cp, u),
+           lambda: pdfm.constraint_grads_analytic_p(ps, geo, u, 0.0, None), moved, fl, plain_reps=3)
+    out["constraint_grads"]["bounds_ms"] = bounds_ms(moved, fl)
+
+
+def bounds_ms(moved, fl):
+    """The byte and FP32 bounds of a kernel side by side, and its GFLOP."""
+    return {"bytes": moved / (H100_SXM_GBPS * 1e9) * 1e3, "fp32": fl / F32_FLOPS * 1e3, "gflop": fl / 1e9}
 
 
 def log_kernel(tag, name, label, t, floor_ms):

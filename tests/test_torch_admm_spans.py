@@ -18,12 +18,12 @@ from admm_optim_tpu_torch.utils import profiling
 torch.set_num_threads(1)
 
 CFG = dataclasses.replace(admm_run.BENCH_CFG, ns_max_its=10)
-# the direct children of admm.newton, a Newton step: the Hessian assembly,
-# the lane solve, the lane counts, the flags, the Schur update, then
-# |DLambda|, |Lu|, |g| and |du| (and the exchanges of the operator and
-# constraint applies between them)
-STEP = ["admm.hess", "admm.lanes", "host.sync", "host.sync", "admm.schur", "host.sync", "host.sync", "host.sync",
-        "host.sync"]
+# the direct children of admm.newton, a Newton step: the constraint
+# gradients, the Hessian assembly, the lane solve, the lane counts, the
+# flags, the Schur update, then |DLambda|, |Lu|, |g| and |du| (and the
+# exchanges of the operator and constraint applies between them)
+STEP = ["admm.cgrads", "admm.hess", "admm.lanes", "host.sync", "host.sync", "admm.schur", "host.sync", "host.sync",
+        "host.sync", "host.sync"]
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +55,7 @@ def test_names_and_counts(traced):
     assert n["admm.inner"] == 1
     for name in ("admm.iter", "admm.z_prox", "admm.newton", "admm.dual"):
         assert n[name] == s.admm_it, name
-    for name in ("admm.hess", "admm.lanes", "admm.schur"):
+    for name in ("admm.cgrads", "admm.hess", "admm.lanes", "admm.schur"):
         assert n[name] == s.total_newton, name
     loop = next(i for i, r in enumerate(recs) if r["name"] == "admm.inner")
     iters = _children(recs, loop)
@@ -84,6 +84,13 @@ def test_host_sync_around_each_newton_read(traced):
         lanes += [j for j in _children(recs, i) if recs[j]["name"] == "admm.lanes"]
     reads = [sum(1 for k in _children(recs, j) if recs[k]["name"] == "host.sync") for j in lanes]
     assert len(lanes) == s.total_newton and sum(reads) == s.batch_iters + s.total_newton
+
+
+def test_cgrads_span_says_plain(traced):
+    """Every admm.cgrads span of the traced CPU loop carries path "plain":
+    the constraint gradients of a CPU field take the plain form."""
+    _, s, recs = traced
+    assert [r["attrs"]["path"] for r in recs if r["name"] == "admm.cgrads"] == ["plain"] * s.total_newton
 
 
 def test_z_prox_counts_the_cells_it_moved(traced):

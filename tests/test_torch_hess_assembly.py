@@ -184,7 +184,7 @@ def test_2d_takes_the_plain_form_on_the_cpu():
     ps, args = _inputs_2d("cpu")
     sk.reset_launches()
     got = sk.assemble_hess(ps, *args)
-    assert sk.hess_path(ps, args[2]) == "plain" and sk.launches["assemble_hess"] == 0
+    assert sk.kernel_path(ps, args[2]) == "plain" and sk.launches["assemble_hess"] == 0
     assert torch.equal(got, sk._assemble_hess(ps, *args))
 
 
@@ -253,7 +253,7 @@ def test_2d_takes_the_plain_form_on_the_card(card):
     ps, args = _inputs_2d("cuda")
     sk.reset_launches()
     got = sk.assemble_hess(ps, *args)
-    assert sk.hess_path(ps, args[2]) == "plain" and sk.launches["assemble_hess"] == 0
+    assert sk.kernel_path(ps, args[2]) == "plain" and sk.launches["assemble_hess"] == 0
     assert torch.equal(got, sk._assemble_hess(ps, *args))
 
 

@@ -18,7 +18,7 @@ from torch_obstacle_golden import golden, mesh_invariants, obstacle_golden, port
 torch.set_num_threads(1)
 
 WRAPPERS = ("apply_w_sym", "apply_w_full", "apply_w_full_t", "apply_w_pencil", "apply_w_pencil_batched",
-            "apply_w_df_sym")
+            "apply_w_df_sym", "constraint_grads")
 
 
 @pytest.fixture
@@ -52,6 +52,6 @@ def test_resumed_step1_3d_matches_jax(strided):
     obstacle_golden("3d", prob, hist, [1])
     mesh_invariants(prob, prob.X_final)
     assert prob._cur_Jp.is_contiguous() and prob.X_final.is_contiguous()
-    # K1 on lanes (the x-update), K5 (the re-solve) and K5^T (the adjoint)
-    assert {"apply_w_sym", "apply_w_full", "apply_w_full_t", "assemble"} <= set(calls)
+    # K1 on lanes and KC (the x-update), K5 (the re-solve) and K5^T (the adjoint)
+    assert {"apply_w_sym", "constraint_grads", "apply_w_full", "apply_w_full_t", "assemble"} <= set(calls)
     assert bad == []

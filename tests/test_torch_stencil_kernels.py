@@ -88,6 +88,7 @@ def test_k2_twin_matches_interpret_pallas_pencil_bf16(problem):
     assert set(sk.launches) == {
         "apply_w_sym", "apply_w_sym/lanes", "apply_w_pencil", "apply_w_pencil_batched", "apply_w_df_sym",
         "apply_w_full", "apply_w_full_t", "apply_w_full/c1", "apply_w_full_t/c1", "assemble_hess",
+        "constraint_grads",
     }
     assert sum(sk.launches.values()) == 0
 
