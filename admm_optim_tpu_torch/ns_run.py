@@ -63,6 +63,7 @@ from .ops.convdiff import convdiff_elem_mats
 from .ops.p1space import P1VectorSpace
 from .solvers import ns_solver, patch_mg
 from .solvers.ns_solver import NewtonConfig
+from .utils.profiling import span
 
 NS_DIR = ("inlet", "wall", "obstacle_surface")  # velocity Dirichlet with the do-nothing outlet
 DEF_DIR = ("inlet", "wall", "outlet")  # deformation Dirichlet: masks J'
@@ -126,6 +127,15 @@ class NSContext:
     # above ns_jac_mem_cap under "auto"): jvp / vjp and _bt_coupling
     assembled: bool = True
     jac_bytes: int = 0  # what the assembled Jacobian needs (0 with vorder=1)
+    # newton replays each iterate's Jacobian and preconditioner applies
+    # from CUDA graphs (ns_solver._Graphed) on the card; taken only on the
+    # patch backend with the assembled Jacobian and the mass block
+    graphs: bool = True
+
+    @property
+    def graphed(self) -> bool:
+        """Whether newton's linear solves replay CUDA graphs."""
+        return self.graphs and self.backend == "patch" and self.assembled and self.pressure_precond == "mass"
 
     @property
     def n_state(self) -> int:
@@ -143,7 +153,7 @@ class NSContext:
         b, dim = self.base0, self.space.dim
         em = convdiff_elem_mats(arg[:, :dim], b["elems"], arg[:, dim:].T, self.visc)
         v0 = sparsity.bake_dirichlet(b["pat_v"], sparsity.assemble_values(b["pat_v"], em), b["fixed_v"])
-        return torch.linalg.inv(sparsity.to_dense(b["pat_v"], v0))
+        return _inv(sparsity.to_dense(b["pat_v"], v0))
 
     def ap_base_dense_fn(self, arg):
         """Dense inverse of the level-0 unit-viscosity pressure Laplacian
@@ -151,7 +161,7 @@ class NSContext:
         b, dim = self.base0, self.space.dim
         em = convdiff_elem_mats(arg[:, :dim], b["elems"], arg[:, dim:].T, 1.0, ncomp=1)
         v0 = sparsity.bake_dirichlet(b["pat_p"], sparsity.assemble_values(b["pat_p"], em), b["fixed_p"])
-        return torch.linalg.inv(sparsity.to_dense(b["pat_p"], v0))
+        return _inv(sparsity.to_dense(b["pat_p"], v0))
 
     def jac(self, X, s, nu):
         if self.backend == "global":
@@ -178,16 +188,20 @@ class NSContext:
         one; W is the assembled Jacobian, or without one the B^T closure
         of ns_solver._bt_coupling.  seconds, when given, receives the
         synchronized assembly time of each part under "velocity", "pcd"
-        and "jacobian" (or "coupling")."""
+        and "jacobian" (or "coupling").  Each part is an ns.assemble span
+        (attribute part), its two synchronizations host.sync spans."""
         def timed(name, fn):
-            if seconds is None:
-                return fn()
-            _sync(X.device)
-            t0 = time.perf_counter()
-            out = fn()
-            _sync(X.device)
-            seconds[name] = time.perf_counter() - t0
-            return out
+            with span("ns.assemble", part=name):
+                if seconds is None:
+                    return fn()
+                with span("host.sync"):
+                    _sync(X.device)
+                t0 = time.perf_counter()
+                out = fn()
+                with span("host.sync"):
+                    _sync(X.device)
+                seconds[name] = time.perf_counter() - t0
+                return out
 
         p2_iso = self.space.vorder == 2
         if self.backend == "global":
@@ -262,6 +276,12 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _inv(A):
+    """torch.linalg.inv without its error check, which reads the
+    factorization's status back to the host once a call."""
+    return torch.linalg.inv_ex(A)[0]
+
+
 def channel(num_refs: int, dim: int = 3, diag: str = "fixed") -> Hierarchy:
     """The geomgen channel refined num_refs times: 3D, or 2D with fixed
     diagonals (the brick metadata of the patch backend) or with
@@ -278,7 +298,7 @@ def build(num_refs: int | None = None, device=None, dtype=torch.float32, visc: f
           vel_inner: int = 1, *, hier: Hierarchy | None = None, ps: PatchSet | None = None,
           tab_c: st.LevelTables | None = None, do_nothing: bool = True, diameter: float = 6.0,
           backend: str = "patch", vorder: int = 2, ns_assembled_jac: str = "auto",
-          ns_jac_mem_cap: float = 6e9) -> NSContext:
+          ns_jac_mem_cap: float = 6e9, graphs: bool = True) -> NSContext:
     """Host hierarchy, NS space, the level-k and once-refined patchsets
     with their device tables, and the level-0 wiring of the dense base
     solves.  device defaults to the card (an error without one); cfg
@@ -296,7 +316,8 @@ def build(num_refs: int | None = None, device=None, dtype=torch.float32, visc: f
     themselves and which never assembles its Jacobian; ns_assembled_jac
     "on" / "off" / "auto" (assembled while the Jacobian's bytes stay under
     ns_jac_mem_cap) picks the assembled or the matrix-free operators
-    (obstacle.py:357-416)."""
+    (obstacle.py:357-416).  graphs=False runs newton's linear solves
+    eagerly where they would replay CUDA graphs (NSContext.graphed)."""
     if pressure_precond not in ("mass", "pcd"):
         raise ValueError(f"pressure_precond must be 'mass' or 'pcd', got {pressure_precond!r}")
     if backend not in ("patch", "global"):
@@ -324,7 +345,7 @@ def build(num_refs: int | None = None, device=None, dtype=torch.float32, visc: f
         obstacle_vmask=torch.as_tensor(lvl.subset_vertices["obstacle_surface"], dtype=dtype, device=device),
         free_def=torch.as_tensor(np.repeat(~lvl.vertex_mask(DEF_DIR)[None], dim, axis=0), dtype=dtype, device=device),
         visc=float(visc), stab=float(stab), cfg=cfg, host_seconds=0.0, pressure_precond=pressure_precond,
-        vel_inner=int(vel_inner),
+        vel_inner=int(vel_inner), graphs=bool(graphs),
     )
 
     def assembled(need):
@@ -402,20 +423,26 @@ def newton(ctx: NSContext, s0=None, visc: float | None = None, recycle: dict | N
     contiguous) at visc (default ctx.visc) from s0 (default: the cold
     start).  recycle carries the GCRO-DR space across calls
     (newton_solve_stepped).  Returns (NewtonResult, assembly seconds: per
-    Newton iterate a dict {"velocity", "pcd" with PCD, "jacobian"})."""
+    Newton iterate a dict {"velocity", "pcd" with PCD, "jacobian"}).  The
+    linear solves replay CUDA graphs where ctx.graphed.  The call is one
+    ns.newton span, with the attributes visc, iters and lin_iters (the
+    linear iterations summed)."""
     X = ctx.coords if X is None else X
     nu = ctx.visc if visc is None else float(visc)
-    s0 = initial_state(ctx, X) if s0 is None else s0
     assembly = []
 
     def pre_fn(s):
         assembly.append({})
         return ctx.pre_full(X, s, nu, seconds=assembly[-1])
 
-    res = ns_solver.newton_solve_stepped(
-        ctx.space, X, s0, nu, ctx.stab, ctx.cfg, M_fn=ctx.M_fn, jv_fn=ctx.jv if ctx.assembled else None,
-        pre_fn=pre_fn, recycle=recycle,
-    )
+    with span("ns.newton", visc=nu) as rec:
+        s0 = initial_state(ctx, X) if s0 is None else s0
+        res = ns_solver.newton_solve_stepped(
+            ctx.space, X, s0, nu, ctx.stab, ctx.cfg, M_fn=ctx.M_fn, jv_fn=ctx.jv if ctx.assembled else None,
+            pre_fn=pre_fn, recycle=recycle, graphs=ctx.graphed,
+        )
+        if rec is not None:
+            rec["attrs"].update(iters=res.iters, lin_iters=sum(res.lin_iters))
     return res, assembly
 
 

@@ -18,10 +18,10 @@ from .geometry import corner_geometry, elem_geometry, p1_phys_grads
 
 
 def _mfac(nl, d, like):
-    m = torch.ones((nl, nl), dtype=torch.float64) + torch.eye(nl, dtype=torch.float64)
-    return (m / ((d + 1) * (d + 2))).to(
-        dtype=like.dtype, device=like.device
-    )
+    # made on like's device: a copy from the host would wait for its queue
+    f64 = dict(dtype=torch.float64, device=like.device)
+    m = torch.ones((nl, nl), **f64) + torch.eye(nl, **f64)
+    return (m / ((d + 1) * (d + 2))).to(like.dtype)
 
 
 def convdiff_corner_mats(cw, visc, art_diff=True, ncomp=None):

@@ -218,12 +218,26 @@ def _norm(x):
     return torch.sqrt(torch.sum(x * x))
 
 
+def _to_host(a):
+    """A device tensor as a float64 numpy array: a blocking read."""
+    return a.detach().to("cpu", torch.float64).numpy()
+
+
+def _to_device(a, like):
+    """A host array as a tensor of like's dtype on like's device: a copy
+    from pageable memory, which waits for the device's queue, so a
+    host.sync span."""
+    with span("host.sync"):
+        return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+
+
 def _lstsq(H, beta, j: int):
     """y minimizing |beta e1 - H[:j+1, :j] y| (float64 numpy) and that
     minimum, the residual estimate."""
-    Hj = H[: j + 1, :j].detach().to("cpu", torch.float64).numpy()
-    e1 = np.zeros(j + 1)
-    e1[0] = float(beta)
+    with span("host.sync"):  # the copy waits for the device; beta is ready with it
+        Hj = _to_host(H[: j + 1, :j])
+        e1 = np.zeros(j + 1)
+        e1[0] = float(beta)
     y = np.linalg.lstsq(Hj, e1, rcond=None)[0]
     return y, float(np.linalg.norm(Hj @ y - e1))
 
@@ -290,7 +304,7 @@ def gmres_chunk_finish(x0, Z, H, beta, j: int | None = None):
     given): x0 + Z^T y."""
     j = _filled(H) if j is None else j
     y, _ = _lstsq(H, beta, j)
-    return x0 + torch.as_tensor(y, dtype=Z.dtype, device=Z.device) @ Z[:j]
+    return x0 + _to_device(y, Z) @ Z[:j]
 
 
 def gmres(
@@ -375,7 +389,7 @@ def gcro_chunk_finish(x0, Z, H, B, beta, U, j: int | None = None):
     cancels the C-components that A Z^T reintroduces."""
     j = _filled(H) if j is None else j
     y, _ = _lstsq(H, beta, j)
-    yt = torch.as_tensor(y, dtype=Z.dtype, device=Z.device)
+    yt = _to_device(y, Z)
     return x0 + yt @ Z[:j] - (B[:, :j] @ yt) @ U
 
 
@@ -440,8 +454,8 @@ def gcro_recycle_build(U, C, V, Z, coef_D, coef_C):
     """The new recycle space from host-selected coefficients (device
     GEMMs)."""
     k = U.shape[0]
-    cD = torch.as_tensor(coef_D, dtype=U.dtype, device=U.device)
-    cC = torch.as_tensor(coef_C, dtype=U.dtype, device=U.device)
+    cD = _to_device(coef_D, U)
+    cC = _to_device(coef_C, U)
     return cD[:k].T @ U + cD[k:].T @ Z, cC[:k].T @ C + cC[k:].T @ V
 
 
@@ -464,12 +478,10 @@ def gcro_update_recycle(U, C, V, Z, H, B, k: int, j: int):
     if j <= 1:
         return U, C
 
-    def host(a):
-        return a.detach().to("cpu", torch.float64).numpy()
-
-    sel = gcro_recycle_select(
-        host(H), host(B), *(host(a) for a in gcro_overlaps(U, C, V, Z)), k, j
-    )
+    blocks = (H, B, *gcro_overlaps(U, C, V, Z))
+    with span("host.sync"):  # the first copy waits for the device, the rest for their own
+        host = [_to_host(a) for a in blocks]
+    sel = gcro_recycle_select(*host, k, j)
     if sel is None:
         return U, C
     return gcro_recycle_build(U, C, V, Z, *sel)

@@ -42,6 +42,8 @@ import torch
 
 from ..ops import navier_stokes as nsops
 from ..ops import patchstencil as pst
+from ..ops import stencil_kernels as sk
+from ..utils.profiling import host_read, span
 from . import krylov
 from . import patch_mg as pmg
 
@@ -105,9 +107,72 @@ class NewtonResult(NamedTuple):
     seconds: list  # wall seconds per Newton iteration, synchronized
 
 
+# Jacobian and preconditioner applies of the Newton linear solves by how
+# _Graphed ran them: eagerly, captured into a CUDA graph (and replayed
+# once for the caller), or replayed from one
+graph_counts = {"eager": 0, "capture": 0, "replay": 0}
+
+
+class _Graphed:
+    """fn(x) replayed from a CUDA graph.  A Newton iterate applies its
+    Jacobian and its preconditioner to vectors of one shape hundreds of
+    times on data fixed for the iterate; eagerly each apply is hundreds of
+    launches from the host.  The first call of a shape runs eagerly (it
+    makes the lazy tables and the library's handles), the second captures
+    fn into a graph with a private memory pool and replays it, every later
+    call copies x into the graph's static input and replays: the same
+    kernels in the same order, one launch of the host.  CPU tensors, other
+    shapes, inputs that require grad and calls inside another capture run
+    eagerly.  A capture is one host.sync span (torch.cuda.graph
+    synchronizes first); a replay adds the captured call's kernel launches
+    to stencil_kernels' counts."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.at = None  # the (shape, dtype, device) of the first call
+        self.graph = None
+
+    def __call__(self, x):
+        at = (x.shape, x.dtype, x.device)
+        if not x.is_cuda or x.requires_grad or torch.cuda.is_current_stream_capturing() or (
+                self.graph is not None and at != self.at):
+            mode = "eager"
+        elif self.graph is not None:
+            mode = "replay"
+        elif self.at != at:
+            self.at, mode = at, "eager"
+        else:
+            mode = "capture"
+        graph_counts[mode] += 1
+        if mode == "eager":
+            return self.fn(x)
+        if mode == "capture":
+            self._capture(x)
+        else:
+            self.x.copy_(x)
+            for k, n in self.launches.items():
+                sk.launches[k] += n
+            for k, n in self.by_lattice.items():
+                sk.launches_by_lattice[k] = sk.launches_by_lattice.get(k, 0) + n
+        self.graph.replay()
+        # a fresh tensor: the caller may keep it past the next apply
+        return self.y.clone()
+
+    def _capture(self, x):
+        launches, by_lattice = dict(sk.launches), dict(sk.launches_by_lattice)
+        self.x = x.clone()
+        graph = torch.cuda.CUDAGraph()
+        with span("host.sync"), torch.cuda.device(x.device), torch.cuda.graph(graph):
+            self.y = self.fn(self.x)
+        self.graph = graph
+        self.launches = {k: n - launches[k] for k, n in sk.launches.items() if n != launches[k]}
+        self.by_lattice = {k: n - by_lattice.get(k, 0) for k, n in sk.launches_by_lattice.items()
+                           if n != by_lattice.get(k, 0)}
+
+
 def newton_solve_stepped(
     space, coords, s0, visc, stab, cfg: NewtonConfig, M_fn=None, jv_fn=None, pre_fn=None,
-    recycle: dict | None = None,
+    recycle: dict | None = None, graphs: bool = False,
 ) -> NewtonResult:
     """Host-stepped Newton with the acceptBest line search.
 
@@ -122,7 +187,14 @@ def newton_solve_stepped(
     further, across continuation rungs and optimization steps: its "U"
     seeds the first iterate (re-imaged against that iterate's Jacobian at
     the cost of lin_recycle_k applies) and is replaced by the space the
-    last iterate left."""
+    last iterate left.  graphs: each iterate's Jacobian and preconditioner
+    applies replay CUDA graphs (_Graphed), which jv_fn and M_fn must allow:
+    no host reads, tensors made in the call or kept by reference.
+
+    Spans (recorded only while a profiler records): ns.iterate per Newton
+    iterate, holding ns.krylov (its linear solve, whose preconditioner
+    applies are ns.precond spans) and ns.line_search; every blocking read
+    is a host.sync."""
 
     def R(ss):
         return nsops.ns_residual(space, coords, ss, visc, stab)
@@ -135,12 +207,20 @@ def newton_solve_stepped(
             Jv = lambda x: jv_fn(x, W)  # noqa: E731
         else:
             Jv = lambda x: torch.func.jvp(R, (s,), (x,))[1]  # noqa: E731
-        return Jv, (M_diag if M_fn is None else (lambda x: M_fn(x, *m_args)))
+        M = M_diag if M_fn is None else (lambda x: M_fn(x, *m_args))  # noqa: E731
+        if graphs:
+            Jv, M = _Graphed(Jv), _Graphed(M)
+
+        def Mx(x):
+            with span("ns.precond"):
+                return M(x)
+
+        return Jv, Mx
 
     n, isz = s0.numel(), s0.element_size()
     rl = _chunked_rl(cfg, n, isz)
     ch = min(max(1, int(cfg.lin_exec_chunk)), rl)
-    nrm = float(_norm(R(s0)))
+    nrm = host_read(_norm(R(s0)), float)
     hist, lin_hist, secs = [nrm], [], []
     s, it = s0, 0
     k_r = max(0, int(cfg.lin_recycle_k))
@@ -149,62 +229,24 @@ def newton_solve_stepped(
         k_r = 0
     U_carry = recycle.get("U") if recycle is not None else None
     while nrm > cfg.abs_tol and it < cfg.max_iters:
-        t0 = time.perf_counter()
-        Jv, Mx = wiring(s, pre_fn(s) if pre_fn is not None else ())
-        b = -R(s)
-        # inexact-Newton target fixed from this iterate's residual
-        target = max(cfg.lin_abs_tol, 0.1 * cfg.accept_tol, cfg.lin_rel_tol * nrm)
-        x = torch.zeros_like(s)
-        lin_its = 0
-        beta_prev = None
-        U = C = None
-        if k_r > 0 and U_carry is not None and U_carry.shape[0] == k_r:
-            # re-image the recycle space against this iterate's Jacobian
-            # (k plain applies, charged to the linear budget)
-            U, C = krylov.gcro_prepare(Jv, U_carry)
-            lin_its += k_r
-        while lin_its < cfg.lin_max_iters:
+        with span("ns.iterate"):
+            t0 = time.perf_counter()
+            Jv, Mx = wiring(s, pre_fn(s) if pre_fn is not None else ())
+            b = -R(s)
+            # inexact-Newton target fixed from this iterate's residual
+            target = max(cfg.lin_abs_tol, 0.1 * cfg.accept_tol, cfg.lin_rel_tol * nrm)
+            with span("ns.krylov"):
+                x, lin_its, U = _linear_solve(Jv, Mx, b, target, cfg, rl, ch, k_r, U_carry)
             if U is not None:
-                x_p, V, Z, H, B, beta = krylov.gcro_chunk_start(Jv, b, x, U, C, rl)
-            else:
-                V, Z, H, beta = krylov.gmres_chunk_start(Jv, b, x, rl)
-                B, x_p = None, x
-            bf = float(beta)
-            if bf <= target:
-                x = x_p
-                break
-            if beta_prev is not None and not (bf < beta_prev * (1.0 - 1e-6)):
-                # restart cycle stagnated (f32 floor)
-                x = x_p
-                break
-            beta_prev = bf
-            x = x_p
-            j, est = 0, bf
-            while j < rl and est > target and lin_its < cfg.lin_max_iters:
-                if U is not None:
-                    V, Z, H, B, est = krylov.gcro_chunk_arnoldi(Jv, Mx, C, V, Z, H, B, beta, j, ch)
-                else:
-                    V, Z, H, est = krylov.gmres_chunk_arnoldi(Jv, Mx, V, Z, H, beta, j, ch)
-                j += ch
-                lin_its += ch
-            if U is not None:
-                x = krylov.gcro_chunk_finish(x, Z, H, B, beta, U, j)
-            else:
-                x = krylov.gmres_chunk_finish(x, Z, H, beta, j)
-            if k_r > 0:
-                Un, Cn = krylov.gcro_update_recycle(U, C, V, Z, H, B, k_r, j)
-                if Un.shape[0] == k_r:
-                    U, C = Un, Cn
-            del V, Z, H, B
-        if U is not None:
-            U_carry = U
-        s_new, nrm_new = _line_search(R, cfg, s, x, nrm)
-        stalled = nrm_new >= nrm * (1.0 - cfg.stall_rtol)
-        s, nrm = s_new, nrm_new
-        it += 1
-        hist.append(nrm)
-        lin_hist.append(lin_its)
-        secs.append(time.perf_counter() - t0)
+                U_carry = U
+            with span("ns.line_search"):
+                s_new, nrm_new = _line_search(R, cfg, s, x, nrm)
+            stalled = nrm_new >= nrm * (1.0 - cfg.stall_rtol)
+            s, nrm = s_new, nrm_new
+            it += 1
+            hist.append(nrm)
+            lin_hist.append(lin_its)
+            secs.append(time.perf_counter() - t0)
         if stalled:
             break
     if recycle is not None:
@@ -212,18 +254,68 @@ def newton_solve_stepped(
     return NewtonResult(s, it, nrm, nrm <= cfg.accept_tol, hist, lin_hist, secs)
 
 
+def _linear_solve(Jv, Mx, b, target: float, cfg: NewtonConfig, rl: int, ch: int, k_r: int, U_carry):
+    """One Newton iterate's FGMRES solve of Jv x = b from zero, in cycles of
+    rl Arnoldi steps read every ch steps, deflated by the recycle space
+    U_carry (re-imaged first, k_r applies) when it has rank k_r.  Returns
+    (x, linear iterations, the recycle space it leaves or None)."""
+    x = torch.zeros_like(b)
+    lin_its = 0
+    beta_prev = None
+    U = C = None
+    if k_r > 0 and U_carry is not None and U_carry.shape[0] == k_r:
+        # re-image the recycle space against this iterate's Jacobian
+        # (k plain applies, charged to the linear budget)
+        U, C = krylov.gcro_prepare(Jv, U_carry)
+        lin_its += k_r
+    while lin_its < cfg.lin_max_iters:
+        if U is not None:
+            x_p, V, Z, H, B, beta = krylov.gcro_chunk_start(Jv, b, x, U, C, rl)
+        else:
+            V, Z, H, beta = krylov.gmres_chunk_start(Jv, b, x, rl)
+            B, x_p = None, x
+        bf = host_read(beta, float)
+        if bf <= target:
+            x = x_p
+            break
+        if beta_prev is not None and not (bf < beta_prev * (1.0 - 1e-6)):
+            # restart cycle stagnated (f32 floor)
+            x = x_p
+            break
+        beta_prev = bf
+        x = x_p
+        j, est = 0, bf
+        while j < rl and est > target and lin_its < cfg.lin_max_iters:
+            if U is not None:
+                V, Z, H, B, est = krylov.gcro_chunk_arnoldi(Jv, Mx, C, V, Z, H, B, beta, j, ch)
+            else:
+                V, Z, H, est = krylov.gmres_chunk_arnoldi(Jv, Mx, V, Z, H, beta, j, ch)
+            j += ch
+            lin_its += ch
+        if U is not None:
+            x = krylov.gcro_chunk_finish(x, Z, H, B, beta, U, j)
+        else:
+            x = krylov.gmres_chunk_finish(x, Z, H, beta, j)
+        if k_r > 0:
+            Un, Cn = krylov.gcro_update_recycle(U, C, V, Z, H, B, k_r, j)
+            if Un.shape[0] == k_r:
+                U, C = Un, Cn
+        del V, Z, H, B
+    return x, lin_its, U
+
+
 def _line_search(R, cfg: NewtonConfig, s, delta, nrm: float):
     """acceptBest backtracking: try lambda = reduce^k for every k, keep the
-    best.  One host sync, at the end."""
-    best_s = s
-    best = torch.tensor(nrm, dtype=s.dtype, device=s.device)
+    best.  One host sync, at the end (nrm enters the comparisons as a
+    scalar, rounded to s's dtype, not as a tensor copied to the device)."""
+    best_s, best = s, nrm
     for k in range(cfg.line_search_steps):
         s_try = s + cfg.line_search_reduce**k * delta
         nrm_t = _norm(R(s_try))
         better = nrm_t < best
         best_s = torch.where(better, s_try, best_s)
         best = torch.where(better, nrm_t, best)
-    return best_s, float(best)
+    return best_s, host_read(best, float)
 
 
 def drag_gradient(space, coords, s, visc):
